@@ -347,16 +347,13 @@ def check_reduction(model, trainer, data) -> dict:
             for _ in range(3))
         parts[w] = {"grads_s": grads_s, "grads_issue_s": grads_issue_s,
                     "ring_s": ring_s}
-        if w == 4:
-            reduced = reduce_grads(grads, ring, "compressed-fused")[0]
-            home = devices[0]
-            parts[w]["update_s"] = min(synced_s(lambda: trainer.optimizer.update(
-                _unflatten(reduced), trainer.opt_state[home],
-                trainer.params[home], lr=LR))[0] for _ in range(3))
-            del reduced
-        del grads
+        reduced = reduce_grads(grads, ring, "compressed-fused")[0]
+        home = devices[0]
+        parts[w]["update_s"] = min(synced_s(lambda: trainer.optimizer.update(
+            _unflatten(reduced), trainer.opt_state[home],
+            trainer.params[home], lr=LR))[0] for _ in range(3))
+        del reduced, grads
         torch.cuda.empty_cache()
-    parts[2]["update_s"] = parts[4]["update_s"]   # the same work at any w
     return {"worst_rel": worst, "parts": parts}
 
 

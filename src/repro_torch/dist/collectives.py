@@ -25,10 +25,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 
-def _ring_perm(w: int, reverse: bool = False):
-    """ppermute pairs for a unidirectional ring (src, dst)."""
-    if reverse:
-        return [(i, (i - 1) % w) for i in range(w)]
+def _ring_perm(w: int):
+    """ppermute pairs for the forward unidirectional ring (src, dst)."""
     return [(i, (i + 1) % w) for i in range(w)]
 
 

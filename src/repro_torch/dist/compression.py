@@ -46,19 +46,19 @@ DEFAULT_BLOCK = 4096
 
 def pack_hop_message(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Pack a ``(n_blocks, block)`` payload and its ``(n_blocks,)`` f32
-    scales into one int8 wire buffer: payload first (an fp8 payload as its
-    bytes), then each scale as its 4 little-endian bytes."""
+    scales into one int8 wire buffer: payload first, then each scale as its
+    4 little-endian bytes."""
     return torch.cat([q.reshape(-1).view(torch.int8),
                       scales.contiguous().view(torch.int8)])
 
 
-def unpack_hop_message(msg: torch.Tensor, n_blocks: int, block: int,
-                       wire_dtype=torch.int8) -> Tuple[torch.Tensor, torch.Tensor]:
+def unpack_hop_message(msg: torch.Tensor, n_blocks: int, block: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inverse of :func:`pack_hop_message`. The payload is a view of
     ``msg``; the trailer is copied, since it starts at ``n_blocks * block``,
     which need not be a multiple of 4 bytes."""
     n = n_blocks * block
-    q = msg[:n].view(n_blocks, block).view(wire_dtype)
+    q = msg[:n].view(n_blocks, block)
     scales = msg[n:].clone().view(torch.float32)
     return q, scales
 

@@ -15,7 +15,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -69,10 +68,8 @@ def build(name: str) -> Path:
 
 
 def build_all() -> Dict[str, Path]:
-    """Build every ``csrc/*.cu``, one ``nvcc`` per source, all at once."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        return dict(zip(names, pool.map(build, names)))
+    """Build every ``csrc/*.cu``."""
+    return {n: build(n) for n in sorted(p.stem for p in CSRC.glob("*.cu"))}
 
 
 @functools.lru_cache(maxsize=None)

@@ -36,7 +36,6 @@ def main(argv=None) -> None:
     p.add_argument("--seq", type=int, default=64)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--mode", default="ring", choices=list(RING_STEP_MODES))
-    p.add_argument("--optimizer", default=None)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--log-every", type=int, default=10)
     args = p.parse_args(argv)
@@ -46,7 +45,7 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     model = build_model(cfg)
     data = SyntheticTokens(cfg.vocab, args.seq, args.global_batch)
-    opt = make_optimizer(args.optimizer or cfg.optimizer)
+    opt = make_optimizer(cfg.optimizer)
     trainer = ElasticTrainer(model, opt, data,
                              global_batch=args.global_batch,
                              base_lr=args.lr, mode=args.mode,

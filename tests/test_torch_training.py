@@ -5,10 +5,22 @@ ring), across a slot-boundary resize w=4 -> 2 and a mid-slot re-ring.
 
 The JAX trainers run in one subprocess (this file run as a script) on 8
 host devices, the reference's layout; the port runs its ranks on the CPU
-and starts from the reference trainer's initial parameters. Tolerances:
-1e-4 for ``ring`` and 1e-2 for ``compressed-fused`` (the reference's own
-fused-vs-XLA training bound is 2e-2, tests/test_training.py). Measured on
-these runs: at most 9.5e-7 (one ulp of the loss) in both modes.
+and starts from the reference trainer's initial parameters.
+
+Losses agree to atol 1e-5 in both modes; measured: at most 9.5e-7 (one ulp
+of the loss). AdamW's update does not change when every gradient is scaled
+by one factor, so the losses alone would pass a reduced gradient of the
+wrong scale (a missing ``/ w``). The final parameters and the AdamW moments
+m and v are therefore held against the reference's too, per leaf, by
+||port - ref|| / ||ref||: a gradient k times too large makes that k - 1 for
+m and k^2 - 1 for v. Limits, with the largest measured per-leaf gaps:
+
+  * ``ring``: 1e-5 (measured 1.7e-6). The f32 ring is bit-identical to the
+    reference's; what is left is autograd's ulps.
+  * ``compressed-fused``: 5e-3 (measured 7.6e-4, on m). Each rank's
+    gradient differs from the reference's by ulps, which now and then moves
+    an element across a rounding tie of the int8 quantizer: one int8 step,
+    1/127 of its block's amax.
 """
 
 import inspect
@@ -39,7 +51,9 @@ from repro_torch.training.optimizer import make_optimizer
 ARCH = "qwen3-0.6b"
 SEQ, GLOBAL_BATCH, LR = 16, 8, 1e-3
 PLANS = [(4, 2, None), (2, 2, None), (4, 4, (2, 2))]
-MODES = {"ring": 1e-4, "compressed-fused": 1e-2}
+# mode -> limit on each final leaf's relative gap to the reference
+MODES = {"ring": 1e-5, "compressed-fused": 5e-3}
+LOSS_ATOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -82,8 +96,18 @@ def test_trainer_matches_reference_loss_for_loss(jax_out, mode):
         assert res["steps"] == steps and res["workers"] == workers
     want = jax_out[f"{mode}/losses"]
     assert len(tr.losses) == len(want) == 8
-    np.testing.assert_allclose(tr.losses, want, rtol=0, atol=MODES[mode])
+    np.testing.assert_allclose(tr.losses, want, rtol=0, atol=LOSS_ATOL)
     assert tr.losses[-1] < tr.losses[0]
+    state = {"params": next(iter(tr.params.values())),
+             "opt": next(iter(tr.opt_state.values()))}
+    leaves = dict(_flatten(state))
+    assert sorted(leaves) == sorted(k[len(f"{mode}/final/"):] for k in jax_out
+                                    if k.startswith(f"{mode}/final/"))
+    assert int(leaves.pop("opt/step")) == int(jax_out[f"{mode}/final/opt/step"]) == 8
+    for path, v in leaves.items():
+        ref = jax_out[f"{mode}/final/{path}"].astype(np.float64)
+        gap = np.linalg.norm(v.numpy().astype(np.float64) - ref) / np.linalg.norm(ref)
+        assert gap < MODES[mode], (path, gap)
     re_rings, compiles, reshards, step = jax_out[f"{mode}/counts"]
     assert tr.re_ring_events == re_rings == 1
     assert tr.group.compile_count == compiles == 2   # w=4 and w=2, reused
@@ -161,6 +185,9 @@ def _jax_reference(out):
         for workers, steps, leave in PLANS:
             tr.run_slot(JaxPlan(workers, steps, leave=leave))
         res[f"{mode}/losses"] = np.array(tr.losses)
+        state = {"params": tr.params, "opt": tr.opt_state}
+        for path, v in _flatten(jax.device_get(state)):
+            res[f"{mode}/final/{path}"] = np.asarray(v)
         res[f"{mode}/counts"] = np.array([tr.re_ring_events,
                                           tr.group.compile_count,
                                           tr.resharding_events, tr.step])
