@@ -4,8 +4,8 @@
 The reference runs every rank of a ring inside one ``shard_map`` and moves
 data with ``lax.ppermute``. Here a collective takes the list of the w ranks'
 tensors and a transport whose :meth:`LocalRing.hop` is one ppermute along
-the forward ring ``_ring_perm(w)``. The hop order is the reference's
-exactly:
+the forward ring ``_ring_perm(w)`` (or the reversed one). The hop order is
+the reference's exactly:
 
   * Share-Reduce (w-1 hops): at hop s rank i sends its partial sum of chunk
     (i - s) mod w to rank i+1 and adds the chunk arriving from rank i-1.
@@ -13,9 +13,12 @@ exactly:
   * Share-Only (w-1 hops): the reduced chunks circulate until every rank
     holds them all.
 
-The f32 sums are therefore bit-identical to the reference's. Per-rank wire
-traffic is 2 d (w-1)/w elements (:func:`ring_wire_elements`), which
-:class:`LocalRing` counts from the messages it actually carries.
+A reversed ring (rank i sends to i-1) runs the same schedule under the
+relabelling j = -i mod w. The f32 sums are therefore bit-identical to the
+reference's. Per-rank wire traffic is 2 d (w-1)/w elements
+(:func:`ring_wire_elements`), which :class:`LocalRing` counts from the
+messages it actually carries. :func:`psum_all_reduce` is no ring: it is
+the counterpart of ``lax.psum``, and :class:`LocalRing` counts it apart.
 """
 
 from __future__ import annotations
@@ -25,8 +28,11 @@ from typing import List, Sequence, Tuple
 import torch
 
 
-def _ring_perm(w: int):
-    """ppermute pairs for the forward unidirectional ring (src, dst)."""
+def _ring_perm(w: int, reverse: bool = False):
+    """ppermute pairs for a unidirectional ring (src, dst); mirrors the
+    reference's ``collectives._ring_perm``."""
+    if reverse:
+        return [(i, (i - 1) % w) for i in range(w)]
     return [(i, (i + 1) % w) for i in range(w)]
 
 
@@ -40,13 +46,23 @@ def _as_chunks(x: torch.Tensor, w: int) -> Tuple[torch.Tensor, int]:
     return flat.view(w, -1), pad
 
 
+def _effective_indices(w: int, reverse: bool) -> List[int]:
+    """Each rank's position in forward-ring coordinates: a reversed ring is
+    the forward ring under the relabelling j = -i mod w, so one schedule
+    serves both directions."""
+    return [(w - i) % w if reverse else i for i in range(w)]
+
+
 class LocalRing:
     """The ranks of one ring, all driven by this process.
 
     Rank r lives on ``devices[r]``; on one card every rank is the same
-    device. :meth:`hop` is one ppermute along the forward ring: rank r
-    receives a copy of what rank r-1 sent, in a buffer of its own on its
-    own device. ``messages[r]`` and ``bytes[r]`` count what rank r sent.
+    device. :meth:`hop` is one ppermute along the forward (or reversed)
+    ring: rank r receives a copy of what its ring neighbour sent, in a
+    buffer of its own on its own device. ``messages[r]`` and ``bytes[r]``
+    count what rank r sent on the ring, ``directions`` the ring
+    permutations the hops used, and ``psums[r]`` the psum collectives rank
+    r joined, which are no ring hops.
     """
 
     def __init__(self, devices: Sequence):
@@ -54,53 +70,125 @@ class LocalRing:
         self.size = len(self.devices)
         self.messages = [0] * self.size
         self.bytes = [0] * self.size
+        self.psums = [0] * self.size
+        self.directions: set = set()
 
-    def hop(self, sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def hop(self, sends: Sequence[torch.Tensor], *, reverse: bool = False
+            ) -> List[torch.Tensor]:
         w = self.size
         if len(sends) != w:
             raise ValueError(f"hop needs one message per rank ({w}), "
                              f"got {len(sends)}")
         recvs: List[torch.Tensor] = [None] * w
-        for src, dst in _ring_perm(w):
+        for src, dst in _ring_perm(w, reverse):
             msg = sends[src]
             recvs[dst] = msg.to(self.devices[dst], copy=True)
             self.messages[src] += 1
             self.bytes[src] += msg.numel() * msg.element_size()
+        self.directions.add("reverse" if reverse else "forward")
         return recvs
 
+    def psum(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Every rank's sum of ``xs``, taken in rank order on rank 0's device
+        and copied to each rank's (the counterpart of ``lax.psum``)."""
+        w = self.size
+        if len(xs) != w:
+            raise ValueError(f"psum needs one tensor per rank ({w}), "
+                             f"got {len(xs)}")
+        home = self.devices[0]
+        total = xs[0].to(home, copy=True)
+        for x in xs[1:]:
+            total += x.to(home)
+        for r in range(w):
+            self.psums[r] += 1
+        return [total.to(d, copy=True) for d in self.devices]
 
-def _reduce_scatter_chunks(chunks: List[torch.Tensor], ring: LocalRing) -> None:
+
+def _reduce_scatter_chunks(chunks: List[torch.Tensor], ring: LocalRing, *,
+                           reverse: bool = False) -> None:
     """In-place Share-Reduce over each rank's (w, chunk) tensor; chunk
-    (i+1) % w ends fully reduced on rank i."""
+    (j+1) % w ends fully reduced on the rank of effective index j."""
     w = ring.size
+    idx = _effective_indices(w, reverse)
     for s in range(w - 1):
-        recvs = ring.hop([chunks[i][(i - s) % w] for i in range(w)])
+        recvs = ring.hop([chunks[i][(idx[i] - s) % w] for i in range(w)],
+                         reverse=reverse)
         for i in range(w):
-            chunks[i][(i - s - 1) % w] += recvs[i]
+            chunks[i][(idx[i] - s - 1) % w] += recvs[i]
 
 
-def _all_gather_chunks(chunks: List[torch.Tensor], ring: LocalRing) -> None:
+def _all_gather_chunks(chunks: List[torch.Tensor], ring: LocalRing, *,
+                       reverse: bool = False) -> None:
     """In-place Share-Only: circulate reduced chunks until all w are present."""
     w = ring.size
+    idx = _effective_indices(w, reverse)
     for s in range(w - 1):
-        recvs = ring.hop([chunks[i][(i + 1 - s) % w] for i in range(w)])
+        recvs = ring.hop([chunks[i][(idx[i] + 1 - s) % w] for i in range(w)],
+                         reverse=reverse)
         for i in range(w):
-            chunks[i][(i - s) % w] = recvs[i]
+            chunks[i][(idx[i] - s) % w] = recvs[i]
 
 
-def ring_all_reduce(xs: Sequence[torch.Tensor], ring: LocalRing
-                    ) -> List[torch.Tensor]:
-    """Paper-faithful ring all-reduce: 2(w-1) hops, sum semantics. ``xs[r]``
-    is rank r's tensor; returns every rank's sum, each on its own device."""
+def _check_ranks(xs: Sequence[torch.Tensor], ring: LocalRing) -> None:
+    if len(xs) != ring.size:
+        raise ValueError(f"need one tensor per rank ({ring.size}), got {len(xs)}")
+
+
+def _ring_all_reduce_flat(xs: Sequence[torch.Tensor], ring: LocalRing,
+                          reverse: bool) -> List[torch.Tensor]:
     w = ring.size
-    if len(xs) != w:
-        raise ValueError(f"need one tensor per rank ({w}), got {len(xs)}")
-    shape, n = xs[0].shape, xs[0].numel()
+    n = xs[0].numel()
     chunks = [_as_chunks(x, w)[0] for x in xs]
     if w > 1:
-        _reduce_scatter_chunks(chunks, ring)
-        _all_gather_chunks(chunks, ring)
-    return [c.reshape(-1)[:n].reshape(shape) for c in chunks]
+        _reduce_scatter_chunks(chunks, ring, reverse=reverse)
+        _all_gather_chunks(chunks, ring, reverse=reverse)
+    return [c.reshape(-1)[:n] for c in chunks]
+
+
+def ring_all_reduce(xs: Sequence[torch.Tensor], ring: LocalRing, *,
+                    reverse: bool = False) -> List[torch.Tensor]:
+    """Paper-faithful ring all-reduce: 2(w-1) hops, sum semantics. ``xs[r]``
+    is rank r's tensor; returns every rank's sum, each on its own device.
+    ``reverse=True`` runs the ring the other way round."""
+    _check_ranks(xs, ring)
+    shape = xs[0].shape
+    return [f.reshape(shape) for f in _ring_all_reduce_flat(xs, ring, reverse)]
+
+
+def ring_reduce_scatter(xs: Sequence[torch.Tensor], ring: LocalRing
+                        ) -> List[torch.Tensor]:
+    """Share-Reduce phase only: rank i gets its reduced chunk (i+1) mod w,
+    flat, of ceil(d / w) elements. Forward ring only."""
+    _check_ranks(xs, ring)
+    w = ring.size
+    chunks = [_as_chunks(x, w)[0] for x in xs]
+    if w == 1:
+        return [chunks[0].reshape(-1)]
+    _reduce_scatter_chunks(chunks, ring)
+    return [chunks[i][(i + 1) % w] for i in range(w)]
+
+
+def bidirectional_ring_all_reduce(xs: Sequence[torch.Tensor], ring: LocalRing
+                                  ) -> List[torch.Tensor]:
+    """Counter-rotating half-rings: the first half of the flat gradient
+    takes the forward ring, the second half the reversed one."""
+    _check_ranks(xs, ring)
+    if ring.size == 1:
+        return list(xs)
+    shape = xs[0].shape
+    flats = [x.reshape(-1) for x in xs]
+    half = (flats[0].numel() + 1) // 2
+    fwd = _ring_all_reduce_flat([f[:half] for f in flats], ring, reverse=False)
+    bwd = _ring_all_reduce_flat([f[half:] for f in flats], ring, reverse=True)
+    return [torch.cat([a, b]).reshape(shape) for a, b in zip(fwd, bwd)]
+
+
+def psum_all_reduce(xs: Sequence[torch.Tensor], ring: LocalRing
+                    ) -> List[torch.Tensor]:
+    """The all-reduce baseline with no explicit ring (``lax.psum`` in the
+    reference): one :meth:`LocalRing.psum`."""
+    _check_ranks(xs, ring)
+    return ring.psum(xs)
 
 
 def ring_wire_elements(d: float, w: int) -> float:

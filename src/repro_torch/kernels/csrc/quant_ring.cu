@@ -1,32 +1,51 @@
-// Fused int8 ring hop kernels for Hopper (sm_90a), bound to Python with
-// ctypes by repro_torch/kernels/quant_ring.py.
+// Fused ring hop kernels for Hopper (sm_90a), bound to Python with ctypes by
+// repro_torch/kernels/quant_ring.py.
 //
 // Each kernel replaces one Pallas TPU kernel of src/repro/kernels/quant_ring.py:
-//   quantize_pack          quantize_pack_pallas          (pallas_call at :188)
-//   dequant_add_quantize   dequant_add_quantize_pallas   (pallas_call at :226)
-//   dequant_accumulate     dequant_accumulate_pallas     (with acc, :275)
-//   dequant                dequant_accumulate_pallas     (acc=None, :267)
+//   quantize_pack[_fp8]          quantize_pack_pallas          (pallas_call at :188)
+//   dequant_add_quantize[_fp8]   dequant_add_quantize_pallas   (pallas_call at :226)
+//   dequant_accumulate[_fp8]     dequant_accumulate_pallas     (with acc, :275)
+//   dequant[_fp8]                dequant_accumulate_pallas     (acc=None, :267)
+//   cast_pack_bf16               cast_pack_bf16_pallas         (pallas_call at :303)
+//   bf16_add_cast                bf16_add_cast_pallas          (pallas_call at :328)
+//   bf16_accumulate              bf16_accumulate_pallas        (with acc, :370)
+//   bf16_upcast                  bf16_accumulate_pallas        (acc=None, :362)
+// The four quantized kernels are templates over the wire payload: int8
+// (qmax 127, rounded half to even) and fp8 e4m3 (qmax 448, rounded by the
+// cast); the *_fp8 entry points are the e4m3 instantiations.
 //
 // Bound: bytes. Each kernel reads every input element once, writes every
 // output element once and does a handful of flops per element, far below
 // the card's operations-per-byte line. Per element: quantize_pack 5 bytes
-// (f32 in, int8 out), dequant_add_quantize 6 (int8 + f32 in, int8 out),
-// dequant_accumulate 9 (int8 + f32 in, f32 out), dequant 5 (int8 in, f32
-// out): the counts quant_ring.py:187,223,261 budget, plus 4 or 8 bytes of
-// scales per row. The two quantizing kernels give each sub-block row to one
-// thread block: the row's amax is a block reduction, and the second pass
-// reads the row again from L1/L2 rather than holding it in registers, which
-// puts no limit on the row length. The dequantizers take one row per thread
-// block as well, so each thread reads its row's scale once.
+// (f32 in, 1-byte payload out), dequant_add_quantize 6 (payload + f32 in,
+// payload out), dequant_accumulate 9 (payload + f32 in, f32 out), dequant 5
+// (payload in, f32 out): the counts quant_ring.py:187,223,261 budget, plus
+// 4 or 8 bytes of scales per row. The bf16 kernels move 6 (cast_pack_bf16),
+// 8 (bf16_add_cast), 10 (bf16_accumulate) and 6 (bf16_upcast) bytes per
+// element, the counts of quant_ring.py:301,326,358.
+//
+// The two quantizing kernels give each sub-block row to one thread block:
+// the row's amax is a block reduction, and the second pass reads the row
+// again from L1/L2 rather than holding it in registers, which puts no limit
+// on the row length. The dequantizers take one row per thread block as
+// well, so each thread reads its row's scale once. The bf16 kernels have no
+// rows (no scales): a flat grid-stride loop over all elements.
 //
 // Bits. The kernels are bit-exact against the plain PyTorch versions:
-//   scale = amax > 0 ? amax / 127 : 1, q = rint(x / scale) clamped to +-127,
-//   with correctly rounded division (__fdiv_rn; a multiply by 1/scale would
-//   give other bits) and rintf rounding half to even as torch.round does;
+//   scale = amax > 0 ? amax / qmax : 1 with correctly rounded division
+//   (__fdiv_rn; a multiply by 1/scale would give other bits);
+//   int8: q = rint(x / scale) clamped to +-127, rintf rounding half to even
+//   as torch.round does;
+//   fp8: q = e4m3(clamp(x / scale, +-448)), the cast rounding to nearest
+//   even (subnormals included) as torch's float8_e4m3fn cast does;
 //   y = acc + q * scale as __fadd_rn(acc, __fmul_rn(q, scale)), which the
-//   compiler never contracts into an FMA.
+//   compiler never contracts into an FMA; e4m3 -> f32 is exact;
+//   bf16: __float2bfloat16_rn (round to nearest even) and the exact upcast.
 // fmaxf drops a NaN where torch.amax propagates it, so inputs must be finite.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,7 +53,33 @@ namespace {
 
 constexpr int kRowThreads = 256;
 constexpr int kWarps = kRowThreads / 32;
-constexpr float kQmax = 127.f;
+constexpr int kFlatThreads = 256;
+
+// The int8 wire: integer codes, rounded half to even.
+struct Int8Wire {
+  using T = int8_t;
+  static constexpr float kQmax = 127.f;
+  __device__ static __forceinline__ T encode(float y, float scale) {
+    const float v = rintf(__fdiv_rn(y, scale));
+    return static_cast<T>(fminf(fmaxf(v, -kQmax), kQmax));
+  }
+  __device__ static __forceinline__ float decode(T q) {
+    return static_cast<float>(q);
+  }
+};
+
+// The fp8 wire: e4m3 codes (stored as their raw byte), the cast rounding.
+struct Fp8Wire {
+  using T = __nv_fp8_storage_t;
+  static constexpr float kQmax = 448.f;
+  __device__ static __forceinline__ T encode(float y, float scale) {
+    const float v = fminf(fmaxf(__fdiv_rn(y, scale), -kQmax), kQmax);
+    return __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
+  }
+  __device__ static __forceinline__ float decode(T q) {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(q, __NV_E4M3)));
+  }
+};
 
 // Max over the thread block; every thread gets the result. Called once per
 // kernel, so the shared scratch is never reused.
@@ -50,68 +95,159 @@ __device__ __forceinline__ float block_max(float v) {
   return v;
 }
 
+template <class W>
 __device__ __forceinline__ float row_scale(float amax) {
-  return amax > 0.f ? __fdiv_rn(amax, kQmax) : 1.f;
+  return amax > 0.f ? __fdiv_rn(amax, W::kQmax) : 1.f;
 }
 
-__device__ __forceinline__ int8_t quantize(float y, float scale) {
-  const float v = rintf(__fdiv_rn(y, scale));
-  return static_cast<int8_t>(fminf(fmaxf(v, -kQmax), kQmax));
+template <class W>
+__device__ __forceinline__ float dequant_add(typename W::T q, float scale, float acc) {
+  return __fadd_rn(acc, __fmul_rn(W::decode(q), scale));
 }
 
-__device__ __forceinline__ float dequant_add(int8_t q, float scale, float acc) {
-  return __fadd_rn(acc, __fmul_rn(static_cast<float>(q), scale));
-}
-
+template <class W>
 __global__ void __launch_bounds__(kRowThreads)
-quantize_pack_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+quantize_pack_kernel(const float* __restrict__ x, typename W::T* __restrict__ q,
                      float* __restrict__ scales, int64_t block) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
   float m = 0.f;
   for (int64_t i = threadIdx.x; i < block; i += kRowThreads)
     m = fmaxf(m, fabsf(x[base + i]));
-  const float scale = row_scale(block_max(m));
+  const float scale = row_scale<W>(block_max(m));
   if (threadIdx.x == 0) scales[blockIdx.x] = scale;
   for (int64_t i = threadIdx.x; i < block; i += kRowThreads)
-    q[base + i] = quantize(x[base + i], scale);
+    q[base + i] = W::encode(x[base + i], scale);
 }
 
+template <class W>
 __global__ void __launch_bounds__(kRowThreads)
-dequant_add_quantize_kernel(const int8_t* __restrict__ q,
+dequant_add_quantize_kernel(const typename W::T* __restrict__ q,
                             const float* __restrict__ scales,
                             const float* __restrict__ acc,
-                            int8_t* __restrict__ q_out,
+                            typename W::T* __restrict__ q_out,
                             float* __restrict__ s_out, int64_t block) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
   const float s = scales[blockIdx.x];
   float m = 0.f;
   for (int64_t i = threadIdx.x; i < block; i += kRowThreads)
-    m = fmaxf(m, fabsf(dequant_add(q[base + i], s, acc[base + i])));
-  const float scale = row_scale(block_max(m));
+    m = fmaxf(m, fabsf(dequant_add<W>(q[base + i], s, acc[base + i])));
+  const float scale = row_scale<W>(block_max(m));
   if (threadIdx.x == 0) s_out[blockIdx.x] = scale;
   // recomputing y gives the same bits as the first pass
   for (int64_t i = threadIdx.x; i < block; i += kRowThreads)
-    q_out[base + i] = quantize(dequant_add(q[base + i], s, acc[base + i]), scale);
+    q_out[base + i] = W::encode(dequant_add<W>(q[base + i], s, acc[base + i]), scale);
 }
 
+template <class W>
 __global__ void __launch_bounds__(kRowThreads)
-dequant_accumulate_kernel(const int8_t* __restrict__ q,
+dequant_accumulate_kernel(const typename W::T* __restrict__ q,
                           const float* __restrict__ scales,
                           const float* __restrict__ acc,
                           float* __restrict__ out, int64_t block) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
   const float s = scales[blockIdx.x];
   for (int64_t i = threadIdx.x; i < block; i += kRowThreads)
-    out[base + i] = dequant_add(q[base + i], s, acc[base + i]);
+    out[base + i] = dequant_add<W>(q[base + i], s, acc[base + i]);
 }
 
+template <class W>
 __global__ void __launch_bounds__(kRowThreads)
-dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
+dequant_kernel(const typename W::T* __restrict__ q, const float* __restrict__ scales,
                float* __restrict__ out, int64_t block) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
   const float s = scales[blockIdx.x];
   for (int64_t i = threadIdx.x; i < block; i += kRowThreads)
-    out[base + i] = __fmul_rn(static_cast<float>(q[base + i]), s);
+    out[base + i] = __fmul_rn(W::decode(q[base + i]), s);
+}
+
+__global__ void __launch_bounds__(kFlatThreads)
+cast_pack_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                      int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kFlatThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kFlatThreads + threadIdx.x;
+       i < n; i += stride)
+    out[i] = __float2bfloat16_rn(x[i]);
+}
+
+__global__ void __launch_bounds__(kFlatThreads)
+bf16_add_cast_kernel(const __nv_bfloat16* __restrict__ recv,
+                     const float* __restrict__ acc,
+                     __nv_bfloat16* __restrict__ out, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kFlatThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kFlatThreads + threadIdx.x;
+       i < n; i += stride)
+    out[i] = __float2bfloat16_rn(__fadd_rn(acc[i], __bfloat162float(recv[i])));
+}
+
+__global__ void __launch_bounds__(kFlatThreads)
+bf16_accumulate_kernel(const __nv_bfloat16* __restrict__ recv,
+                       const float* __restrict__ acc, float* __restrict__ out,
+                       int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kFlatThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kFlatThreads + threadIdx.x;
+       i < n; i += stride)
+    out[i] = __fadd_rn(acc[i], __bfloat162float(recv[i]));
+}
+
+__global__ void __launch_bounds__(kFlatThreads)
+bf16_upcast_kernel(const __nv_bfloat16* __restrict__ recv, float* __restrict__ out,
+                   int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kFlatThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kFlatThreads + threadIdx.x;
+       i < n; i += stride)
+    out[i] = __bfloat162float(recv[i]);
+}
+
+// Thread blocks of a flat kernel: one per kFlatThreads elements, at most
+// 16 per SM of the card's 132 (the grid-stride loop covers the rest).
+unsigned int flat_blocks(int64_t n) {
+  const int64_t want = (n + kFlatThreads - 1) / kFlatThreads;
+  return static_cast<unsigned int>(want < 132 * 16 ? want : 132 * 16);
+}
+
+cudaStream_t as_stream(void* stream) { return static_cast<cudaStream_t>(stream); }
+
+template <class W>
+int launch_quantize_pack(const void* x, void* q, void* scales,
+                         int64_t n_blocks, int64_t block, void* stream) {
+  quantize_pack_kernel<W><<<static_cast<unsigned int>(n_blocks), kRowThreads, 0,
+                            as_stream(stream)>>>(
+      static_cast<const float*>(x), static_cast<typename W::T*>(q),
+      static_cast<float*>(scales), block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class W>
+int launch_dequant_add_quantize(const void* q, const void* scales, const void* acc,
+                                void* q_out, void* s_out, int64_t n_blocks,
+                                int64_t block, void* stream) {
+  dequant_add_quantize_kernel<W><<<static_cast<unsigned int>(n_blocks), kRowThreads,
+                                   0, as_stream(stream)>>>(
+      static_cast<const typename W::T*>(q), static_cast<const float*>(scales),
+      static_cast<const float*>(acc), static_cast<typename W::T*>(q_out),
+      static_cast<float*>(s_out), block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class W>
+int launch_dequant_accumulate(const void* q, const void* scales, const void* acc,
+                              void* out, int64_t n_blocks, int64_t block,
+                              void* stream) {
+  dequant_accumulate_kernel<W><<<static_cast<unsigned int>(n_blocks), kRowThreads,
+                                 0, as_stream(stream)>>>(
+      static_cast<const typename W::T*>(q), static_cast<const float*>(scales),
+      static_cast<const float*>(acc), static_cast<float*>(out), block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class W>
+int launch_dequant(const void* q, const void* scales, void* out, int64_t n_blocks,
+                   int64_t block, void* stream) {
+  dequant_kernel<W><<<static_cast<unsigned int>(n_blocks), kRowThreads, 0,
+                      as_stream(stream)>>>(
+      static_cast<const typename W::T*>(q), static_cast<const float*>(scales),
+      static_cast<float*>(out), block);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -123,41 +259,79 @@ extern "C" {
 
 int quant_ring_quantize_pack(const void* x, void* q, void* scales,
                              int64_t n_blocks, int64_t block, void* stream) {
-  quantize_pack_kernel<<<static_cast<unsigned int>(n_blocks), kRowThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(q),
-      static_cast<float*>(scales), block);
-  return static_cast<int>(cudaGetLastError());
+  return launch_quantize_pack<Int8Wire>(x, q, scales, n_blocks, block, stream);
+}
+
+int quant_ring_quantize_pack_fp8(const void* x, void* q, void* scales,
+                                 int64_t n_blocks, int64_t block, void* stream) {
+  return launch_quantize_pack<Fp8Wire>(x, q, scales, n_blocks, block, stream);
 }
 
 int quant_ring_dequant_add_quantize(const void* q, const void* scales,
                                     const void* acc, void* q_out, void* s_out,
                                     int64_t n_blocks, int64_t block,
                                     void* stream) {
-  dequant_add_quantize_kernel<<<static_cast<unsigned int>(n_blocks), kRowThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-      static_cast<const float*>(acc), static_cast<int8_t*>(q_out),
-      static_cast<float*>(s_out), block);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dequant_add_quantize<Int8Wire>(q, scales, acc, q_out, s_out,
+                                               n_blocks, block, stream);
+}
+
+int quant_ring_dequant_add_quantize_fp8(const void* q, const void* scales,
+                                        const void* acc, void* q_out, void* s_out,
+                                        int64_t n_blocks, int64_t block,
+                                        void* stream) {
+  return launch_dequant_add_quantize<Fp8Wire>(q, scales, acc, q_out, s_out,
+                                              n_blocks, block, stream);
 }
 
 int quant_ring_dequant_accumulate(const void* q, const void* scales,
                                   const void* acc, void* out, int64_t n_blocks,
                                   int64_t block, void* stream) {
-  dequant_accumulate_kernel<<<static_cast<unsigned int>(n_blocks), kRowThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-      static_cast<const float*>(acc), static_cast<float*>(out), block);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dequant_accumulate<Int8Wire>(q, scales, acc, out, n_blocks, block,
+                                             stream);
+}
+
+int quant_ring_dequant_accumulate_fp8(const void* q, const void* scales,
+                                      const void* acc, void* out, int64_t n_blocks,
+                                      int64_t block, void* stream) {
+  return launch_dequant_accumulate<Fp8Wire>(q, scales, acc, out, n_blocks, block,
+                                            stream);
 }
 
 int quant_ring_dequant(const void* q, const void* scales, void* out,
                        int64_t n_blocks, int64_t block, void* stream) {
-  dequant_kernel<<<static_cast<unsigned int>(n_blocks), kRowThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(out), block);
+  return launch_dequant<Int8Wire>(q, scales, out, n_blocks, block, stream);
+}
+
+int quant_ring_dequant_fp8(const void* q, const void* scales, void* out,
+                           int64_t n_blocks, int64_t block, void* stream) {
+  return launch_dequant<Fp8Wire>(q, scales, out, n_blocks, block, stream);
+}
+
+int quant_ring_cast_pack_bf16(const void* x, void* out, int64_t n, void* stream) {
+  cast_pack_bf16_kernel<<<flat_blocks(n), kFlatThreads, 0, as_stream(stream)>>>(
+      static_cast<const float*>(x), static_cast<__nv_bfloat16*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int quant_ring_bf16_add_cast(const void* recv, const void* acc, void* out,
+                             int64_t n, void* stream) {
+  bf16_add_cast_kernel<<<flat_blocks(n), kFlatThreads, 0, as_stream(stream)>>>(
+      static_cast<const __nv_bfloat16*>(recv), static_cast<const float*>(acc),
+      static_cast<__nv_bfloat16*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int quant_ring_bf16_accumulate(const void* recv, const void* acc, void* out,
+                               int64_t n, void* stream) {
+  bf16_accumulate_kernel<<<flat_blocks(n), kFlatThreads, 0, as_stream(stream)>>>(
+      static_cast<const __nv_bfloat16*>(recv), static_cast<const float*>(acc),
+      static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int quant_ring_bf16_upcast(const void* recv, void* out, int64_t n, void* stream) {
+  bf16_upcast_kernel<<<flat_blocks(n), kFlatThreads, 0, as_stream(stream)>>>(
+      static_cast<const __nv_bfloat16*>(recv), static_cast<float*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,7 @@ from repro_torch.training.optimizer import make_optimizer
 from repro_torch.training.train_step import RING_STEP_MODES
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True, choices=list_archs())
     p.add_argument("--reduced", action="store_true",
@@ -35,10 +35,14 @@ def main(argv=None) -> None:
     p.add_argument("--global-batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=64)
     p.add_argument("--lr", type=float, default=1e-3)
-    p.add_argument("--mode", default="ring", choices=list(RING_STEP_MODES))
+    p.add_argument("--mode", default="ring", choices=RING_STEP_MODES)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--log-every", type=int, default=10)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
 
     cfg = get_arch(args.arch)
     if args.reduced:

@@ -36,11 +36,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.dist.collectives import LocalRing
+from repro_torch.dist.registry import STEP_MODES
 from repro_torch.models.module import params_from_reference, tree_map
 from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.training.optimizer import Optimizer
 from repro_torch.training.train_step import (
-    WIRE_DTYPES,
+    OVERLAP_MODE,
     Replicas,
     check_mode,
     distinct_devices,
@@ -100,7 +101,9 @@ class RingWorkerGroup:
     """Rank slots + ring-program cache for one job's elastic ring.
 
     ``compile_count`` counts cache misses, so equal-sized back-to-back
-    slots can be shown to reuse their ring program.
+    slots can be shown to reuse their ring program. ``mode`` is any of the
+    eight ``STEP_MODES``; ``n_buckets`` overrides the overlap mode's bucket
+    count (the registry's by default).
     """
 
     # attributes the ring program closes over when it is built: part of its
@@ -111,6 +114,7 @@ class RingWorkerGroup:
 
     def __init__(self, model, optimizer: Optimizer, *, global_batch: int,
                  lr: float, mode: str = "ring",
+                 n_buckets: Optional[int] = None,
                  devices: Optional[Sequence] = None):
         check_mode(mode)
         self.model = model
@@ -119,8 +123,12 @@ class RingWorkerGroup:
         self.lr = lr
         self.mode = mode
         self.devices = [torch.device(d) for d in (devices or ring_devices())]
-        self.n_buckets: Optional[int] = None   # no bucketed mode is ported
-        self.wire_dtype = WIRE_DTYPES[mode]
+        spec = STEP_MODES[mode]
+        # resolved bucket count (None for the modes without buckets) and
+        # wire payload dtype: both change the ring program, so both sit in
+        # the cache key beside the mode
+        self.n_buckets = spec.n_buckets if n_buckets is None else int(n_buckets)
+        self.wire_dtype = spec.wire_dtype
         self.workers = 0                 # current ring size (0 = unformed)
         self.compile_count = 0           # ring-program cache misses
         self._programs: Dict[Tuple[int, str, Optional[int], str],
@@ -161,8 +169,11 @@ class RingWorkerGroup:
             ring = LocalRing(self.devices[:w])
             prog = _RingProgram(
                 ring=ring,
-                step_fn=make_ring_train_step(self.model, self.optimizer, ring,
-                                             lr=self.lr, mode=self.mode))
+                step_fn=make_ring_train_step(
+                    self.model, self.optimizer, ring, lr=self.lr,
+                    mode=self.mode,
+                    n_buckets=self.n_buckets if self.mode == OVERLAP_MODE
+                    else None))
             self._programs[key] = prog
             self.compile_count += 1
         return prog
@@ -207,7 +218,8 @@ class ElasticTrainer:
 
     ``params``/``opt_state`` are replicas: one tree per distinct device of
     the current ring. ``params=`` (a tree on ``devices[0]``) starts from
-    given weights instead of ``model.init(0)``. Matrix products run in full
+    given weights instead of ``model.init(0)``; ``n_buckets`` goes to the
+    :class:`RingWorkerGroup`. Matrix products run in full
     f32: the constructor turns TF32 off for matmuls and cuDNN, process-wide,
     as the reference trains in f32.
     """
@@ -215,8 +227,8 @@ class ElasticTrainer:
     def __init__(self, model, optimizer: Optimizer, data, *,
                  global_batch: int, base_lr: float = 1e-3,
                  mode: str = "ring", checkpoint_dir: Optional[str] = None,
-                 device="cuda", devices: Optional[Sequence] = None,
-                 params=None):
+                 n_buckets: Optional[int] = None, device="cuda",
+                 devices: Optional[Sequence] = None, params=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.model = model
@@ -230,6 +242,7 @@ class ElasticTrainer:
                                      global_batch=global_batch,
                                      lr=base_lr,  # fixed global batch =>
                                      mode=mode,   # fixed LR (w splits only)
+                                     n_buckets=n_buckets,
                                      devices=devices or ring_devices(device))
         home = self.group.devices[0]
         if params is None:

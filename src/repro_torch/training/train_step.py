@@ -7,43 +7,60 @@ process drives the w ranks of a :class:`~repro_torch.dist.collectives.LocalRing`
   1. the global batch splits into w contiguous row blocks, as ``P("data")``
      shards it;
   2. each rank takes its loss and gradients with ``torch.autograd.grad``;
-  3. each gradient leaf is reduced across the ranks by the mode's ring and
-     divided by w; the loss is the mean of the rank losses, as ``pmean``;
+  3. the gradients are reduced across the ranks by the mode's collective —
+     leaf by leaf, or bucket by bucket in the overlap mode — and divided
+     by w; the loss is the mean of the rank losses, as ``pmean``;
   4. the optimizer runs once per distinct device of the ring, on that
      device's replica (once on one card).
 
 Parameters and optimizer state are *replicated*: a dict mapping each
-distinct device of the ring to its own tree.
+distinct device of the ring to its own tree. The error-feedback residual
+is per rank: a list with one flat ``{path: residual}`` dict per rank.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.dist.collectives import LocalRing, ring_all_reduce
-from repro_torch.dist.compression import compressed_ring_all_reduce
+from repro_torch.dist import collectives
+from repro_torch.dist.collectives import LocalRing
+from repro_torch.dist.compression import (
+    compressed_ring_all_reduce,
+    ef_compressed_all_reduce,
+    fused_wire_all_reduce,
+)
+from repro_torch.dist.overlap import bucketed_ring_reduce
+from repro_torch.dist.registry import STEP_MODES
 from repro_torch.models.module import _flatten, _unflatten
 from repro_torch.training.optimizer import Optimizer
 
 Replicas = Dict[torch.device, dict]
+Grads = List[Dict[str, torch.Tensor]]     # one flat {path: tensor} per rank
 
-# mode -> gradient collective; every mode make_ring_train_step accepts
-RING_STEP_MODES: Dict[str, Callable] = {
-    "ring": ring_all_reduce,
+# every mode make_ring_train_step accepts, in registry order
+RING_STEP_MODES = tuple(STEP_MODES)
+
+# mode -> per-leaf collective of the modes that reduce leaf by leaf
+LEAF_COLLECTIVES: Dict[str, Callable] = {
+    "ring": collectives.ring_all_reduce,
+    "bidir": collectives.bidirectional_ring_all_reduce,
+    "psum": collectives.psum_all_reduce,
+    "compressed": partial(compressed_ring_all_reduce, fused=False),
     "compressed-fused": partial(compressed_ring_all_reduce, fused=True),
+    "bf16-fused": partial(fused_wire_all_reduce, wire="bf16"),
+    "fp8-fused": partial(fused_wire_all_reduce, wire="fp8"),
 }
-# wire payload dtype of each mode (part of the ring-program cache key)
-WIRE_DTYPES = {"ring": "float32", "compressed-fused": "int8"}
+OVERLAP_MODE = "compressed-fused-overlap"
+EF_MODES = ("compressed", "compressed-fused")
 
 
 def check_mode(mode: str) -> None:
     if mode not in RING_STEP_MODES:
-        raise NotImplementedError(
-            f"ring mode {mode!r} is not ported yet; ported modes: "
-            f"{tuple(RING_STEP_MODES)}")
+        raise ValueError(f"unknown ring mode {mode!r}; registered modes: "
+                         f"{RING_STEP_MODES}")
 
 
 def distinct_devices(devices: Sequence[torch.device]) -> List[torch.device]:
@@ -65,7 +82,7 @@ def shard_batch(batch: Dict[str, torch.Tensor], devices: Sequence[torch.device]
 
 
 def rank_grads(model, params: Replicas, shards, devices
-               ) -> Tuple[List[torch.Tensor], List[Dict[str, torch.Tensor]]]:
+               ) -> Tuple[List[torch.Tensor], Grads]:
     """Each rank's loss and flat ``{path: grad}`` on its own batch shard."""
     leaves = {}
     for d in distinct_devices(devices):
@@ -81,14 +98,21 @@ def rank_grads(model, params: Replicas, shards, devices
     return losses, grads
 
 
-def reduce_grads(grads: List[Dict[str, torch.Tensor]], ring: LocalRing,
-                 mode: str) -> List[Dict[str, torch.Tensor]]:
-    """Reduce every leaf across the ranks with the mode's ring, divided by
-    w. Each rank's input leaf is dropped once reduced."""
+def reduce_grads(grads: Grads, ring: LocalRing, mode: str, *,
+                 n_buckets: Optional[int] = None) -> Grads:
+    """Reduce every rank's gradients with the mode's collective, divided by
+    w: leaf by leaf (each rank's input leaf dropped once reduced), or for
+    the overlap mode bucket by bucket over ``n_buckets`` (the registry's
+    count by default)."""
     check_mode(mode)
-    collective = RING_STEP_MODES[mode]
     w = ring.size
-    out: List[Dict[str, torch.Tensor]] = [{} for _ in range(w)]
+    if mode == OVERLAP_MODE:
+        n = STEP_MODES[mode].n_buckets if n_buckets is None else int(n_buckets)
+        summed = bucketed_ring_reduce([_unflatten(g) for g in grads], ring,
+                                      variant="int8-fused", n_buckets=n)
+        return [{p: s[p] / w for p in g} for g, s in zip(grads, summed)]
+    collective = LEAF_COLLECTIVES[mode]
+    out: Grads = [{} for _ in range(w)]
     for path in list(grads[0]):
         reduced = collective([g.pop(path) for g in grads], ring)
         for r in range(w):
@@ -96,19 +120,73 @@ def reduce_grads(grads: List[Dict[str, torch.Tensor]], ring: LocalRing,
     return out
 
 
+def ef_reduce_grads(grads: Grads, ef_state: Grads, ring: LocalRing, *,
+                    fused: bool) -> Tuple[Grads, Grads]:
+    """Error-feedback reduction of every leaf (divided by w) with each
+    rank's residual; returns the reduced gradients and the new residuals."""
+    w = ring.size
+    out: Grads = [{} for _ in range(w)]
+    new_ef: Grads = [{} for _ in range(w)]
+    for path in list(grads[0]):
+        reduced, residual = ef_compressed_all_reduce(
+            [g.pop(path) for g in grads], [e[path] for e in ef_state], ring,
+            fused=fused)
+        for r in range(w):
+            out[r][path] = reduced[r] / w
+            new_ef[r][path] = residual[r]
+    return out, new_ef
+
+
+def init_ef_state(params: dict, devices: Sequence[torch.device]) -> Grads:
+    """Zero error-feedback residuals: one flat f32 ``{path: zeros}`` per
+    rank, on the rank's device."""
+    return [{p: torch.zeros(v.shape, dtype=torch.float32, device=d)
+             for p, v in _flatten(params)} for d in devices]
+
+
 def make_ring_train_step(model, optimizer: Optimizer, ring: LocalRing, *,
-                         lr: float = 3e-4, mode: str = "ring") -> Callable:
-    """Build ``step(params, opt_state, shards) -> (params, opt_state,
-    metrics)`` over ``ring``. ``params``/``opt_state`` are replicas (one
-    tree per distinct device), ``shards`` the per-rank batch blocks of
-    :func:`shard_batch`. Modes: ``"ring"`` (the paper's f32 ring) and
-    ``"compressed-fused"`` (the fused int8 ring)."""
+                         lr: float = 3e-4, mode: str = "ring",
+                         error_feedback: bool = False,
+                         n_buckets: Optional[int] = None) -> Callable:
+    """Build ``step(params, opt_state, shards[, ef_state]) -> (params,
+    opt_state, metrics[, ef_state])`` over ``ring``. ``params``/``opt_state``
+    are replicas (one tree per distinct device), ``shards`` the per-rank
+    batch blocks of :func:`shard_batch`, ``ef_state`` the per-rank residuals
+    of :func:`init_ef_state`.
+
+    ``mode`` is any of :data:`RING_STEP_MODES`: ``"ring"`` (the paper's f32
+    ring), ``"bidir"`` (counter-rotating half-rings), ``"psum"`` (no
+    explicit ring), ``"compressed"`` (int8, two messages per hop),
+    ``"compressed-fused"`` (the fused int8 ring), ``"bf16-fused"`` /
+    ``"fp8-fused"`` (the fused ring with a bf16 / fp8 e4m3 payload) and
+    ``"compressed-fused-overlap"`` (the fused int8 ring per bucket of the
+    reverse-autodiff plan; ``n_buckets`` overrides the registry default).
+    Both int8 per-leaf modes pair with ``error_feedback``; the bf16, fp8 and
+    overlap modes raise ``ValueError`` with it, and the f32 modes ignore
+    it, as in the reference.
+    """
     check_mode(mode)
+    wire = mode in ("bf16-fused", "fp8-fused")
+    overlap = mode == OVERLAP_MODE
+    if error_feedback and (wire or overlap):
+        raise ValueError(
+            f"mode {mode!r} does not support error_feedback: residual "
+            "tracking is only wired for the per-leaf int8 rings "
+            "(\"compressed\" / \"compressed-fused\")")
+    if n_buckets is not None and not overlap:
+        raise ValueError(f"n_buckets is only meaningful for "
+                         f"\"compressed-fused-overlap\", got mode {mode!r}")
     devices = ring.devices
 
-    def step(params: Replicas, opt_state: Replicas, shards):
+    def step(params: Replicas, opt_state: Replicas, shards,
+             ef_state: Optional[Grads] = None):
         losses, grads = rank_grads(model, params, shards, devices)
-        reduced = reduce_grads(grads, ring, mode)
+        new_ef = ef_state
+        if error_feedback and ef_state is not None and mode in EF_MODES:
+            reduced, new_ef = ef_reduce_grads(
+                grads, ef_state, ring, fused=mode == "compressed-fused")
+        else:
+            reduced = reduce_grads(grads, ring, mode, n_buckets=n_buckets)
         home = devices[0]
         loss = torch.stack([l.to(home) for l in losses]).mean()
         new_params, new_opt = {}, {}
@@ -116,6 +194,9 @@ def make_ring_train_step(model, optimizer: Optimizer, ring: LocalRing, *,
             g = _unflatten(reduced[devices.index(d)])
             new_params[d], new_opt[d] = optimizer.update(
                 g, opt_state[d], params[d], lr=lr)
-        return new_params, new_opt, {"loss": loss}
+        metrics = {"loss": loss}
+        if ef_state is not None:
+            return new_params, new_opt, metrics, new_ef
+        return new_params, new_opt, metrics
 
     return step

@@ -130,8 +130,12 @@ def test_one_rank_rings_pass_through():
         assert torch.equal(compressed_ring_all_reduce([x], ring, fused=fused)[0], x)
     assert torch.equal(ring_all_reduce([x], ring)[0], x)
     assert ring.messages == [0] and ring.bytes == [0]
-    with pytest.raises(NotImplementedError):   # the XLA-path ring
-        compressed_ring_all_reduce([x, x], LocalRing(["cpu"] * 2))
+    # the unfused ring over two ranks: two messages per hop, ranks agree
+    ring2 = LocalRing(["cpu"] * 2)
+    out = compressed_ring_all_reduce([x, x], ring2)
+    assert torch.equal(out[0], out[1])
+    assert ring2.messages == [compressed_ring_ppermutes(2)] * 2 == [4, 4]
+    assert ring2.bytes == [compressed_wire_bytes(77, 2)] * 2
 
 
 def _jax_reference(inp, out):

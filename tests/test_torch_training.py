@@ -1,14 +1,14 @@
 """The slice as a whole: the port's ``ElasticTrainer`` held loss for loss
-against the JAX package's, on reduced qwen3-0.6b with AdamW, in modes
-``ring`` (the paper's f32 ring) and ``compressed-fused`` (the fused int8
-ring), across a slot-boundary resize w=4 -> 2 and a mid-slot re-ring.
+against the JAX package's, on reduced qwen3-0.6b with AdamW, in every ring
+step mode of the reference (``STEP_MODES``), across a slot-boundary resize
+w=4 -> 2 and a mid-slot re-ring.
 
-The JAX trainers run in one subprocess (this file run as a script) on 8
-host devices, the reference's layout; the port runs its ranks on the CPU
-and starts from the reference trainer's initial parameters.
+The JAX trainers run in two subprocesses side by side (this file run as a
+script, each on 8 host devices, the reference's layout); the port runs its
+ranks on the CPU and starts from the reference trainer's initial
+parameters.
 
-Losses agree to atol 1e-5 in both modes; measured: at most 9.5e-7 (one ulp
-of the loss). AdamW's update does not change when every gradient is scaled
+Losses agree to atol 1e-5 in every mode (measured below). AdamW's update does not change when every gradient is scaled
 by one factor, so the losses alone would pass a reduced gradient of the
 wrong scale (a missing ``/ w``). The final parameters and the AdamW moments
 m and v are therefore held against the reference's too, per leaf, by
@@ -21,6 +21,23 @@ m and k^2 - 1 for v. Limits, with the largest measured per-leaf gaps:
     gradient differs from the reference's by ulps, which now and then moves
     an element across a rounding tie of the int8 quantizer: one int8 step,
     1/127 of its block's amax.
+  * ``bidir``: 1e-5 (measured 1.8e-6), as ``ring``: both half-rings keep
+    the reference's hop order.
+  * ``psum``: 1e-5 (measured 1.7e-6): a sum in rank order against XLA's
+    all-reduce, both f32.
+  * ``compressed``: 5e-3 (measured 1.3e-3, on v), as ``compressed-fused``:
+    one int8 step of a whole-chunk scale now and then.
+  * ``compressed-fused-overlap``: 1e-2 (measured 2.1e-3, on m), as
+    ``compressed-fused``, over the reference's buckets, whose blocks span
+    several leaves.
+  * ``bf16-fused``: 1e-3 (measured 2.2e-4, on v): the bf16 ring is
+    bit-identical to the reference's, but an ulp of gradient now and then
+    moves a bf16 rounding, one bf16 step (2^-8 relative).
+  * ``fp8-fused``: 1e-2 (measured 1.7e-3, on m): as ``compressed-fused``,
+    with e4m3's steps (up to 2^-3 relative).
+
+Losses agree within 1e-5 in every mode (measured at most 4.3e-6, in
+``fp8-fused``; 1.4e-6 in the overlap mode; one ulp, 9.5e-7, elsewhere).
 """
 
 import inspect
@@ -34,9 +51,13 @@ import pytest
 import torch
 
 from repro.training.checkpoint import load_checkpoint as jax_load_checkpoint
+from repro.training.elastic import RingWorkerGroup as JaxRingWorkerGroup
 from repro.training.elastic import largest_feasible_ring as jax_largest_feasible_ring
+from repro.training.train_step import RING_STEP_MODES as JAX_RING_STEP_MODES
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.dist.collectives import LocalRing
+from repro_torch.dist.compression import ef_compressed_all_reduce
 from repro_torch.launch import train as train_cli
 from repro_torch.models.model import build_model
 from repro_torch.models.module import _flatten, _unflatten, params_from_reference
@@ -47,27 +68,58 @@ from repro_torch.training.elastic import (
     largest_feasible_ring,
 )
 from repro_torch.training.optimizer import make_optimizer
+from repro_torch.training.train_step import (
+    RING_STEP_MODES,
+    init_ef_state,
+    make_ring_train_step,
+    rank_grads,
+    shard_batch,
+)
 
 ARCH = "qwen3-0.6b"
 SEQ, GLOBAL_BATCH, LR = 16, 8, 1e-3
 PLANS = [(4, 2, None), (2, 2, None), (4, 4, (2, 2))]
 # mode -> limit on each final leaf's relative gap to the reference
-MODES = {"ring": 1e-5, "compressed-fused": 5e-3}
+MODES = {"ring": 1e-5, "bidir": 1e-5, "psum": 1e-5, "compressed": 5e-3,
+         "compressed-fused": 5e-3, "compressed-fused-overlap": 1e-2,
+         "bf16-fused": 1e-3, "fp8-fused": 1e-2}
 LOSS_ATOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run this file's torch ops on one thread. The reduced model's ops are
+    small, and when test workers share the cores, torch's own thread pool
+    makes each trainer run tens of times slower than one thread does. The
+    results are the same on these inputs (measured: identical gaps)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_out(tmp_path_factory):
-    out = tmp_path_factory.mktemp("train_ref") / "out.npz"
+    """The reference trainers' results, the modes split over two
+    subprocesses that run side by side."""
+    tmp = tmp_path_factory.mktemp("train_ref")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), str(out)],
-                          env=env, capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with np.load(out) as f:
-        return dict(f)
+    modes = list(MODES)
+    groups = [modes[0::2], modes[1::2]]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(tmp / f"out{k}.npz"),
+         ",".join(group)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for k, group in enumerate(groups)]
+    res = {}
+    for k, proc in enumerate(procs):
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-4000:]
+        with np.load(tmp / f"out{k}.npz") as f:
+            res.update(f)
+    return res
 
 
 def _setup():
@@ -127,9 +179,68 @@ def test_ring_sizes_clamp_as_in_reference():
     assert group.compile_count == 3                  # 2, 8, 4
     assert group.cache_key(4) == (4, "compressed-fused", None, "int8")
     assert set(RingWorkerGroup.STATIC_CLOSURE_ATTRS) <= set(vars(group))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         RingWorkerGroup(model, make_optimizer("adamw"), global_batch=8, lr=LR,
-                        mode="bidir", devices=["cpu"])
+                        mode="int4-fused", devices=["cpu"])
+
+
+def test_every_mode_keys_its_cache_as_the_reference():
+    assert RING_STEP_MODES == JAX_RING_STEP_MODES and len(RING_STEP_MODES) == 8
+    model, _ = _setup()
+    for mode in RING_STEP_MODES:
+        for n_buckets in (None, 2):
+            group = RingWorkerGroup(model, make_optimizer("adamw"),
+                                    global_batch=8, lr=LR, mode=mode,
+                                    n_buckets=n_buckets, devices=["cpu"] * 8)
+            ref = JaxRingWorkerGroup(None, None, global_batch=8, lr=LR,
+                                     mode=mode, n_buckets=n_buckets)
+            assert group.cache_key(4) == ref.cache_key(4), mode
+            assert group.form(4) == 4 and group.compile_count == 1
+
+
+def test_step_rejects_what_the_reference_rejects():
+    model, _ = _setup()
+    opt, ring = make_optimizer("adamw"), LocalRing(["cpu"] * 2)
+    with pytest.raises(ValueError):
+        make_ring_train_step(model, opt, ring, mode="int4-fused")
+    for mode in ("bf16-fused", "fp8-fused", "compressed-fused-overlap"):
+        with pytest.raises(ValueError):
+            make_ring_train_step(model, opt, ring, mode=mode, error_feedback=True)
+    with pytest.raises(ValueError):
+        make_ring_train_step(model, opt, ring, mode="compressed-fused", n_buckets=2)
+    for mode in ("ring", "compressed", "compressed-fused"):
+        make_ring_train_step(model, opt, ring, mode=mode, error_feedback=True)
+    make_ring_train_step(model, opt, ring, mode="compressed-fused-overlap",
+                         n_buckets=2)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_error_feedback_step_carries_a_residual(jax_out, fused):
+    """The per-rank residual state: zero in, the rank's quantization error
+    out, and the step's reduced gradient the EF all-reduce's."""
+    model, data = _setup()
+    params = _init_params(jax_out)
+    opt = make_optimizer("adamw")
+    ring = LocalRing(["cpu"] * 2)
+    mode = "compressed-fused" if fused else "compressed"
+    step = make_ring_train_step(model, opt, ring, lr=LR, mode=mode,
+                                error_feedback=True)
+    shards = shard_batch({k: torch.as_tensor(v) for k, v in data.batch(0).items()},
+                         ring.devices)
+    ef0 = init_ef_state(params, ring.devices)
+    home = ring.devices[0]
+    _, _, metrics, ef1 = step({home: params}, {home: opt.init(params)}, shards, ef0)
+    assert np.isfinite(float(metrics["loss"]))
+    assert len(ef1) == 2 and sorted(ef1[0]) == sorted(ef0[0])
+    _, grads = rank_grads(model, {home: params}, shards, ring.devices)
+    for path in ef0[0]:
+        _, want = ef_compressed_all_reduce([g[path] for g in grads],
+                                           [e[path] for e in ef0],
+                                           LocalRing(["cpu"] * 2), fused=fused)
+        for r in range(2):
+            assert torch.equal(ef1[r][path], want[r]), path
+    # without ef_state the same step reduces plainly and returns three values
+    assert len(step({home: params}, {home: opt.init(params)}, shards)) == 3
 
 
 def test_checkpoint_round_trip(jax_out, tmp_path):
@@ -154,6 +265,8 @@ def test_checkpoint_round_trip(jax_out, tmp_path):
 
 def test_train_cli_on_cpu(capsys):
     assert inspect.signature(ElasticTrainer).parameters["device"].default == "cuda"
+    modes = {a.dest: a.choices for a in train_cli.build_parser()._actions}["mode"]
+    assert tuple(modes) == JAX_RING_STEP_MODES
     train_cli.main(["--device", "cpu", "--arch", ARCH, "--reduced", "--steps", "2",
                     "--dp", "2", "--seq", "16", "--mode", "compressed-fused",
                     "--log-every", "1"])
@@ -163,7 +276,7 @@ def test_train_cli_on_cpu(capsys):
     assert np.isfinite(summary["final_loss"]) and len(lines) == 3
 
 
-def _jax_reference(out):
+def _jax_reference(out, modes):
     import jax
 
     from repro.configs import get_arch as jax_get_arch
@@ -177,7 +290,7 @@ def _jax_reference(out):
     model = jax_build_model(cfg)
     data = JaxTokens(cfg.vocab, SEQ, GLOBAL_BATCH, seed=0)
     res = {}
-    for mode in MODES:
+    for mode in modes:
         tr = JaxTrainer(model, jax_make_optimizer("adamw"), data,
                         global_batch=GLOBAL_BATCH, base_lr=LR, mode=mode)
         for path, v in _flatten(jax.device_get(tr.params)):
@@ -195,4 +308,4 @@ def _jax_reference(out):
 
 
 if __name__ == "__main__":
-    _jax_reference(sys.argv[1])
+    _jax_reference(sys.argv[1], sys.argv[2].split(","))
