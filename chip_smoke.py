@@ -15,9 +15,15 @@ non-zero and prints no result. Phases, each raising on failure:
      4,096), at ragged shapes, all-zero rows, exact .5 ties, values at
      +-448, e4m3 subnormals and bf16 ties; time kernel, plain version and
      the one PyTorch call computing the same function where there is one,
-     with CUDA events, beside the kernel's bound; then train reduced
-     qwen3-0.6b two steps in each kernel mode on the card and on the CPU
-     (the plain path) from the same weights and compare;
+     with CUDA events, beside the kernel's bound; hold B4's four kernels
+     (flash attention: forward, and the backward's delta, dK/dV and dQ)
+     against their plain versions at the main paths' per-rank attention
+     shapes, granite-3-2b's and h2o-danube-1.8b's (window 4096), ragged
+     non-causal lengths and bf16, each run twice for identical bits, and
+     time them beside their bound, their plain versions and
+     ``scaled_dot_product_attention``; then train reduced qwen3-0.6b two
+     steps in each kernel mode on the card (attention through B4) and on
+     the CPU (the plain path) from the same weights and compare;
   4. the main paths: ``ElasticTrainer`` on qwen3-0.6b at full width,
      ``SlotPlan(workers=4, steps=4, leave=(2, 2))``, once in each of the
      modes ``compressed-fused``, ``bf16-fused``, ``fp8-fused`` and
@@ -29,10 +35,15 @@ non-zero and prints no result. Phases, each raising on failure:
      reduced (a leaf; a bucket in the overlap mode) within the reference's
      limit of the f32 ring sum (bf16 0.02, fp8 0.25, int8 0.15); and the
      step's parts (forward and backward of every rank, the ring, the
-     update) timed apart at w=4 and w=2, with the peak memory of the run;
-  5. the modes without kernels, ``ring``, ``bidir``, ``psum`` and
+     update) timed apart at w=4 and w=2, with the peak memory of the run.
+     B4's launches are held to the model's schedule over each run (per
+     step at ring size w, with remat: the forward 2*L*w times, each
+     backward kernel L*w), and its share of one rank's forward and
+     backward is timed with CUDA events;
+  5. the modes without ring kernels, ``ring``, ``bidir``, ``psum`` and
      ``compressed``, two steps each at w=4 on the model cut to 4 layers,
-     with no kernel launched and the ring's counts against the formulas;
+     with no ring kernel launched, B4 launched on the same schedule, and
+     the ring's counts against the formulas;
   6. the ``kernels`` JSON line, the card line, and last the result line.
 """
 
@@ -66,6 +77,7 @@ from repro_torch.dist.compression import (  # noqa: E402
 from repro_torch.dist.overlap import plan_bucket_sizes, plan_buckets, tree_leaves  # noqa: E402
 from repro_torch.dist.registry import STEP_MODES  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant_ring as qr  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.module import _unflatten, n_params, tree_map  # noqa: E402
@@ -122,6 +134,39 @@ ARCH, SEQ, GLOBAL_BATCH, LR = "qwen3-0.6b", 1024, 8, 3e-4
 EMBED_CHUNK_W4 = (9496, 4096)  # the embed leaf's (n_blocks, block) at w=4
 PLAN = SlotPlan(workers=4, steps=4, leave=(2, 2))
 MAIN_RINGS = [4, 4, 2, 2]      # ring size of each step of PLAN
+
+# B4, flash attention: its kernels, and the f32 operations each does per
+# visible (query, key) pair and unit of head_dim (F2 has no pairs)
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:105"
+FA_FWD = "flash_attention_fwd"
+FA_BWD = ("flash_attention_bwd_preprocess", "flash_attention_bwd_dkdv",
+          "flash_attention_bwd_dq")
+FA_PAIR_OPS = {FA_FWD: 4, FA_BWD[0]: 0, FA_BWD[1]: 8, FA_BWD[2]: 6}
+# limits against the plain versions, by the output's dtype. Forward (O, and
+# lse, which is f32): in f32 max |x - x_plain| <= 2e-5 max |x_plain|, the
+# reference's own TOL (tests/test_kernels.py:35); in bf16, where both sides
+# round one f32 value once, each element within one bf16 ulp of its plain
+# value plus that f32 limit. Backward: each output's relative norm
+# |x - x_plain| / |x_plain|.
+FA_FWD_TOL = 2e-5
+FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# (label, (B, S, Hq, Hkv, D), causal, window, dtype): each rank's attention
+# on the main paths at w=4 and w=2 and in the reduced model at w=4, then
+# granite-3-2b and h2o-danube-1.8b at one sequence a rank (the window
+# bites past 4096), ragged non-causal lengths and bf16
+FA_SHAPES = [
+    ("main w=4", (2, 1024, 16, 8, 128), True, None, torch.float32),
+    ("main w=2", (4, 1024, 16, 8, 128), True, None, torch.float32),
+    ("reduced qwen3 w=4", (2, 16, 4, 2, 32), True, None, torch.float32),
+    ("granite-3-2b", (2, 1024, 32, 8, 64), True, None, torch.float32),
+    ("h2o-danube-1.8b", (1, 5120, 32, 8, 80), True, 4096, torch.float32),
+    ("ragged 33", (2, 33, 16, 8, 128), False, None, torch.float32),
+    ("ragged 1000", (2, 1000, 16, 8, 128), False, None, torch.float32),
+    ("bf16 main w=4", (2, 1024, 16, 8, 128), True, None, torch.bfloat16),
+    ("bf16 ragged window", (1, 1000, 32, 8, 80), True, 300, torch.bfloat16),
+]
+FA_TIMED = "main w=4"
 
 
 def log(msg: str) -> None:
@@ -306,6 +351,204 @@ def check_kernels(model) -> dict:
     return rows
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs B4's mask lets through."""
+    n = 0
+    for qpos in range(sq):
+        hi = min(qpos, skv - 1) if causal else skv - 1
+        lo = max(0, qpos - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def fa_bound(name: str, dims, causal: bool, window, dtype):
+    """Least time for the kernel's work: each input read once and each
+    output written once over the memory rate, against its f32 operations
+    on the visible pairs over the f32 rate."""
+    b, s, hq, hkv, d = dims
+    elt = torch.empty((), dtype=dtype).element_size()
+    q_bytes, kv_bytes, row_bytes = b * s * hq * d * elt, b * s * hkv * d * elt, 4 * b * hq * s
+    ops = FA_PAIR_OPS[name] * d * visible_pairs(s, s, causal, window) * b * hq
+    n_bytes = {
+        FA_FWD: 2 * q_bytes + 2 * kv_bytes + row_bytes,          # q k v -> O lse
+        FA_BWD[0]: 2 * q_bytes + row_bytes,                      # O dO -> delta
+        FA_BWD[1]: 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,   # q k v dO lse delta -> dK dV
+        FA_BWD[2]: 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,   # q k v dO lse delta -> dQ
+    }[name]
+    if name == FA_BWD[0]:
+        ops = 2 * b * s * hq * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_max(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def rel_norm(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a.float() - ref.float()).norm() / ref.float().norm())
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element's magnitude (0 at 0)."""
+    x = x.float().abs()
+    ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+    return torch.where(x > 0, ulp, 0.0)
+
+
+def fwd_over(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """A forward output's error over its limit (FA_FWD_TOL; passes at <= 1)."""
+    gap, top = (a.float() - ref.float()).abs(), ref.float().abs().max()
+    if ref.dtype == torch.bfloat16:
+        return float((gap / (bf16_ulp(ref) + FA_FWD_TOL * top)).max())
+    return float(gap.max() / (FA_FWD_TOL * top))
+
+
+def bwd_over(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """A backward output's error over its limit (FA_BWD_TOL; passes at <= 1)."""
+    return rel_norm(a, ref) / FA_BWD_TOL[ref.dtype]
+
+
+def within(overs) -> bool:
+    """Every error finite and within its limit (a NaN fails)."""
+    return all(math.isfinite(x) and x <= 1 for x in overs)
+
+
+def sdpa(q, k, v, causal: bool):
+    """The library call B4 is timed beside: (B, S, H, D) in and out."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window):
+    """Kernel, plain version and library call of each B4 kernel, and the
+    forward and backward through autograd beside SDPA's."""
+    opts = dict(causal=causal, window=window)
+    calls = {
+        FA_FWD: (lambda: fa.flash_attention_fwd(q, k, v, **opts),
+                 lambda: fa.flash_attention_plain(q, k, v, **opts),
+                 lambda: sdpa(q, k, v, causal)),
+        FA_BWD[0]: (lambda: fa.bwd_preprocess(o, do),
+                    lambda: fa.bwd_preprocess_plain(o, do),
+                    lambda: torch.linalg.vecdot(o, do)),
+        FA_BWD[1]: (lambda: fa.bwd_dkdv(q, k, v, do, lse, delta, **opts),
+                    lambda: fa.bwd_dkdv_plain(q, k, v, do, lse, delta, **opts),
+                    None),
+        FA_BWD[2]: (lambda: fa.bwd_dq(q, k, v, do, lse, delta, **opts),
+                    lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta, **opts),
+                    None),
+    }
+    for name, (kernel, plain, library) in calls.items():
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, samples=5, calls=3)
+        library_ms = cuda_ms(library) if library is not None else None
+        bound_ms, bound_by = fa_bound(name, dims, causal, window, q.dtype)
+        rows[name].update(shape=list(dims), ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+        log(f"{name} {dims}: {ms:.5g} ms, plain {plain_ms:.5g} ms, library "
+            f"{library_ms}, bound {bound_ms:.5g} ms ({bound_by})")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def kernel_fwd_bwd():
+        out = fa.flash_attention(*leaves, **opts)
+        return torch.autograd.grad(out, leaves, do)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(*leaves, causal), leaves, do)
+
+    gap = rel_max(sdpa(q, k, v, causal), o)
+    fb_ms, lib_fb_ms = cuda_ms(kernel_fwd_bwd), cuda_ms(sdpa_fwd_bwd)
+    rows[FA_FWD].update(fwd_bwd_ms=fb_ms, library_fwd_bwd_ms=lib_fb_ms)
+    log(f"flash attention forward+backward {dims}: kernels {fb_ms:.5g} ms, "
+        f"sdpa {lib_fb_ms:.5g} ms (sdpa's O against the plain O: {gap:.3g} of "
+        f"its largest value)")
+
+
+def check_flash_attention() -> dict:
+    """B4's kernels against their plain versions, each on the same inputs,
+    at every shape of FA_SHAPES; every kernel run twice gives the same
+    bits; timed at FA_TIMED."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    rows = {name: {"name": name, "route": "cuda", "source": FA_SOURCE,
+                   "replaces": FA_REPLACES, "max_abs_err": 0.0, "max_rel_err": 0.0}
+            for name in FA_PAIR_OPS}
+
+    def check(name, label, kernel, plain, measure, over):
+        outs, again, refs = kernel(), kernel(), plain()
+        outs, again, refs = (x if isinstance(x, tuple) else (x,)
+                             for x in (outs, again, refs))
+        if not all(same_bits(a, b) for a, b in zip(outs, again)):
+            raise AssertionError(f"{name} {label}: two runs differ")
+        errs = [measure(a, r) for a, r in zip(outs, refs)]
+        abs_errs = [float((a.float() - r.float()).abs().max())
+                    for a, r in zip(outs, refs)]
+        overs = [over(a, r) for a, r in zip(outs, refs)]
+        if not within(overs) or not all(map(math.isfinite, errs + abs_errs)):
+            raise AssertionError(f"{name} {label}: errors {errs} (abs {abs_errs}) "
+                                 f"are {overs} of their limits")
+        row = rows[name]
+        row["max_abs_err"] = max(row["max_abs_err"], *abs_errs)
+        row["max_rel_err"] = max(row["max_rel_err"], *errs)
+        row["max_of_limit"] = max(row.get("max_of_limit", 0.0), *overs)
+        return {"errors": errs, "of_limit": overs}
+
+    for label, dims, causal, window, dtype in FA_SHAPES:
+        b, s, hq, hkv, d = dims
+        q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                       for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d),
+                                     (b, s, hq, d)))
+        opts = dict(causal=causal, window=window)
+        o, lse = fa.flash_attention_plain(q, k, v, **opts)
+        delta = fa.bwd_preprocess_plain(o, do)
+        errs = {
+            FA_FWD: check(FA_FWD, label, lambda: fa.flash_attention_fwd(q, k, v, **opts),
+                          lambda: (o, lse), rel_max, fwd_over),
+            FA_BWD[0]: check(FA_BWD[0], label, lambda: fa.bwd_preprocess(o, do),
+                             lambda: delta, rel_norm, bwd_over),
+            FA_BWD[1]: check(FA_BWD[1], label,
+                             lambda: fa.bwd_dkdv(q, k, v, do, lse, delta, **opts),
+                             lambda: fa.bwd_dkdv_plain(q, k, v, do, lse, delta, **opts),
+                             rel_norm, bwd_over),
+            FA_BWD[2]: check(FA_BWD[2], label,
+                             lambda: fa.bwd_dq(q, k, v, do, lse, delta, **opts),
+                             lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta, **opts),
+                             rel_norm, bwd_over),
+        }
+        # the backward as the autograd function runs it, from the kernel's O
+        ko, klse = fa.flash_attention_fwd(q, k, v, **opts)
+        pairs = list(zip(fa.flash_attention_bwd(q, k, v, ko, klse, do, **opts),
+                         fa.flash_attention_bwd_plain(q, k, v, ko, klse, do, **opts)))
+        whole = [rel_norm(a, r) for a, r in pairs]
+        if not within(bwd_over(a, r) for a, r in pairs):
+            raise AssertionError(f"backward {label}: dq dk dv error {whole}")
+        log(f"B4 {label} {dims} causal={causal} window={window} {dtype}: "
+            f"errors {errs}, whole backward {whole}; bits identical run to run")
+        if label == FA_TIMED:
+            time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window)
+        del q, k, v, do, o, lse, delta, ko, klse
+        free_cuda()
+    return rows
+
+
+def fa_expected(n_layers: int, rings, remat: bool) -> dict:
+    """B4's launches over steps at the ring sizes ``rings``: per step and
+    layer each of the w ranks runs the forward (twice with remat: again in
+    the recompute of backward) and each backward kernel once."""
+    ranks = sum(rings)
+    return {FA_FWD: (2 if remat else 1) * n_layers * ranks,
+            **{name: n_layers * ranks for name in FA_BWD}}
+
+
+def check_fa_launches(what: str, want: dict) -> dict:
+    got = dict(fa.LAUNCHES)
+    if got != want:
+        raise AssertionError(f"{what}: B4 launches {got} != schedule {want}")
+    return got
+
+
 def check_small_against_cpu(mode: str) -> None:
     """Reduced qwen3-0.6b, two steps of ``mode`` at w=4 on the card and on
     the CPU (the plain versions) from the same weights."""
@@ -314,6 +557,7 @@ def check_small_against_cpu(mode: str) -> None:
     data = SyntheticTokens(cfg.vocab, 16, GLOBAL_BATCH, seed=0)
     params = model.init(0, device="cpu", dtype=torch.float32)
     losses = {}
+    fa.reset_launches()
     for device in ("cpu", DEVICE):
         tr = ElasticTrainer(model, make_optimizer("adamw"), data,
                             global_batch=GLOBAL_BATCH, base_lr=1e-3,
@@ -321,9 +565,10 @@ def check_small_against_cpu(mode: str) -> None:
                             params=tree_map(lambda t, d=device: t.to(d), params))
         tr.run_slot(SlotPlan(workers=4, steps=2))
         losses[device] = tr.losses
+    check_fa_launches(f"reduced {mode}", fa_expected(cfg.n_layers, [4, 4], cfg.remat))
     gap = max(abs(a - b) for a, b in zip(losses["cpu"], losses[DEVICE]))
-    log(f"reduced model, {mode}, card vs CPU losses {losses[DEVICE]} vs "
-        f"{losses['cpu']}: max gap {gap:.3g}")
+    log(f"reduced model, {mode}, card (attention through B4) vs CPU losses "
+        f"{losses[DEVICE]} vs {losses['cpu']}: max gap {gap:.3g}")
     if not gap < 1e-3:
         raise AssertionError(f"{mode}: card and CPU losses differ by {gap}")
 
@@ -393,17 +638,20 @@ def run_main_path(model, data, mode: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     qr.reset_launches()
+    fa.reset_launches()
     t0 = time.perf_counter()
     res = trainer.run_slot(PLAN)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(qr.LAUNCHES)
+    fa_launches = check_fa_launches(
+        mode, fa_expected(model.cfg.n_layers, MAIN_RINGS, model.cfg.remat))
     peak = torch.cuda.max_memory_allocated()
 
     losses = trainer.losses
     log(f"{mode}: losses {losses}, warm step s {res['timings']}, slot "
         f"{seconds:.4f} s, peak {peak / 2**30:.4f} GiB, launches "
-        f"{ {k: v for k, v in launches.items() if v} }")
+        f"{ {k: v for k, v in launches.items() if v} }, B4 {fa_launches}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{mode}: losses not finite and falling: {losses}")
     if trainer.re_ring_events != 1 or len(losses) != PLAN.steps:
@@ -424,7 +672,7 @@ def run_main_path(model, data, mode: str) -> dict:
                                      "accounting disagrees with wire_formula")
     log(f"{mode}: launches equal the schedule over {len(ring_units(mode, sizes))} "
         f"ring calls a step; ring bytes and messages equal the formulas")
-    return {"trainer": trainer, "res": res, "launches": launches,
+    return {"trainer": trainer, "res": res, "launches": {**launches, **fa_launches},
             "peak_bytes": peak, "slot_s": seconds}
 
 
@@ -465,6 +713,7 @@ def check_reduction(model, trainer, data, mode: str) -> dict:
     batch = {k: torch.as_tensor(v) for k, v in data.batch(trainer.step).items()}
     parts = {}
     worst = {}
+    fa.reset_launches()
     for w in (4, 2):
         devices = trainer.group.devices[:w]
         ring = LocalRing(devices)
@@ -513,26 +762,61 @@ def check_reduction(model, trainer, data, mode: str) -> dict:
             trainer.params[home], lr=LR))[0] for _ in range(3))
         del reduced, grads
         free_cuda()
-    return {"worst": worst, "parts": parts}
+    # three rank_grads calls at each ring size
+    fa_launches = check_fa_launches(f"{mode} check_reduction", fa_expected(
+        model.cfg.n_layers, [4] * 3 + [2] * 3, model.cfg.remat))
+    return {"worst": worst, "parts": parts, "fa_launches": fa_launches}
+
+
+def b4_share(model, trainer, data) -> dict:
+    """B4's kernels' CUDA-event time over one rank's forward and backward
+    (CUDA events around it), on rank 0's shard of a w=4 step, warm."""
+    batch = {k: torch.as_tensor(v) for k, v in data.batch(trainer.step).items()}
+    devices = trainer.group.devices[:4]
+    shard, dev = shard_batch(batch, devices)[:1], devices[:1]
+    for _ in range(2):
+        rank_grads(model, trainer.params, shard, dev)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fa.TIMED = []
+    try:
+        start.record()
+        rank_grads(model, trainer.params, shard, dev)
+        end.record()
+        end.synchronize()
+        by_kernel = dict.fromkeys(FA_PAIR_OPS, 0.0)
+        for name, s, e in fa.TIMED:
+            by_kernel[name] += s.elapsed_time(e)
+    finally:
+        fa.TIMED = None
+    total = start.elapsed_time(end)
+    out = {"rank_ms": total, "b4_ms": by_kernel,
+           "b4_share": sum(by_kernel.values()) / total}
+    log(f"B4's share of one rank's forward and backward: {out}")
+    return out
 
 
 # -- phase 5: the modes without kernels ---------------------------------------
 
-def plain_mode(mode: str, model, data) -> list:
+def plain_mode(mode: str, model, data) -> dict:
+    """Two steps at w=4; returns B4's launches over them."""
     trainer = ElasticTrainer(model, make_optimizer("adamw"), data,
                              global_batch=GLOBAL_BATCH, base_lr=LR,
                              mode=mode, device=DEVICE)
     qr.reset_launches()
+    fa.reset_launches()
     trainer.run_slot(SlotPlan(workers=4, steps=2))
     if any(qr.LAUNCHES.values()):
-        raise AssertionError(f"{mode} launched kernels: {qr.LAUNCHES}")
+        raise AssertionError(f"{mode} launched ring kernels: {qr.LAUNCHES}")
+    fa_launches = check_fa_launches(
+        mode, fa_expected(model.cfg.n_layers, [4, 4], model.cfg.remat))
     if not all(math.isfinite(x) for x in trainer.losses):
         raise AssertionError(f"{mode} losses not finite: {trainer.losses}")
     sizes = leaf_sizes(next(iter(trainer.params.values())))
     check_wire(mode, trainer, sizes, [4, 4])
     log(f"{mode} at w=4, {PLAIN_MODE_LAYERS} layers: losses {trainer.losses}, "
-        f"no kernel launched, ring counts equal the formula")
-    return trainer.losses
+        f"no ring kernel launched, B4 {fa_launches}, ring counts equal the formula")
+    return fa_launches
 
 
 def main() -> int:
@@ -550,6 +834,7 @@ def main() -> int:
     cfg = get_arch(ARCH)
     model = build_model(cfg)
     rows = check_kernels(model)
+    rows.update(check_flash_attention())
     for mode in MODE_KERNELS:
         check_small_against_cpu(mode)
 
@@ -569,6 +854,7 @@ def main() -> int:
                 rows[name]["launches"] += n
                 rows[name]["launches_by_mode"][mode] = n
         red = check_reduction(model, trainer, data, mode)
+        share = b4_share(model, trainer, data)
         summary["modes"][mode] = {
             "losses": trainer.losses, "slot_s": run["slot_s"],
             "warm_step_s": {str(w): s for w, s in step_s.items()},
@@ -579,19 +865,23 @@ def main() -> int:
             "worst_ring_call_rel": red["worst"]["unit"],
             "worst_leaf_rel": red["worst"]["leaf"],
             "worst_leaf": red["worst"]["leaf_path"],
+            "b4_launches": {k: run["launches"][k] for k in FA_PAIR_OPS},
+            "b4_launches_check_reduction": red["fa_launches"],
+            "b4_share_of_rank_grads": share,
         }
         log(f"summary {mode} " + json.dumps(summary["modes"][mode]))
         del trainer, run
         free_cuda()
-    missing = [name for name, row in rows.items() if not row["launches"]]
-    if missing:
-        raise AssertionError(f"kernels no main path launched: {missing}")
-
     cut = dataclasses.replace(cfg, n_layers=PLAIN_MODE_LAYERS)
     cut_model = build_model(cut)
     for mode in PLAIN_MODES:
-        plain_mode(mode, cut_model, data)
+        for name, n in plain_mode(mode, cut_model, data).items():
+            rows[name]["launches"] += n
+            rows[name]["launches_by_mode"][mode] = n
         free_cuda()
+    missing = [name for name, row in rows.items() if not row["launches"]]
+    if missing:
+        raise AssertionError(f"kernels no main path launched: {missing}")
 
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

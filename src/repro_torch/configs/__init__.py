@@ -14,4 +14,8 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # importing the arch modules populates the registry
-from repro_torch.configs import qwen3_0p6b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    granite_3_2b,
+    h2o_danube_1p8b,
+    qwen3_0p6b,
+)

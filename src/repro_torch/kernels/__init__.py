@@ -1,1 +1,1 @@
-"""Hand-written CUDA kernels for the fused int8 ring, their build, and their plain PyTorch versions."""
+"""Hand-written CUDA kernels (the fused rings' hop kernels and flash attention), their build, and their plain PyTorch versions."""

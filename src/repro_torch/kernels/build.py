@@ -49,27 +49,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        return out
+def _compile(names) -> Dict[str, Path]:
+    """Build the libraries of ``csrc/<name>.cu`` for ``names`` that are not
+    built yet: one ``nvcc`` per source, all started at once. Raises naming
+    every source that failed."""
+    outs = {n: library_path(n) for n in names}
+    todo = [n for n in names if not outs[n].exists()]
+    if not todo:
+        return outs
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit "
-                           f"{proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # publish whole: a concurrent loader never sees half
-    return out
+    jobs = {}
+    for n in todo:
+        tmp = outs[n].with_name(f"{outs[n].name}.{os.getpid()}.tmp")
+        jobs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for n, (tmp, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {n}.cu (exit {proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, outs[n])  # publish whole: a concurrent loader never sees half
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    return _compile([name])[name]
 
 
 def build_all() -> Dict[str, Path]:
-    """Build every ``csrc/*.cu``."""
-    return {n: build(n) for n in sorted(p.stem for p in CSRC.glob("*.cu"))}
+    """Build every ``csrc/*.cu``, the compiles running side by side."""
+    return _compile(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 
 @functools.lru_cache(maxsize=None)

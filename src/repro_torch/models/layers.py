@@ -1,10 +1,13 @@
 """Shared building blocks of the dense LM (the counterpart of
 ``repro.models.layers``), in the reference's ``(B, S, H, D)`` layout.
 
-Attention is plain tensor code here, as it is XLA in the reference: the
-dense form for short sequences and a chunked online-softmax form for long
-ones. Score and value products take f32 operands, which is what the
-reference's ``preferred_element_type=float32`` gives for bf16 inputs.
+On the CPU attention is plain tensor code, as it is XLA in the reference:
+the dense form for short sequences and a chunked online-softmax form for
+long ones. Score and value products take f32 operands, which is what the
+reference's ``preferred_element_type=float32`` gives for bf16 inputs. On a
+CUDA tensor attention goes through the hand-written flash attention kernels
+(``repro_torch.kernels.flash_attention``), forward and backward, and never
+through the plain forms.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -119,7 +124,15 @@ def attention_chunked(q, k, v, *, causal: bool = True,
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0, chunk: int = 1024):
-    """Dispatch: dense for short sequences, chunked-streaming for long."""
+    """Dispatch. On the CPU as the reference: dense for short sequences,
+    chunked-streaming for long. Any other device goes to the flash attention
+    kernels, which raise for a device other than CUDA; they take no
+    ``q_offset`` (decode comes with serving)."""
+    if q.device.type != "cpu":
+        if q_offset != 0:
+            raise NotImplementedError(
+                "attention with q_offset != 0 on the card comes with serving")
+        return flash_attention(q, k, v, causal=causal, window=window)
     if k.shape[1] <= 2048:
         return attention_reference(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)

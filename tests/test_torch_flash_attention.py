@@ -1,0 +1,301 @@
+"""The port's flash attention (``repro_torch.kernels.flash_attention``) held
+against the JAX package: the plain forward against ``flash_attention_pallas``
+in interpret mode and against ``mha_reference``, the plain backward against
+``jax.vjp`` of ``mha_reference``, the autograd function by ``gradcheck``,
+the port's wrappers against the JAX ``ops`` wrappers, the dense attention
+oracle ``layers.attention_reference`` against ``mha_reference``, and the
+dense LM trained through the function against the reference's loss and
+gradients.
+
+Inputs are made with numpy from a seed and handed to both sides. On the CPU
+the wrappers take their plain versions; the CUDA kernels are held against
+those on the card by ``chip_smoke.py``. Tolerances: the forward uses the
+reference's own (``tests/test_kernels.py:35,76-77``: atol 2e-5 / rtol 2e-4
+in f32, atol 2e-2 / rtol 0.2 in bf16); lse atol 1e-5; the backward atol and
+rtol 1e-4 in f32 (both sides sum in f32, in other orders).
+"""
+
+import dataclasses
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jax_get_arch
+from repro.data.pipeline import SyntheticTokens as JaxTokens
+from repro.kernels import ops as jax_ops
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.ref import mha_reference as jax_mha_reference
+from repro.models.model import build_model as jax_build_model
+from repro_torch.configs import get_arch
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import quant_ring as qr
+from repro_torch.models import layers as L
+from repro_torch.models.model import build_model
+from repro_torch.models.module import _flatten, _unflatten, params_from_reference
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def inputs(seed, b, sq, skv, hq, hkv, d, dtype="float32"):
+    """``(q, k, v)`` as f32 numpy arrays rounded to ``dtype``'s values."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, s, h, d)).astype(np.float32)
+            for s, h in ((sq, hq), (skv, hkv), (skv, hkv))]
+    if dtype == "bfloat16":
+        arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                for a in arrs]
+    return arrs
+
+
+def to_torch(arrs, dtype):
+    return [torch.from_numpy(a.copy()).to(TORCH_DTYPE[dtype]) for a in arrs]
+
+
+def to_jax(arrs, dtype):
+    return [jnp.asarray(a, JAX_DTYPE[dtype]) for a in arrs]
+
+
+def f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+# every head_dim the registered dense configs give, each masking, each dtype;
+# GQA groups, ragged lengths and block sizes cycle through the cases
+MASKS = [(True, None), (True, "window"), (False, None)]
+FWD_CASES = [
+    (dtype, causal, window, group, d, s, block)
+    for i, (dtype, (causal, window), d) in enumerate(itertools.product(
+        ("float32", "bfloat16"), MASKS, (32, 64, 80, 128)))
+    for group, s, block in [((1, 2, 4)[i % 3], (33, 192, 300)[(i // 3) % 3],
+                             (32, 64, 128)[(i // 2) % 3])]
+]
+
+
+@pytest.mark.parametrize("dtype,causal,window,group,d,s,block", FWD_CASES)
+def test_plain_forward_matches_pallas_and_reference(dtype, causal, window,
+                                                    group, d, s, block):
+    window = (24 if s == 33 else 96) if window else None
+    hkv = 2 if group < 4 else 1
+    arrs = inputs(d + s, 2, s, s, hkv * group, hkv, d, dtype)
+    q, k, v = to_torch(arrs, dtype)
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        block_k=block)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == (2, hkv * group, s)
+    jq, jk, jv = to_jax(arrs, dtype)
+    pallas = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                    block_q=block, block_k=block,
+                                    interpret=True)
+    ref = jax_mha_reference(jq, jk, jv, causal=causal, window=window)
+    tol = TOL[dtype]
+    for want in (pallas, ref):
+        np.testing.assert_allclose(f32(out), f32(want), atol=tol, rtol=tol * 10)
+    # lse against the reference's masked scaled scores
+    kr = jnp.repeat(jk.astype(jnp.float32), group, axis=2)
+    scores = jnp.einsum("bqhd,bkhd->bhqk", jq.astype(jnp.float32), kr) / np.sqrt(d)
+    pos = jnp.arange(s)
+    mask = jnp.ones((s, s), bool)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    want_lse = jax.nn.logsumexp(jnp.where(mask, scores, -1e30), axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window,hq,hkv,d,s,block", [
+    (True, None, 4, 4, 32, 33, 32),
+    (True, None, 4, 2, 64, 192, 64),
+    (True, 40, 4, 1, 80, 300, 128),
+    (True, 96, 8, 2, 128, 192, 64),
+    (False, None, 4, 2, 32, 300, 64),
+    (False, None, 2, 1, 80, 33, 128),
+    (False, 24, 4, 4, 64, 70, 32),
+])
+def test_plain_backward_matches_jax_vjp(causal, window, hq, hkv, d, s, block):
+    arrs = inputs(7 * d + s, 2, s, s, hq, hkv, d)
+    q, k, v = to_torch(arrs, "float32")
+    do = np.random.default_rng(s).standard_normal((2, s, hq, d)).astype(np.float32)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      block_k=block)
+    dq, dk, dv = fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, torch.from_numpy(do), causal=causal, window=window)
+    _, vjp = jax.vjp(lambda a, b, c: jax_mha_reference(
+        a, b, c, causal=causal, window=window), *to_jax(arrs, "float32"))
+    for got, want in zip((dq, dk, dv), vjp(jnp.asarray(do))):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+    # the delta F2 computes, and through autograd the same gradients as from
+    # the default forward's O and lse
+    np.testing.assert_allclose(
+        fa.bwd_preprocess_plain(o, torch.from_numpy(do)).numpy(),
+        np.einsum("bshd,bshd->bhs", o.numpy(), do), atol=1e-5, rtol=1e-5)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    wants = fa.flash_attention_bwd_plain(q, k, v, o, lse, torch.from_numpy(do),
+                                         causal=causal, window=window)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention(*leaves, causal=causal,
+                       window=window).backward(torch.from_numpy(do))
+    for leaf, want in zip(leaves, wants):
+        np.testing.assert_array_equal(leaf.grad.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("causal,window,hq,hkv", [(True, None, 2, 1),
+                                                  (True, 3, 2, 2),
+                                                  (False, None, 4, 2),
+                                                  (False, 4, 2, 1)])
+def test_autograd_function_gradcheck_f64(causal, window, hq, hkv):
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 7, h, 4)))
+               .requires_grad_(True) for h in (hq, hkv, hkv))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: fa.flash_attention(a, b, c, causal=causal, window=window),
+        (q, k, v))
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 9), (False, None)])
+def test_torch_mha_reference_matches_jax(causal, window):
+    """The port's dense oracle is the reference's ``mha_reference``."""
+    arrs = inputs(3, 2, 21, 21, 4, 2, 16)
+    got = L.attention_reference(*to_torch(arrs, "float32"), causal=causal,
+                                window=window)
+    want = jax_mha_reference(*to_jax(arrs, "float32"), causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window,block", [(True, None, 64),
+                                                 (True, 48, 32),
+                                                 (False, None, 128)])
+def test_ops_flash_attention_matches_jax_ops(causal, window, block):
+    """The port's public wrapper (one tiling on the card) against JAX's
+    ``ops.flash_attention`` at each of its block sizes."""
+    arrs = inputs(5, 1, 128, 128, 4, 2, 32)
+    got = fa.flash_attention(*to_torch(arrs, "float32"), causal=causal,
+                             window=window)
+    want = jax_ops.flash_attention(*to_jax(arrs, "float32"), causal=causal,
+                                   window=window, block_q=block, block_k=block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-4)
+
+
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_ops_quant_wrappers_match_jax_ops(with_acc):
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((6, 256)) * 3).astype(np.float32)
+    x[1] = 0.0
+    q, s = qr.quantize_pack(torch.from_numpy(x))
+    jq, js = jax_ops.quantize_blockwise(jnp.asarray(x))
+    # ROADMAP C4: XLA may divide through a reciprocal (an ulp of a scale)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6, atol=0)
+    assert np.abs(q.numpy().astype(int) - np.asarray(jq).astype(int)).max() <= 1
+    acc = rng.standard_normal((6, 256)).astype(np.float32) if with_acc else None
+    got = qr.dequant_accumulate(q, s, None if acc is None else torch.from_numpy(acc))
+    want = jax_ops.dequant_accumulate(jnp.asarray(q.numpy()), jnp.asarray(s.numpy()),
+                                      None if acc is None else jnp.asarray(acc))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
+
+
+def test_other_devices_raise_and_cpu_launches_nothing():
+    meta = [torch.empty((1, 8, 2, 32), device="meta") for _ in range(3)]
+    with pytest.raises(ValueError, match="meta"):
+        fa.flash_attention(*meta)
+    # the dense LM's attention off the CPU goes to the kernels, never to the
+    # plain forms; q_offset != 0 has no kernel yet
+    with pytest.raises(ValueError, match="meta"):
+        L.attention(*meta)
+    with pytest.raises(NotImplementedError):
+        L.attention(*meta, q_offset=3)
+    cpu = [torch.zeros(1, 8, 2, 32) for _ in range(3)]
+    with pytest.raises(ValueError, match="devices"):
+        fa.flash_attention(cpu[0], cpu[1], meta[2])
+    fa.reset_launches()
+    fa.flash_attention(*[t.requires_grad_(True) for t in cpu]).sum().backward()
+    assert not any(fa.LAUNCHES.values()) and len(fa.LAUNCHES) == 4
+
+
+@pytest.mark.parametrize("shape_q,shape_k,dtype,window,match", [
+    ((1, 8, 2, 48), (1, 8, 2, 48), torch.float32, None, "head_dim"),
+    ((1, 8, 2, 32), (1, 8, 2, 32), torch.float16, None, "f32 or bf16"),
+    ((1, 8, 2, 32), (1, 8, 2, 32), torch.float64, None, "f32 or bf16"),
+    ((1, 8, 3, 32), (1, 8, 2, 32), torch.float32, None, "q_heads"),
+    ((1, 20, 2, 32), (1, 8, 2, 32), torch.float32, 4, "see no key"),
+    ((1, 8, 2, 32), (1, 8, 2, 32), torch.float32, 0, "window"),
+])
+def test_kernel_arguments_refused(shape_q, shape_k, dtype, window, match):
+    """What the CUDA route checks before a launch (the checks run on any
+    tensor, so they are tested here)."""
+    q = torch.zeros(shape_q, dtype=dtype)
+    k = torch.zeros(shape_k, dtype=dtype)
+    with pytest.raises((ValueError, TypeError), match=match):
+        fa._kernel_args(q, k, k, True, window)
+
+
+def test_kernel_arguments_of_the_main_path():
+    q, k = torch.zeros(2, 1024, 16, 128), torch.zeros(2, 1024, 8, 128)
+    args = fa._kernel_args(q, k, k, True, None)
+    assert args[:8] == [2, 1024, 1024, 16, 8, 128, 1, 0] and args[9] == 0
+    assert args[8] == pytest.approx(128 ** -0.5)
+    bf = torch.zeros(1, 5120, 32, 80, dtype=torch.bfloat16)
+    assert fa._kernel_args(bf, bf[:, :, :8], bf[:, :, :8], True, 4096)[7:] == [
+        4096, pytest.approx(80 ** -0.5), 1]
+
+
+@pytest.mark.parametrize("arch,window", [("qwen3-0.6b", None),
+                                         ("h2o-danube-1.8b", 5)])
+def test_dense_lm_trains_through_flash_attention(monkeypatch, arch, window):
+    """Loss and grads of the reduced dense LM with its attention through
+    :func:`flash_attention` (the path a CUDA tensor takes, here on its plain
+    versions), against ``jax.value_and_grad`` of the reference's loss; remat
+    on, so the forward runs again inside backward. The window is cut so
+    that it bites at 16 tokens. Grads as in ``tests/test_torch_model.py``:
+    elementwise with qk-norm, else per leaf within 1e-3 of its largest value
+    (measured 3.2e-5 here; the port's plain attention gives 4.2e-5)."""
+    jcfg = dataclasses.replace(jax_get_arch(arch).reduced(), remat=True,
+                               sliding_window=window)
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(2), dtype=jnp.float32)
+    batch = JaxTokens(jcfg.vocab, 16, 2, seed=4).batch(0)
+    jloss, jgrads = jax.value_and_grad(jmodel.loss)(jparams, batch)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), remat=True,
+                              sliding_window=window)
+    model = build_model(cfg)
+    params = params_from_reference(jax.tree.map(np.asarray, jparams), "cpu")
+    calls = []
+
+    def through_kernel(q, k, v, *, causal=True, window=None, q_offset=0, chunk=1024):
+        calls.append(window)
+        assert q_offset == 0
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+    monkeypatch.setattr(L, "attention", through_kernel)
+    leaves = {p: t.clone().requires_grad_(True) for p, t in _flatten(params)}
+    loss = model.loss(_unflatten(leaves), {k: torch.from_numpy(v)
+                                           for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    assert calls == [window] * (2 * cfg.n_layers)   # forward, then its recompute
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5,
+                               atol=1e-5)
+    want = dict(_flatten(jax.tree.map(np.asarray, jgrads)))
+    for path, g in zip(leaves, grads):
+        if cfg.qk_norm:
+            np.testing.assert_allclose(g.numpy(), want[path], rtol=1e-4,
+                                       atol=1e-6, err_msg=path)
+        else:
+            gap = float(np.abs(g.numpy() - want[path]).max())
+            assert gap <= 1e-3 * float(np.abs(want[path]).max()), (path, gap)
+
+
+def test_launch_counters_are_the_kernels():
+    assert set(fa.LAUNCHES) == {"flash_attention_fwd",
+                                "flash_attention_bwd_preprocess",
+                                "flash_attention_bwd_dkdv",
+                                "flash_attention_bwd_dq"}
+    assert not set(fa.LAUNCHES) & set(qr.LAUNCHES)

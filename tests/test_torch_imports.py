@@ -28,6 +28,9 @@ def test_port_modules_import_without_jax_or_reference():
     modules = _port_modules()
     assert "repro_torch.training.elastic" in modules
     assert "repro_torch.kernels.quant_ring" in modules
+    for name in ("kernels.flash_attention", "configs.granite_3_2b",
+                 "configs.h2o_danube_1p8b"):
+        assert f"repro_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

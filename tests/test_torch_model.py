@@ -1,10 +1,18 @@
 """The port's dense LM, layers, AdamW and data pipeline held against the
-JAX package on reduced qwen3-0.6b in f32, with the reference's own weights
-carried across by ``params_from_reference``.
+JAX package on reduced qwen3-0.6b, granite-3-2b and h2o-danube-1.8b in f32,
+with the reference's own weights carried across by ``params_from_reference``.
 
 Both run on the CPU in this process, JAX with one host device. Tolerances:
-logits and loss rtol/atol 1e-5 and grads rtol 1e-4 / atol 1e-6 (the two
-frameworks sum matrix products in different orders); AdamW atol 1e-6.
+loss rtol/atol 1e-5; on qwen3-0.6b logits rtol/atol 1e-5 and grads rtol
+1e-4 / atol 1e-6 (the two frameworks sum matrix products in different
+orders); AdamW atol 1e-6. Reduced granite-3-2b and h2o-danube-1.8b have no
+qk-norm, and their reduced weights give attention scores up to about 144,
+where the softmax is nearly one-hot and every reordered sum is amplified:
+the reference against itself, with only its attention sums reordered
+(chunks of 4), differs by 1.2e-5 of a gradient leaf's largest value
+(5.7e-7 on qwen3), and the port by at most 1.35e-4 (``blocks/ln1``). They are
+held per leaf to ``max|got - want| <= 1e-4 * max|want|`` for the logits and
+``1e-3 * max|want|`` for the grads.
 """
 
 import dataclasses
@@ -35,19 +43,24 @@ from repro_torch.models.module import (
 from repro_torch.training.optimizer import adamw_init, adamw_update, make_optimizer
 
 ARCH = "qwen3-0.6b"
+DENSE_ARCHS = ("qwen3-0.6b", "granite-3-2b", "h2o-danube-1.8b")
+# (arch, full-size parameter count of the reference's specs)
+PARAM_COUNTS = {"qwen3-0.6b": 751_632_384, "granite-3-2b": 2_634_713_088,
+                "h2o-danube-1.8b": 1_831_201_280}
 
 
 def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jax_get_arch(ARCH).reduced()
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def setup(request):
+    arch = request.param
+    jcfg = jax_get_arch(arch).reduced()
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32)
     batch = JaxTokens(jcfg.vocab, 16, 4, seed=3).batch(0)
-    model = build_model(get_arch(ARCH).reduced())
+    model = build_model(get_arch(arch).reduced())
     params = params_from_reference(np_tree(jparams), "cpu")
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     return jmodel, jparams, batch, model, params, tbatch
@@ -61,21 +74,31 @@ def assert_trees_close(got, want, **tol):
                                    err_msg=path, **tol)
 
 
-def test_config_and_param_count_match_reference():
+def assert_close_to_leaf_max(got, want, rel, name=""):
+    """``max|got - want| <= rel * max|want|`` (the module docstring says why
+    the configs without qk-norm are held so)."""
+    got, want = np.asarray(got), np.asarray(want)
+    gap, peak = float(np.abs(got - want).max()), float(np.abs(want).max())
+    assert got.shape == want.shape and gap <= rel * peak, (name, gap, peak)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_config_and_param_count_match_reference(arch):
     for reduced in (False, True):
-        ref, cfg = jax_get_arch(ARCH), get_arch(ARCH)
+        ref, cfg = jax_get_arch(arch), get_arch(arch)
         if reduced:
             ref, cfg = ref.reduced(), cfg.reduced()
         assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
         assert cfg.n_params() == ref.n_params()
-    assert get_arch(ARCH).n_params() == 751_632_384
+    assert get_arch(arch).n_params() == PARAM_COUNTS[arch]
 
 
 def test_param_specs_match_reference(setup):
     jmodel, _, _, model, _, _ = setup
     want = dict(_flatten(jmodel.param_specs()))
     got = dict(_flatten(model.param_specs()))
-    assert list(got) == list(want) and len(got) == 14
+    assert list(got) == list(want)
+    assert len(got) == (14 if model.cfg.qk_norm else 12)
     for path, spec in want.items():
         assert got[path].shape == spec.shape and got[path].axes == spec.axes
         assert (got[path].init, got[path].scale) == (spec.init, spec.scale)
@@ -85,8 +108,11 @@ def test_forward_and_loss_match_reference(setup):
     jmodel, jparams, batch, model, params, tbatch = setup
     jlogits, _ = jmodel.forward(jparams, batch)
     logits, _ = model.forward(params, tbatch)
-    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
-                               rtol=1e-5, atol=1e-5)
+    if model.cfg.qk_norm:
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        assert_close_to_leaf_max(logits.numpy(), jlogits, 1e-4, "logits")
     np.testing.assert_allclose(float(model.loss(params, tbatch)),
                                float(jmodel.loss(jparams, batch)),
                                rtol=1e-5, atol=1e-5)
@@ -102,8 +128,14 @@ def test_grads_match_reference(setup, remat):
     loss = model.loss(_unflatten(leaves), tbatch)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5, atol=1e-5)
-    assert_trees_close(_unflatten(dict(zip(leaves, grads))), np_tree(jgrads),
-                       rtol=1e-4, atol=1e-6)
+    got = _unflatten(dict(zip(leaves, grads)))
+    if model.cfg.qk_norm:
+        assert_trees_close(got, np_tree(jgrads), rtol=1e-4, atol=1e-6)
+        return
+    want = dict(_flatten(np_tree(jgrads)))
+    assert sorted(dict(_flatten(got))) == sorted(want)
+    for path, g in _flatten(got):
+        assert_close_to_leaf_max(g, want[path], 1e-3, path)
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
