@@ -21,9 +21,15 @@ non-zero and prints no result. Phases, each raising on failure:
      shapes, granite-3-2b's and h2o-danube-1.8b's (window 4096), ragged
      non-causal lengths and bf16, each run twice for identical bits, and
      time them beside their bound, their plain versions and
-     ``scaled_dot_product_attention``; then train reduced qwen3-0.6b two
-     steps in each kernel mode on the card (attention through B4) and on
-     the CPU (the plain path) from the same weights and compare;
+     ``scaled_dot_product_attention``; hold B8's two kernels (RWKV6's WKV:
+     forward W1, backward W2) against their plain versions at the RWKV6
+     path's per-rank shapes at w=4 and w=2, the loop's reduced shape, a
+     ragged length, every step at the decay clamp and bf16, each run twice
+     for identical bits, and time them beside their bound and their plain
+     versions; then train reduced qwen3-0.6b two steps in each kernel mode
+     on the card (attention through B4) and on the CPU (the plain path)
+     from the same weights and compare, and reduced rwkv6-7b two steps of
+     the f32 ring (its time-mix through B8) likewise;
   4. the main paths: ``ElasticTrainer`` on qwen3-0.6b at full width,
      ``SlotPlan(workers=4, steps=4, leave=(2, 2))``, once in each of the
      modes ``compressed-fused``, ``bf16-fused``, ``fp8-fused`` and
@@ -44,7 +50,21 @@ non-zero and prints no result. Phases, each raising on failure:
      ``compressed``, two steps each at w=4 on the model cut to 4 layers,
      with no ring kernel launched, B4 launched on the same schedule, and
      the ring's counts against the formulas;
-  6. the ``kernels`` JSON line, the card line, and last the result line.
+  6. the RWKV6 path: ``ElasticTrainer`` on rwkv6-7b at full width (d_model
+     4096, 64 heads of 64, d_ff 14336, vocab 65536) with the depth cut to 4
+     layers, ``PLAN`` in the f32 ``ring`` mode; B8's launches held to the
+     model's schedule (with remat W1 2*L*w times a step, W2 L*w times),
+     every step's loss and a held-out loss against the same slot with the
+     time-mix through the plain recurrence on the card, warm steps, peak
+     memory, and B8's share of one rank's forward and backward;
+  7. GADGET's online loop on the card: ``repro_torch.launch.schedule_and_
+     train`` at the example's own sizes (three reduced jobs, 6 slots of 4
+     steps, the scripted ``WorkerLeave``, calibration on), with the
+     example's checks, job 0's slot-3 re-ring, every kernel's launches
+     against the slots the jobs ran (B8 for the rwkv job, B4 for the dense
+     jobs, the int8 ring for job 1), and one ``solve_slot`` with the PDHG
+     engine on the card against HiGHS;
+  8. the ``kernels`` JSON line, the card line, and last the result line.
 """
 
 from __future__ import annotations
@@ -56,6 +76,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -79,6 +100,7 @@ from repro_torch.dist.registry import STEP_MODES  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant_ring as qr  # noqa: E402
+from repro_torch.kernels import rwkv6_wkv as W  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.module import _unflatten, n_params, tree_map  # noqa: E402
 from repro_torch.training.elastic import ElasticTrainer, SlotPlan  # noqa: E402
@@ -167,6 +189,30 @@ FA_SHAPES = [
     ("bf16 ragged window", (1, 1000, 32, 8, 80), True, 300, torch.bfloat16),
 ]
 FA_TIMED = "main w=4"
+
+# B8, RWKV6's WKV: its kernels, held to B4's limits (FA_FWD_TOL for y and
+# the chunk states, FA_BWD_TOL per gradient)
+WKV_SOURCE = "src/repro_torch/kernels/csrc/wkv6.cu"
+WKV_REPLACES = "src/repro/kernels/rwkv6_wkv.py:76"
+WKV_FWD, WKV_BWD = "wkv6_fwd", "wkv6_bwd"
+# (label, (B, S, H, P), dtype, every logw at the clamp): each rank's
+# time-mix on the RWKV6 path at w=4 and w=2 and in the loop's reduced model
+# at w=4, a ragged length, the factorization's widest range (k exp(-cum) up
+# to |k| e^80) and bf16
+WKV_SHAPES = [
+    ("main w=4", (2, 1024, 64, 64), torch.float32, "model"),
+    ("main w=2", (4, 1024, 64, 64), torch.float32, "model"),
+    ("loop reduced w=4", (2, 32, 4, 32), torch.float32, "model"),
+    ("ragged 1000", (2, 1000, 64, 64), torch.float32, "model"),
+    ("logw at the clamp", (2, 256, 8, 64), torch.float32, "clamp"),
+    ("weak decay main w=4", (2, 1024, 64, 64), torch.float32, "weak"),
+    ("bf16 main w=4", (2, 1024, 64, 64), torch.bfloat16, "model"),
+]
+WKV_TIMED = "main w=4"
+RWKV_ARCH, RWKV_LAYERS = "rwkv6-7b", 4
+# the RWKV6 slot through B8 against the same slot through the plain
+# recurrence on the card, from the same weights: limit on any step's loss gap
+RWKV_LOSS_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -533,6 +579,138 @@ def check_flash_attention() -> dict:
     return rows
 
 
+def wkv_bound(name: str, dims, dtype):
+    """Least time for a WKV kernel's work: its inputs read once and outputs
+    written once (W1 writes y and the chunk states, W2 reads the states and
+    writes four f32 gradients and the du partials) over the memory rate,
+    against its f32 operations over the f32 rate: per chunk the L x L and
+    L x P products counted in full, two operations a multiply-add (W1: A,
+    A v, r_dec S and the state update; W2: A and dA again, the intra-chunk
+    dr, dk and dv, and dr's, dk's and dv's state terms and the dS update)."""
+    b, s, h, p = dims
+    lc = min(W.WKV_CHUNK, s)
+    chunks = b * h * -(-s // lc)
+    n, elt = b * s * h * p, torch.empty((), dtype=dtype).element_size()
+    states, u = 4 * chunks * p * p, 4 * h * p
+    if name == WKV_FWD:
+        n_bytes = 5 * n * elt + u + states
+        ops = chunks * (4 * lc * lc * p + 4 * lc * p * p)
+    else:
+        n_bytes = 5 * n * elt + u + states + 4 * n * 4 + 4 * b * h * p
+        ops = chunks * (10 * lc * lc * p + 8 * lc * p * p)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wkv_inputs(dims, dtype, decay: str, gen):
+    """``(r, k, v, logw, u, dy)`` on the card: unit normals (r, k, v as
+    the time-mix's projections of normalized activations give them), u and
+    dy normal, logw by ``decay``: "model" within the model's clamp,
+    ``-min(exp(N), 2.5)``; "clamp" every step at it; "weak" ``-0.02
+    exp(N)``, mostly within [-0.05, 0], where ``exp(cum_L)`` stays near
+    1/3 to 1 a chunk and the state carried across chunks (and its
+    gradient) weighs in every output, as in a trained model's slow
+    channels."""
+    def normal(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+    b, s, h, p = dims
+    r, k, v, dy = (normal(dims) for _ in range(4))
+    logw = {"model": lambda: -torch.clamp(torch.exp(normal(dims)), max=2.5),
+            "clamp": lambda: torch.full(dims, -2.5, device=DEVICE),
+            "weak": lambda: -0.02 * torch.exp(normal(dims))}[decay]()
+    ins = [t.to(dtype) for t in (r, k, v, logw)]
+    return ins, normal((h, p), 0.3), dy.to(dtype)
+
+
+def boost_peak(k: torch.Tensor, logw: torch.Tensor) -> float:
+    """The largest |k exp(-cum)| the forward's factorization forms."""
+    lc = min(W.WKV_CHUNK, k.shape[1])
+    cum = torch.cumsum(W._chunks(logw, lc, torch.float32), dim=3)
+    return float((W._chunks(k, lc, torch.float32) * torch.exp(-cum)).abs().max())
+
+
+def chunk_decay_range(logw: torch.Tensor) -> tuple:
+    """The smallest and largest ``exp(cum_L)``, the decay a whole chunk
+    applies to the carried state, over the chunks of ``logw``."""
+    lc = min(W.WKV_CHUNK, logw.shape[1])
+    decay = torch.exp(W._chunks(logw, lc, torch.float32).sum(dim=3))
+    return float(decay.min()), float(decay.max())
+
+
+def wkv_fwd_over(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """``fwd_over``, and exact agreement where the reference is all zero
+    (the chunk states of a one-chunk sequence)."""
+    if not bool(ref.abs().max() > 0):
+        return 0.0 if not bool((a.float() - ref.float()).abs().max() > 0) \
+            else math.inf
+    return fwd_over(a, ref)
+
+
+def check_wkv6() -> dict:
+    """B8's kernels against their plain versions, each on the same inputs,
+    at every shape of WKV_SHAPES; every kernel run twice gives the same
+    bits; timed at WKV_TIMED."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    rows = {name: {"name": name, "route": "cuda", "source": WKV_SOURCE,
+                   "replaces": WKV_REPLACES, "max_abs_err": 0.0,
+                   "max_rel_err": 0.0, "max_of_limit": 0.0}
+            for name in (WKV_FWD, WKV_BWD)}
+    peak = 0.0
+
+    def check(name, label, kernel, refs, measure, over):
+        outs, again = kernel(), kernel()
+        if not all(same_bits(a, b) for a, b in zip(outs, again)):
+            raise AssertionError(f"{name} {label}: two runs differ")
+        errs = [measure(a, r) if bool(r.abs().max() > 0) else 0.0
+                for a, r in zip(outs, refs)]
+        abs_errs = [float((a.float() - r.float()).abs().max())
+                    for a, r in zip(outs, refs)]
+        overs = [over(a, r) for a, r in zip(outs, refs)]
+        if not within(overs) or not all(map(math.isfinite, errs + abs_errs)):
+            raise AssertionError(f"{name} {label}: errors {errs} (abs {abs_errs}) "
+                                 f"are {overs} of their limits")
+        row = rows[name]
+        row["max_abs_err"] = max(row["max_abs_err"], *abs_errs)
+        row["max_rel_err"] = max(row["max_rel_err"], *errs)
+        row["max_of_limit"] = max(row["max_of_limit"], *overs)
+        return errs
+
+    for label, dims, dtype, decay in WKV_SHAPES:
+        ins, u, dy = wkv_inputs(dims, dtype, decay, gen)
+        y, states = W.wkv6_plain(*ins, u)
+        grads = W.wkv6_bwd_plain(*ins, u, states, dy)
+        fwd = check(WKV_FWD, label, lambda: W.wkv6_fwd(*ins, u), (y, states),
+                    rel_max, wkv_fwd_over)
+        bwd = check(WKV_BWD, label, lambda: W.wkv6_bwd(*ins, u, states, dy),
+                    grads, rel_norm, bwd_over)
+        label_peak = boost_peak(ins[1], ins[3])
+        peak = max(peak, label_peak)
+        lo, hi = chunk_decay_range(ins[3])
+        log(f"B8 {label} {dims} {dtype}: y, states errors {fwd}; dr dk dv "
+            f"dlogw du errors {bwd}; largest |k exp(-cum)| {label_peak:.4g}; "
+            f"exp(cum_L) in [{lo:.4g}, {hi:.4g}]; bits identical run to run")
+        if label == WKV_TIMED:
+            for name, kernel, plain in (
+                    (WKV_FWD, lambda: W.wkv6_fwd(*ins, u),
+                     lambda: W.wkv6_plain(*ins, u)),
+                    (WKV_BWD, lambda: W.wkv6_bwd(*ins, u, states, dy),
+                     lambda: W.wkv6_bwd_plain(*ins, u, states, dy))):
+                ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, samples=5, calls=3)
+                bound_ms, bound_by = wkv_bound(name, dims, dtype)
+                rows[name].update(shape=list(dims), ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  library_ms=None)
+                log(f"{name} {dims}: {ms:.5g} ms, plain {plain_ms:.5g} ms, "
+                    f"library none (no PyTorch call computes the WKV), bound "
+                    f"{bound_ms:.5g} ms ({bound_by})")
+        del ins, u, dy, y, states, grads
+        free_cuda()
+    for row in rows.values():
+        row["max_boost"] = peak
+    return rows
+
+
 def fa_expected(n_layers: int, rings, remat: bool) -> dict:
     """B4's launches over steps at the ring sizes ``rings``: per step and
     layer each of the w ranks runs the forward (twice with remat: again in
@@ -571,6 +749,33 @@ def check_small_against_cpu(mode: str) -> None:
         f"{losses[DEVICE]} vs {losses['cpu']}: max gap {gap:.3g}")
     if not gap < 1e-3:
         raise AssertionError(f"{mode}: card and CPU losses differ by {gap}")
+
+
+def check_rwkv_small_against_cpu() -> None:
+    """Reduced rwkv6-7b, two steps of the f32 ring at w=4 on the card (the
+    time-mix through B8) and on the CPU (the plain recurrence) from the
+    same weights."""
+    cfg = get_arch(RWKV_ARCH).reduced()
+    model = build_model(cfg)
+    data = SyntheticTokens(cfg.vocab, 40, GLOBAL_BATCH, seed=0)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    losses = {}
+    W.reset_launches()
+    for device in ("cpu", DEVICE):
+        tr = ElasticTrainer(model, make_optimizer("adamw"), data,
+                            global_batch=GLOBAL_BATCH, base_lr=1e-3,
+                            mode="ring", device=device,
+                            params=tree_map(lambda t, d=device: t.to(d), params))
+        tr.run_slot(SlotPlan(workers=4, steps=2))
+        losses[device] = tr.losses
+    want = dict.fromkeys(W.LAUNCHES, cfg.n_layers * 4 * 2)
+    if dict(W.LAUNCHES) != want:
+        raise AssertionError(f"reduced rwkv: B8 launches {W.LAUNCHES} != {want}")
+    gap = max(abs(a - b) for a, b in zip(losses["cpu"], losses[DEVICE]))
+    log(f"reduced rwkv, ring, card (time-mix through B8) vs CPU losses "
+        f"{losses[DEVICE]} vs {losses['cpu']}: max gap {gap:.3g}")
+    if not gap < 1e-3:
+        raise AssertionError(f"reduced rwkv: card and CPU losses differ by {gap}")
 
 
 # -- phase 4: the main paths ------------------------------------------------
@@ -768,9 +973,10 @@ def check_reduction(model, trainer, data, mode: str) -> dict:
     return {"worst": worst, "parts": parts, "fa_launches": fa_launches}
 
 
-def b4_share(model, trainer, data) -> dict:
-    """B4's kernels' CUDA-event time over one rank's forward and backward
-    (CUDA events around it), on rank 0's shard of a w=4 step, warm."""
+def kernel_share(model, trainer, data, module, what: str) -> dict:
+    """The CUDA-event time of ``module``'s kernels (through its ``TIMED``
+    list) over one rank's forward and backward (CUDA events around it), on
+    rank 0's shard of a w=4 step, warm."""
     batch = {k: torch.as_tensor(v) for k, v in data.batch(trainer.step).items()}
     devices = trainer.group.devices[:4]
     shard, dev = shard_batch(batch, devices)[:1], devices[:1]
@@ -778,21 +984,21 @@ def b4_share(model, trainer, data) -> dict:
         rank_grads(model, trainer.params, shard, dev)
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    fa.TIMED = []
+    module.TIMED = []
     try:
         start.record()
         rank_grads(model, trainer.params, shard, dev)
         end.record()
         end.synchronize()
-        by_kernel = dict.fromkeys(FA_PAIR_OPS, 0.0)
-        for name, s, e in fa.TIMED:
+        by_kernel = dict.fromkeys(module.LAUNCHES, 0.0)
+        for name, s, e in module.TIMED:
             by_kernel[name] += s.elapsed_time(e)
     finally:
-        fa.TIMED = None
+        module.TIMED = None
     total = start.elapsed_time(end)
-    out = {"rank_ms": total, "b4_ms": by_kernel,
-           "b4_share": sum(by_kernel.values()) / total}
-    log(f"B4's share of one rank's forward and backward: {out}")
+    out = {"rank_ms": total, "kernel_ms": by_kernel,
+           "share": sum(by_kernel.values()) / total}
+    log(f"{what}'s share of one rank's forward and backward: {out}")
     return out
 
 
@@ -819,6 +1025,238 @@ def plain_mode(mode: str, model, data) -> dict:
     return fa_launches
 
 
+# -- phase 6: the RWKV6 path --------------------------------------------------
+
+@torch.no_grad()
+def slot_evals(trainer) -> tuple:
+    """The loss on the held-out batch, and on the slot's first batch (the
+    tokens its first step fits), at the trainer's parameters."""
+    from repro_torch.launch.schedule_and_train import HELDOUT_STEP
+    home, params = next(iter(trainer.params.items()))
+    out = []
+    for step in (HELDOUT_STEP, 0):
+        batch = {k: torch.as_tensor(v).to(home)
+                 for k, v in trainer.data.batch(step).items()}
+        out.append(float(trainer.model.loss(params, batch)))
+    return tuple(out)
+
+
+def rwkv_slot(model, data):
+    """``PLAN`` in the f32 ``ring`` mode from ``model.init(0)``; returns
+    ``(trainer, run_slot's result, {"heldout", "first_batch"}: each loss
+    before and after, slot seconds, peak bytes, B8's launches)``, the
+    counters set to 0 just before the slot and read just after."""
+    trainer = ElasticTrainer(model, make_optimizer("adamw"), data,
+                             global_batch=GLOBAL_BATCH, base_lr=LR,
+                             mode="ring", device=DEVICE)
+    before = slot_evals(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qr.reset_launches()
+    fa.reset_launches()
+    W.reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.run_slot(PLAN)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(W.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if any(qr.LAUNCHES.values()) or any(fa.LAUNCHES.values()):
+        raise AssertionError(f"rwkv ring: ring or attention kernels launched: "
+                             f"{qr.LAUNCHES} {fa.LAUNCHES}")
+    after = slot_evals(trainer)
+    evals = {"heldout": (before[0], after[0]), "first_batch": (before[1], after[1])}
+    return trainer, res, evals, seconds, peak, launches
+
+
+def rwkv_path(cfg) -> dict:
+    """``PLAN`` on rwkv6-7b (``cfg``: full width, depth cut) through B8,
+    its launches against the model's schedule, its loss on the slot's first
+    batch falling; the same slot from the same weights with the time-mix
+    through the plain recurrence on the card (``models.rwkv.wkv6_chunked``,
+    autograd's backward), every step's loss compared; then B8's share of
+    one rank's forward and backward. The held-out loss is recorded, not
+    required to fall: at this width the first AdamW steps fit each batch's
+    tokens and lower every other token's logit, in the reference as in the
+    port (``tests/test_torch_rwkv.py --width-witness``, PERF.md)."""
+    from repro_torch.models import rwkv as rwkv_model
+
+    model = build_model(cfg)
+    data = SyntheticTokens(cfg.vocab, SEQ, GLOBAL_BATCH, seed=0)
+    trainer, res, evals, seconds, peak, launches = rwkv_slot(model, data)
+    ranks = sum(MAIN_RINGS)
+    want = {WKV_FWD: (2 if cfg.remat else 1) * cfg.n_layers * ranks,
+            WKV_BWD: cfg.n_layers * ranks}
+    if launches != want:
+        raise AssertionError(f"rwkv: B8 launches {launches} != schedule {want}")
+    losses = trainer.losses
+    heldout, first = evals["heldout"], evals["first_batch"]
+    log(f"rwkv {cfg.name} {cfg.n_layers} layers, "
+        f"{n_params(model.param_specs())} params: losses {losses}, held-out "
+        f"{heldout[0]} -> {heldout[1]}, the slot's first batch {first[0]} -> "
+        f"{first[1]}, warm step s {res['timings']}, slot "
+        f"{seconds:.4f} s, peak {peak / 2**30:.4f} GiB, B8 {launches}")
+    values = losses + list(heldout) + list(first)
+    if not all(math.isfinite(x) for x in values) or not first[1] < first[0]:
+        raise AssertionError(f"rwkv: losses not finite, or the first batch's "
+                             f"not falling: {losses}, {evals}")
+    if trainer.re_ring_events != 1 or len(losses) != PLAN.steps:
+        raise AssertionError(f"rwkv: re_ring_events {trainer.re_ring_events}, "
+                             f"{len(losses)} steps")
+    share = kernel_share(model, trainer, data, W, "B8")
+    del trainer
+    free_cuda()
+
+    kernel_wkv6 = rwkv_model.wkv6
+    rwkv_model.wkv6 = lambda r, k, v, logw, u: rwkv_model.wkv6_chunked(
+        r, k, v, logw, u)[0]
+    try:
+        plain, _, plain_evals, plain_s, _, plain_launches = rwkv_slot(model, data)
+    finally:
+        rwkv_model.wkv6 = kernel_wkv6
+    plain_values = (plain.losses + list(plain_evals["heldout"])
+                    + list(plain_evals["first_batch"]))
+    gaps = [abs(a - b) for a, b in zip(values, plain_values)]
+    log(f"rwkv through the plain recurrence: losses {plain.losses}, "
+        f"{plain_evals}, slot {plain_s:.4f} s; largest gap to the kernels' "
+        f"{max(gaps):.3g}")
+    if any(plain_launches.values()) or len(gaps) != len(values) or not all(
+            math.isfinite(g) and g <= RWKV_LOSS_TOL for g in gaps):
+        raise AssertionError(f"rwkv: kernels' slot {values} against the plain "
+                             f"slot {plain_values} (B8 launched {plain_launches})")
+    del plain
+    free_cuda()
+    return {"launches": launches, "summary": {
+        "arch": cfg.name, "n_layers": cfg.n_layers,
+        "params": n_params(model.param_specs()), "losses": losses,
+        "heldout": list(heldout), "first_batch": list(first), "slot_s": seconds,
+        "plain_slot_s": plain_s, "loss_gap_to_plain": max(gaps),
+        "warm_step_s": {str(w): t for w, t in res["timings"].items()},
+        "peak_gib": peak / 2**30, "b8_launches": launches,
+        "b8_share_of_rank_grads": share}}
+
+
+# -- phase 7: GADGET's online loop --------------------------------------------
+
+def ring_kernel_expected(rows, n_leaves: int) -> dict:
+    """The int8 fused ring's launches over ``rows`` (one backend report a
+    slot, none re-rung): per step at ring size w and per leaf, as
+    ``expected_launches``; a ring of one sends nothing."""
+    send, hop, last, unpack = MODE_KERNELS["compressed-fused"]
+    out = dict.fromkeys(qr.LAUNCHES, 0)
+    for row in rows:
+        w = row["workers"]
+        if row.get("re_rings"):
+            raise AssertionError(f"the int8 job re-rang, which the loop does "
+                                 f"not script: {row}")
+        if w < 2:
+            continue
+        out[send] += row["steps"] * n_leaves * 2 * w
+        out[hop] += row["steps"] * n_leaves * w * (w - 2)
+        out[last] += row["steps"] * n_leaves * w
+        out[unpack] += row["steps"] * n_leaves * w
+    return out
+
+
+def pdhg_against_highs() -> dict:
+    """One slot of Algorithm 2 with the PDHG engine on the card against the
+    HiGHS engine, on ``tests/test_theory.py``'s instance, which the
+    reference holds within 25%."""
+    from repro_torch.cluster import make_fat_tree
+    from repro_torch.cluster.topology import ResourceState
+    from repro_torch.cluster.trace import JobTraceConfig, generate_jobs
+    from repro_torch.core.gvne import GvneConfig, solve_slot
+    from repro_torch.core.problem import DDLJSInstance, ScheduleState
+
+    graph = make_fat_tree(n_servers=6, n_racks=2, n_core=1, seed=3)
+    jobs = generate_jobs(JobTraceConfig(n_jobs=6, horizon=5, seed=4))
+    for j in jobs:
+        j.arrival = 0
+    state = ScheduleState(DDLJSInstance(graph=graph, jobs=jobs, horizon=5))
+    out = {}
+    for engine in ("highs", "pdhg"):
+        t0 = time.perf_counter()
+        r = solve_slot(ResourceState(graph), jobs, state,
+                       GvneConfig(seed=0, lp_engine=engine))
+        out[engine] = {"value": r.value, "lp_value": r.lp_value,
+                       "seconds": time.perf_counter() - t0}
+        for e in r.embeddings:
+            e.validate_ring()
+    log(f"solve_slot: {out}")
+    if not out["pdhg"]["value"] >= 0.75 * out["highs"]["value"]:
+        raise AssertionError(f"pdhg slot value {out['pdhg']['value']} below 75% "
+                             f"of HiGHS's {out['highs']['value']}")
+    return out
+
+
+def gadget_loop() -> dict:
+    """``repro_torch.launch.schedule_and_train`` on the card, with the
+    launch counters set to 0 just before the driver's run and read just
+    after; the example's checks, and every kernel's launches against the
+    slots its jobs ran."""
+    from repro_torch.launch import schedule_and_train as loop
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as root:
+        jobs = loop.make_jobs()
+        bandwidths = {j.id: j.profile.bandwidth for j in jobs}
+        trainers = loop.make_trainers(jobs, DEVICE, root)
+        before = loop.heldout_losses(trainers)
+        torch.cuda.synchronize()
+        qr.reset_launches()
+        fa.reset_launches()
+        W.reset_launches()
+        t0 = time.perf_counter()
+        backend, result = loop.run_loop(jobs, trainers)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {**qr.LAUNCHES, **fa.LAUNCHES, **W.LAUNCHES}
+        after = loop.heldout_losses(trainers)
+        table = loop.slot_table(jobs, backend)
+        outcome = loop.check_outcome(jobs, trainers, backend, result, bandwidths,
+                                     {j: (before[j], after[j]) for j in before})
+    for line in table + outcome:
+        log(f"loop {line}")
+    rows = {j.id: [r for r in backend.reports if r["job_id"] == j.id]
+            for j in jobs}
+    slot3 = [r for r in rows[0] if r["t"] == 3]
+    if len(slot3) != 1 or slot3[0]["re_rings"] != 1 \
+            or trainers[0].re_ring_events != 1:
+        raise AssertionError(f"job 0's slot-3 ring did not re-ring once: {slot3}")
+    worker_steps = {j: sum(r["worker_steps"] for r in rows[j]) for j in rows}
+    layers = {j.id: trainers[j.id].model.cfg.n_layers for j in jobs}
+    by_arch = {j.arch: j.id for j in jobs}
+    rwkv, dense = by_arch["rwkv6-7b"], [by_arch["qwen3-0.6b"], by_arch["granite-3-2b"]]
+    if any(trainers[j].model.cfg.remat for j in rows):
+        raise AssertionError("the loop's reduced configs train without remat")
+    want = {name: layers[rwkv] * worker_steps[rwkv] for name in W.LAUNCHES}
+    want.update({name: sum(layers[j] * worker_steps[j] for j in dense)
+                 for name in fa.LAUNCHES})
+    int8_job = by_arch["granite-3-2b"]
+    if trainers[int8_job].mode != "compressed-fused":
+        raise AssertionError(f"job {int8_job} trains in {trainers[int8_job].mode}")
+    n_leaves = len(leaf_sizes(next(iter(trainers[int8_job].params.values()))))
+    want.update(ring_kernel_expected(rows[int8_job], n_leaves))
+    if launches != want or not all(worker_steps.values()):
+        raise AssertionError(f"loop launches {launches} != the jobs' slots "
+                             f"{want} (worker steps {worker_steps})")
+    for j in rows:
+        if trainers[j].step != sum(r["steps"] for r in rows[j]):
+            raise AssertionError(f"job {j}: {trainers[j].step} steps against "
+                                 f"its reports {rows[j]}")
+    log(f"loop: {seconds:.4f} s for {loop.SLOTS} slots; launches equal the "
+        f"jobs' slots: {launches}; worker steps {worker_steps}")
+    calibrated = {j.arch: [bandwidths[j.id], backend.calibrated.get(j.id)]
+                  for j in jobs}
+    return {"launches": launches, "summary": {
+        "seconds": seconds, "slots": table, "outcome": outcome,
+        "calibrated_bandwidth": calibrated, "worker_steps": worker_steps,
+        "heldout": {j.arch: [before[j.id], after[j.id]] for j in jobs},
+        "losses": {j.arch: trainers[j.id].losses for j in jobs},
+        "re_rings": {j.arch: trainers[j.id].re_ring_events for j in jobs},
+        "total_utility": result.total_utility,
+        "solve_slot": pdhg_against_highs()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -835,8 +1273,10 @@ def main() -> int:
     model = build_model(cfg)
     rows = check_kernels(model)
     rows.update(check_flash_attention())
+    rows.update(check_wkv6())
     for mode in MODE_KERNELS:
         check_small_against_cpu(mode)
+    check_rwkv_small_against_cpu()
 
     data = SyntheticTokens(cfg.vocab, SEQ, GLOBAL_BATCH, seed=0)
     log(f"main paths: {cfg.name}, {n_params(model.param_specs())} params, "
@@ -854,7 +1294,7 @@ def main() -> int:
                 rows[name]["launches"] += n
                 rows[name]["launches_by_mode"][mode] = n
         red = check_reduction(model, trainer, data, mode)
-        share = b4_share(model, trainer, data)
+        share = kernel_share(model, trainer, data, fa, "B4")
         summary["modes"][mode] = {
             "losses": trainer.losses, "slot_s": run["slot_s"],
             "warm_step_s": {str(w): s for w, s in step_s.items()},
@@ -879,6 +1319,18 @@ def main() -> int:
             rows[name]["launches"] += n
             rows[name]["launches_by_mode"][mode] = n
         free_cuda()
+    rwkv = rwkv_path(dataclasses.replace(get_arch(RWKV_ARCH),
+                                         n_layers=RWKV_LAYERS))
+    log("summary rwkv " + json.dumps(rwkv["summary"]))
+    free_cuda()
+    gloop = gadget_loop()
+    log("summary loop " + json.dumps(gloop["summary"]))
+    for path, launches in (("rwkv ring", rwkv["launches"]),
+                           ("gadget loop", gloop["launches"])):
+        for name, n in launches.items():
+            if n:
+                rows[name]["launches"] += n
+                rows[name]["launches_by_mode"][path] = n
     missing = [name for name, row in rows.items() if not row["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")

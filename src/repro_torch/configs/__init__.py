@@ -18,4 +18,5 @@ from repro_torch.configs import (  # noqa: F401
     granite_3_2b,
     h2o_danube_1p8b,
     qwen3_0p6b,
+    rwkv6_7b,
 )

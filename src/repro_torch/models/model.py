@@ -59,9 +59,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:
-    from repro_torch.models import transformer
+    from repro_torch.models import rwkv, transformer
 
     if cfg.family == "dense":
         return transformer.DenseLM(cfg)
+    if cfg.family == "rwkv":
+        return rwkv.Rwkv6LM(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported to repro_torch yet")

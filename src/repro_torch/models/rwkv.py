@@ -1,0 +1,184 @@
+"""RWKV6 ("Finch"): attention-free LM with data-dependent per-channel decay
+(the counterpart of ``repro.models.rwkv``, training forward only; decode
+comes with serving).
+
+Time-mix runs the chunked WKV recurrence: intra-chunk pairwise decay
+products in the rebased log-space factorization plus an inter-chunk
+``(P, P)`` state. The per-step log-decay is bounded at ``-DECAY_CLAMP`` as
+part of the model definition, which keeps the factorization inside f32. On
+the CPU the recurrence is :func:`wkv6_chunked`, the reference's formulation
+in plain torch; on a CUDA tensor it goes through the hand-written WKV6
+kernels (``repro_torch.kernels.rwkv6_wkv.wkv6``), forward and backward, and
+never through the plain form.
+
+Layers are stacked along a leading "layers" dim as in the reference; the
+forward unbinds each stacked leaf once and runs the layers in a loop, and
+``cfg.remat`` recomputes each layer in backward through
+``torch.utils.checkpoint``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.rwkv6_wkv import WKV_CHUNK, wkv6
+from repro_torch.models import layers as L
+from repro_torch.models.model import BaseModel, masked_lm_head
+from repro_torch.models.module import ParamSpec
+
+DECAY_CLAMP = 2.5   # per-step |log w| bound
+LORA_RANK = 64
+
+
+def wkv6_chunked(r, k, v, logw, u, initial_state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``y_t = r_t . (S_t + diag(u) k_t v_t^T)``, ``S_{t+1} = diag(w_t) S_t
+    + k_t v_t^T``. r/k/v/logw ``(B, S, H, P)``, u ``(H, P)``, the state
+    ``(B, H, P, P)`` f32; returns f32 y and the final state."""
+    b, s, h, p = r.shape
+    lc = min(WKV_CHUNK, s)
+    if s % lc:
+        pad = lc - s % lc
+        r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, logw))
+    sp = r.shape[1]
+    nc = sp // lc
+    rf, kf, vf, lw = (a.float().reshape(b, nc, lc, h, p) for a in (r, k, v, logw))
+    cum = torch.cumsum(lw, dim=2)                 # (B,nc,L,H,P), <= 0
+    cumprev = cum - lw                            # cum_{t-1}
+    r_dec = rf * torch.exp(cumprev)               # exp(<=0), safe
+    k_boost = kf * torch.exp(-cum)                # bounded by e^{L*clamp}
+    a = torch.einsum("bclhp,bcmhp->bchlm", r_dec, k_boost)   # (B,nc,H,L,L)
+    mask = torch.tril(torch.ones(lc, lc, dtype=torch.bool, device=r.device),
+                      diagonal=-1)                # strictly j < t
+    a = torch.where(mask, a, 0.0)
+    y_intra = torch.einsum("bchlm,bcmhp->bclhp", a, vf)
+    bonus = torch.einsum("bclhp,hp,bclhp->bclh", rf, u.float(), kf)
+    y_intra = y_intra + bonus[..., None] * vf
+
+    # inter-chunk state recurrence
+    k_tail = kf * torch.exp(cum[:, :, -1:] - cum)            # exp(<=0)
+    s_chunk = torch.einsum("bclhp,bclhq->bchpq", k_tail, vf)  # (B,nc,H,P,P)
+    chunk_decay = torch.exp(cum[:, :, -1])                   # (B,nc,H,P)
+    state = (torch.zeros((b, h, p, p), dtype=torch.float32, device=r.device)
+             if initial_state is None else initial_state.float())
+    states_prev = []
+    for c in range(nc):
+        states_prev.append(state)
+        state = state * chunk_decay[:, c, ..., None] + s_chunk[:, c]
+    states_prev = torch.stack(states_prev, dim=1)            # (B,nc,H,P,P)
+    y_inter = torch.einsum("bclhp,bchpq->bclhq", r_dec, states_prev)
+    y = (y_intra + y_inter).reshape(b, sp, h, p)[:, :s]
+    return y, state
+
+
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """The token shift: x one step later along the sequence, zeros first."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+class Rwkv6LM(BaseModel):
+    def param_specs(self):
+        cfg = self.cfg
+        nl, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+        p = cfg.rwkv_head_dim
+        h = d // p
+        lead = (nl,)
+        ax = ("layers",)
+        tm = {
+            "ln": ParamSpec(lead + (d,), ax + ("embed",), init="ones"),
+            "mu_r": ParamSpec(lead + (d,), ax + ("embed",), init="zeros"),
+            "mu_k": ParamSpec(lead + (d,), ax + ("embed",), init="zeros"),
+            "mu_v": ParamSpec(lead + (d,), ax + ("embed",), init="zeros"),
+            "mu_g": ParamSpec(lead + (d,), ax + ("embed",), init="zeros"),
+            "mu_w": ParamSpec(lead + (d,), ax + ("embed",), init="zeros"),
+            "w_r": ParamSpec(lead + (d, d), ax + ("embed", "ssm_heads")),
+            "w_k": ParamSpec(lead + (d, d), ax + ("embed", "ssm_heads")),
+            "w_v": ParamSpec(lead + (d, d), ax + ("embed", "ssm_heads")),
+            "w_g": ParamSpec(lead + (d, d), ax + ("embed", "ssm_heads")),
+            "w_o": ParamSpec(lead + (d, d), ax + ("ssm_heads", "embed")),
+            "decay_base": ParamSpec(lead + (d,), ax + ("ssm_heads",), init="zeros"),
+            "decay_lora_a": ParamSpec(lead + (d, LORA_RANK), ax + ("embed", None)),
+            "decay_lora_b": ParamSpec(lead + (LORA_RANK, d), ax + (None, "ssm_heads"),
+                                      scale=0.01),
+            "bonus_u": ParamSpec(lead + (h, p), ax + ("ssm_heads", None),
+                                 init="zeros"),
+            "gn": ParamSpec(lead + (d,), ax + ("ssm_heads",), init="ones"),
+        }
+        cm = {
+            "ln": ParamSpec(lead + (d,), ax + ("embed",), init="ones"),
+            "mu_k": ParamSpec(lead + (d,), ax + ("embed",), init="zeros"),
+            "mu_r": ParamSpec(lead + (d,), ax + ("embed",), init="zeros"),
+            "w_k": ParamSpec(lead + (d, f), ax + ("embed", "mlp")),
+            "w_v": ParamSpec(lead + (f, d), ax + ("mlp", "embed")),
+            "w_r": ParamSpec(lead + (d, d), ax + ("embed", None)),
+        }
+        return {
+            "embed": ParamSpec((cfg.padded_vocab, d), ("vocab", "embed"),
+                               init="embed", scale=0.02),
+            "time_mix": tm,
+            "chan_mix": cm,
+            "ln_f": ParamSpec((d,), ("embed",), init="ones"),
+            "lm_head": ParamSpec((d, cfg.padded_vocab), ("embed", "vocab")),
+        }
+
+    # -- block pieces ---------------------------------------------------------
+    def _decay(self, lp, xw):
+        raw = lp["decay_base"] + torch.tanh(
+            xw @ lp["decay_lora_a"]) @ lp["decay_lora_b"]
+        return -torch.clamp(torch.exp(raw.float()), max=DECAY_CLAMP)
+
+    def _time_mix(self, lp, h):
+        p = self.cfg.rwkv_head_dim
+        b, s, d = h.shape
+        nh = d // p
+        x = L.rms_norm(h, lp["ln"])
+        x_prev = _shift(x)
+
+        def mix(mu):
+            return x + (x_prev - x) * mu
+
+        r = (mix(lp["mu_r"]) @ lp["w_r"]).reshape(b, s, nh, p)
+        k = (mix(lp["mu_k"]) @ lp["w_k"]).reshape(b, s, nh, p)
+        v = (mix(lp["mu_v"]) @ lp["w_v"]).reshape(b, s, nh, p)
+        g = mix(lp["mu_g"]) @ lp["w_g"]
+        logw = self._decay(lp, mix(lp["mu_w"])).reshape(b, s, nh, p)
+        if h.device.type == "cpu":
+            y, _ = wkv6_chunked(r, k, v, logw, lp["bonus_u"])
+        else:
+            y = wkv6(r, k, v, logw, lp["bonus_u"])
+        y = y.reshape(b, s, d).to(h.dtype)
+        y = L.rms_norm(y, lp["gn"]) * F.silu(g)
+        return h + y @ lp["w_o"]
+
+    def _chan_mix(self, lp, h):
+        x = L.rms_norm(h, lp["ln"])
+        x_prev = _shift(x)
+        xk = x + (x_prev - x) * lp["mu_k"]
+        xr = x + (x_prev - x) * lp["mu_r"]
+        kk = torch.square(torch.relu(xk @ lp["w_k"]))
+        out = torch.sigmoid(xr @ lp["w_r"]) * (kk @ lp["w_v"])
+        return h + out
+
+    def _block(self, tm, cm, h):
+        return self._chan_mix(cm, self._time_mix(tm, h))
+
+    def forward(self, params, batch):
+        cfg = self.cfg
+        h = params["embed"][batch["tokens"].long()]
+        layers = []
+        for group in ("time_mix", "chan_mix"):
+            names = list(params[group])
+            layers.append([dict(zip(names, leaves)) for leaves in zip(
+                *(torch.unbind(params[group][n], 0) for n in names))])
+        for tm, cm in zip(*layers):
+            if cfg.remat:
+                h = checkpoint(self._block, tm, cm, h, use_reentrant=False)
+            else:
+                h = self._block(tm, cm, h)
+        h = L.rms_norm(h, params["ln_f"])
+        logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        return logits, {}

@@ -134,6 +134,13 @@ class RingWorkerGroup:
         self._programs: Dict[Tuple[int, str, Optional[int], str],
                              _RingProgram] = {}
         self._warm: set = set()          # keys whose step_fn has run >= once
+        self._closure_fingerprint = self.closure_fingerprint()
+
+    def closure_fingerprint(self) -> Tuple:
+        """Identity snapshot of the closed-over static attrs (the hook of
+        ``sched.backend.audit_compiled_step_cache``)."""
+        return (id(self.model), id(self.optimizer), int(self.global_batch),
+                float(self.lr), self.n_buckets, self.wire_dtype)
 
     def cache_key(self, workers: int) -> Tuple[int, str, Optional[int], str]:
         """The ring-program cache key for a (clamped) ring size; the first

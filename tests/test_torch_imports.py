@@ -29,7 +29,10 @@ def test_port_modules_import_without_jax_or_reference():
     assert "repro_torch.training.elastic" in modules
     assert "repro_torch.kernels.quant_ring" in modules
     for name in ("kernels.flash_attention", "configs.granite_3_2b",
-                 "configs.h2o_danube_1p8b"):
+                 "configs.h2o_danube_1p8b", "kernels.rwkv6_wkv",
+                 "models.rwkv", "configs.rwkv6_7b", "core.gvne", "core.lp",
+                 "sched.driver", "sched.backend", "analysis.sanitize",
+                 "cluster.calibrate", "launch.schedule_and_train"):
         assert f"repro_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
