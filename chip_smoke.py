@@ -26,10 +26,18 @@ non-zero and prints no result. Phases, each raising on failure:
      path's per-rank shapes at w=4 and w=2, the loop's reduced shape, a
      ragged length, every step at the decay clamp and bf16, each run twice
      for identical bits, and time them beside their bound and their plain
-     versions; then train reduced qwen3-0.6b two steps in each kernel mode
-     on the card (attention through B4) and on the CPU (the plain path)
-     from the same weights and compare, and reduced rwkv6-7b two steps of
-     the f32 ring (its time-mix through B8) likewise;
+     versions; hold B9's two kernels (Mamba2's SSD scan: forward S1,
+     backward S2) against their plain versions at the Zamba2 path's
+     per-rank shapes at w=4 and w=2, the reduced model's, a ragged length,
+     a weak decay (A = -0.01 exp(N) a head, so the carried state weighs)
+     and bf16, each run twice for identical bits, and time them beside
+     their bound and their plain versions; then train reduced qwen3-0.6b
+     two steps in each kernel mode on the card (attention through B4) and
+     on the CPU (the plain path) from the same weights and compare, reduced
+     rwkv6-7b two steps of the f32 ring (its time-mix through B8) likewise,
+     and reduced zamba2-1.2b likewise (its SSD through B9, its shared
+     attention through B4), with one rank's gradients compared leaf by
+     leaf;
   4. the main paths: ``ElasticTrainer`` on qwen3-0.6b at full width,
      ``SlotPlan(workers=4, steps=4, leave=(2, 2))``, once in each of the
      modes ``compressed-fused``, ``bf16-fused``, ``fp8-fused`` and
@@ -57,14 +65,27 @@ non-zero and prints no result. Phases, each raising on failure:
      every step's loss and a held-out loss against the same slot with the
      time-mix through the plain recurrence on the card, warm steps, peak
      memory, and B8's share of one rank's forward and backward;
-  7. GADGET's online loop on the card: ``repro_torch.launch.schedule_and_
+  7. the Zamba2 path: ``ElasticTrainer`` on zamba2-1.2b at full width and
+     full depth (38 Mamba2 layers, d_model 2048, 64 SSD heads of 64, state
+     64; the shared attention block, 32 heads of 64, d_ff 8192, applied 6
+     times; vocab 32000), ``PLAN`` in the f32 ``ring`` mode; B9's and B4's
+     launches held to the model's schedule (with remat S1 2*L*w times a
+     step and S2 L*w; the shared attention, which is not rematerialized,
+     6*w times each kernel), every S1 and S2 call of one rank's forward
+     and backward against the plain versions on the path's own inputs (and
+     S1 against the SSD in f64, no further than the model's plain
+     ``ssd_chunked`` is), warm steps, peak memory, B9's and B4's shares of
+     one rank's forward and backward (the slot is not held against one
+     through the plain SSD: the model at random init amplifies any
+     reordering of its sums; ``tools/zamba2_ssd_forms.py`` measures that);
+  8. GADGET's online loop on the card: ``repro_torch.launch.schedule_and_
      train`` at the example's own sizes (three reduced jobs, 6 slots of 4
      steps, the scripted ``WorkerLeave``, calibration on), with the
      example's checks, job 0's slot-3 re-ring, every kernel's launches
      against the slots the jobs ran (B8 for the rwkv job, B4 for the dense
      jobs, the int8 ring for job 1), and one ``solve_slot`` with the PDHG
      engine on the card against HiGHS;
-  8. the ``kernels`` JSON line, the card line, and last the result line.
+  9. the ``kernels`` JSON line, the card line, and last the result line.
 """
 
 from __future__ import annotations
@@ -101,6 +122,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant_ring as qr  # noqa: E402
 from repro_torch.kernels import rwkv6_wkv as W  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.module import _unflatten, n_params, tree_map  # noqa: E402
 from repro_torch.training.elastic import ElasticTrainer, SlotPlan  # noqa: E402
@@ -187,6 +209,8 @@ FA_SHAPES = [
     ("ragged 1000", (2, 1000, 16, 8, 128), False, None, torch.float32),
     ("bf16 main w=4", (2, 1024, 16, 8, 128), True, None, torch.bfloat16),
     ("bf16 ragged window", (1, 1000, 32, 8, 80), True, 300, torch.bfloat16),
+    ("zamba2 w=4", (2, 1024, 32, 32, 64), True, None, torch.float32),
+    ("zamba2 w=2", (4, 1024, 32, 32, 64), True, None, torch.float32),
 ]
 FA_TIMED = "main w=4"
 
@@ -213,6 +237,43 @@ RWKV_ARCH, RWKV_LAYERS = "rwkv6-7b", 4
 # the RWKV6 slot through B8 against the same slot through the plain
 # recurrence on the card, from the same weights: limit on any step's loss gap
 RWKV_LOSS_TOL = 1e-3
+
+# B9, Mamba2's SSD scan: its kernels, held to B4's limits (FA_FWD_TOL for y
+# and the chunk states, FA_BWD_TOL per gradient)
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:77"
+SSD_FWD, SSD_BWD = "ssd_fwd", "ssd_bwd"
+# B9's own chunk: beside the bound, its algorithm's work at this chunk,
+# whatever chunk the kernels take
+B9_CHUNK = 128
+# (label, (B, S, H, P, N), dtype, decay): each rank's SSD on the Zamba2 path
+# at w=4 and w=2 and in the reduced model at w=4 (seq 40, one ragged
+# chunk), a ragged length, a weak decay and bf16 x, B and C
+SSD_SHAPES = [
+    ("main w=4", (2, 1024, 64, 64, 64), torch.float32, "init"),
+    ("main w=2", (4, 1024, 64, 64, 64), torch.float32, "init"),
+    ("reduced w=4", (2, 40, 8, 32, 16), torch.float32, "init"),
+    ("ragged 1000", (2, 1000, 64, 64, 64), torch.float32, "init"),
+    ("weak decay main w=4", (2, 1024, 64, 64, 64), torch.float32, "weak"),
+    ("bf16 main w=4", (2, 1024, 64, 64, 64), torch.bfloat16, "init"),
+]
+SSD_TIMED = "main w=4"
+ZAMBA_ARCH = "zamba2-1.2b"
+# Zamba2 at random init amplifies any reordering of its sums: its first
+# loss moves by about 1e-2 between exact forms of the SSD in f32, and its
+# slot through the plain SSD parts from the kernels' by more with every
+# step (tools/zamba2_ssd_forms.py measures both). So the kernels are held
+# where that does not reach them: every S1 and S2 call of one rank's
+# forward and backward on the path, at the path's own inputs, against the
+# plain versions (B4's limits), and S1's y against the SSD in f64 no
+# further than the model's plain ssd_chunked (f32, chunk 256) is.
+# Reduced zamba2-1.2b on the card against the CPU: its first loss (the
+# same weights) within SMALL_FIRST_TOL, and one rank's gradients at those
+# weights leaf by leaf to a relative norm of SMALL_GRAD_TOL, the limit that
+# tests/test_torch_ssm.py holds this model's gradients to against the
+# reference; the second loss, after an AdamW step of this chaotic model, is
+# recorded
+SMALL_FIRST_TOL, SMALL_GRAD_TOL = 1e-4, 2e-2
 
 
 def log(msg: str) -> None:
@@ -711,6 +772,162 @@ def check_wkv6() -> dict:
     return rows
 
 
+def ssd_ops(name: str, dims, lc: int) -> int:
+    """f32 operations of the SSD (S1's function) or of its backward (S2's)
+    at chunks of ``lc``, a multiply-add two, exponentials and cumulative
+    sums not counted. Over the causal pairs of a chunk (``l (l + 1) / 2``)
+    once per batch row and chunk, as B and C are shared by the heads: the
+    forward's C B^T (2N a pair); the backward's C B^T again, dC's and dB's
+    intra-chunk products (6N). Per head, a pair: the decay and M xf (2P +
+    1); M, dM = dy xf^T, M^T dy, dM's decay, Q and its two sums, the sum of
+    dM over heads (4P + 6). Per head, a token: the readout C S and the
+    state update (4NP) and x dt (P); dC's and dxf's state terms, the dS
+    update and dB's state term (8NP), dg's two N-sums and the sums of dB and
+    dC over heads (6N), xf, dx and d(dt) (4P). Per head, a chunk: the state's
+    decay (NP); the dS decay and the last step's <S, dS> (3NP)."""
+    b, s, h, p, n = dims
+
+    def chunk(l):
+        pairs = l * (l + 1) // 2
+        if name == SSD_FWD:
+            return 2 * n * pairs + h * (pairs * (2 * p + 1) + l * (4 * n * p + p)
+                                        + n * p)
+        return 6 * n * pairs + h * (pairs * (4 * p + 6)
+                                    + l * (8 * n * p + 6 * n + 4 * p) + 3 * n * p)
+    whole, rest = divmod(s, lc)
+    return b * (whole * chunk(lc) + (chunk(rest) if rest else 0))
+
+
+def ssd_bound(name: str, dims, dtype):
+    """Least time for an SSD kernel's work: the function's inputs read once
+    and outputs written once over the memory rate (S1: x, dt, A, B, C in, y
+    out; S2: those and dy in, dx, d(dt), dA, dB, dC out; the chunk states
+    are the kernels' own and are not counted), against the function's f32
+    operations (``ssd_ops``) at the chunk that needs fewest over the f32
+    rate; and, apart, B9's own algorithm's at its chunk of 128, every L x L
+    product counted in full and per head, per token and head S1 2L(N + P)
+    + 4NP (C B^T, M xf, the readout C S, the state update), S2 2L(3N + 2P)
+    + 10NP (C B^T, dy xf^T, M^T dy, G B, G^T C; B dS, C S, dy S^T, dS
+    xf^T, the dS update): a yardstick that stays when a kernel changes its
+    chunk. Returns ``(bound ms, "bytes" or "operations", the fewest
+    operations' chunk, the yardstick in ms)``."""
+    b, s, h, p, n = dims
+    elt = torch.empty((), dtype=dtype).element_size()
+    x_bytes, bc_bytes, dt_bytes, a_bytes = b * s * h * p * elt, b * s * n * elt, 4 * b * s * h, 4 * h
+    ins = x_bytes + dt_bytes + a_bytes + 2 * bc_bytes
+    lc = B9_CHUNK
+    if name == SSD_FWD:
+        n_bytes = ins + x_bytes
+        yard = b * s * h * (2 * lc * (n + p) + 4 * n * p)
+    else:
+        n_bytes = 2 * ins + x_bytes
+        yard = b * s * h * (2 * lc * (3 * n + 2 * p) + 10 * n * p)
+    best = min(range(1, s + 1), key=lambda c: ssd_ops(name, dims, c))
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ssd_ops(name, dims, best) / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            best, max(t_bytes, yard / F32_OPS_PER_S) * 1e3)
+
+
+def ssd_inputs(dims, dtype, decay: str, gen):
+    """``(x, dt, A, Bm, Cm, dy)`` on the card, as the model gives them at
+    init: x, B, C and dy unit normals, dt = softplus(N(0, 1)) (dt_bias 0),
+    and A by ``decay``: "init" the model's -e (A_log 1), where g falls about
+    2 a step and ``exp(g)`` underflows within a few dozen steps, so the
+    carried state weighs nothing; "weak" ``-0.01 exp(N)`` a head, where a
+    chunk's ``exp(g_L)`` spans most of (0, 1) and the state carried across
+    chunks (and its gradient) weighs in every output."""
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+    b, s, h, p, n = dims
+    x, dy = normal((b, s, h, p)), normal((b, s, h, p))
+    bm, cm = normal((b, s, n)), normal((b, s, n))
+    dt = torch.nn.functional.softplus(normal((b, s, h)))
+    A = {"init": lambda: torch.full((h,), -math.e, device=DEVICE),
+         "weak": lambda: -0.01 * torch.exp(normal((h,)))}[decay]()
+    return [x.to(dtype), dt, A, bm.to(dtype), cm.to(dtype)], dy.to(dtype)
+
+
+def ssd_chunk_decay_range(dt: torch.Tensor, A: torch.Tensor) -> tuple:
+    """The smallest and largest ``exp(g_L)``, the decay a whole chunk of the
+    kernels applies to the carried state, over the whole chunks."""
+    lc = SSD.SSD_CHUNK
+    whole = dt.shape[1] // lc * lc
+    if not whole:
+        return (float("nan"), float("nan"))
+    g = (dt[:, :whole] * A).reshape(dt.shape[0], -1, lc, dt.shape[2]).sum(dim=2)
+    decay = torch.exp(g)
+    return float(decay.min()), float(decay.max())
+
+
+def check_ssd() -> dict:
+    """B9's kernels against their plain versions, each on the same inputs,
+    at every shape of SSD_SHAPES and the kernels' chunk; every kernel run
+    twice gives the same bits; timed at SSD_TIMED."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    rows = {name: {"name": name, "route": "cuda", "source": SSD_SOURCE,
+                   "replaces": SSD_REPLACES, "max_abs_err": 0.0,
+                   "max_rel_err": 0.0, "max_of_limit": 0.0}
+            for name in (SSD_FWD, SSD_BWD)}
+    spans = {}
+
+    def check(name, label, kernel, refs, measure, over):
+        outs, again = kernel(), kernel()
+        if not all(same_bits(a, b) for a, b in zip(outs, again)):
+            raise AssertionError(f"{name} {label}: two runs differ")
+        errs = [measure(a, r) if bool(r.abs().max() > 0) else 0.0
+                for a, r in zip(outs, refs)]
+        abs_errs = [float((a.float() - r.float()).abs().max())
+                    for a, r in zip(outs, refs)]
+        overs = [over(a, r) for a, r in zip(outs, refs)]
+        if not within(overs) or not all(map(math.isfinite, errs + abs_errs)):
+            raise AssertionError(f"{name} {label}: errors {errs} (abs {abs_errs}) "
+                                 f"are {overs} of their limits")
+        row = rows[name]
+        row["max_abs_err"] = max(row["max_abs_err"], *abs_errs)
+        row["max_rel_err"] = max(row["max_rel_err"], *errs)
+        row["max_of_limit"] = max(row["max_of_limit"], *overs)
+        return errs
+
+    for label, dims, dtype, decay in SSD_SHAPES:
+        ins, dy = ssd_inputs(dims, dtype, decay, gen)
+        y, states = SSD.ssd_scan_plain(*ins)
+        grads = SSD.ssd_scan_bwd_plain(*ins, states, dy)
+        fwd = check(SSD_FWD, label, lambda: SSD.ssd_scan_fwd(*ins), (y, states),
+                    rel_max, wkv_fwd_over)
+        bwd = check(SSD_BWD, label, lambda: SSD.ssd_scan_bwd(*ins, states, dy),
+                    grads, rel_norm, bwd_over)
+        lo, hi = spans[label] = ssd_chunk_decay_range(ins[1], ins[2])
+        log(f"B9 {label} {dims} {dtype}: y, states errors {fwd}; dx ddt dA dB "
+            f"dC errors {bwd}; exp(g_L) over a chunk of {SSD.SSD_CHUNK} in "
+            f"[{lo:.4g}, {hi:.4g}]; largest state {float(states.abs().max()):.4g}; "
+            f"bits identical run to run")
+        if label == SSD_TIMED:
+            for name, kernel, plain in (
+                    (SSD_FWD, lambda: SSD.ssd_scan_fwd(*ins),
+                     lambda: SSD.ssd_scan_plain(*ins)),
+                    (SSD_BWD, lambda: SSD.ssd_scan_bwd(*ins, states, dy),
+                     lambda: SSD.ssd_scan_bwd_plain(*ins, states, dy))):
+                ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, samples=5, calls=3)
+                bound_ms, bound_by, best, yard_ms = ssd_bound(name, dims, dtype)
+                rows[name].update(shape=list(dims), ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  library_ms=None, bound_chunk=best,
+                                  b9_chunk128_ms=yard_ms,
+                                  states_bytes=states.numel() * 4)
+                log(f"{name} {dims}: {ms:.5g} ms, plain {plain_ms:.5g} ms, "
+                    f"library none (no PyTorch call computes the SSD scan), "
+                    f"bound {bound_ms:.5g} ms ({bound_by}, at chunk {best}); "
+                    f"B9's algorithm at chunk {B9_CHUNK} {yard_ms:.5g} ms; chunk "
+                    f"states {states.numel() * 4} bytes")
+        del ins, dy, y, states, grads
+        free_cuda()
+    for row in rows.values():
+        row["chunk_decay_span"] = spans
+    return rows
+
+
 def fa_expected(n_layers: int, rings, remat: bool) -> dict:
     """B4's launches over steps at the ring sizes ``rings``: per step and
     layer each of the w ranks runs the forward (twice with remat: again in
@@ -776,6 +993,66 @@ def check_rwkv_small_against_cpu() -> None:
         f"{losses[DEVICE]} vs {losses['cpu']}: max gap {gap:.3g}")
     if not gap < 1e-3:
         raise AssertionError(f"reduced rwkv: card and CPU losses differ by {gap}")
+
+
+def zamba_fa_expected(cfg, rings) -> dict:
+    """B4's launches over steps at the ring sizes ``rings`` on Zamba2: per
+    step each of the w ranks applies the shared attention block once a
+    group of ``attn_every`` Mamba layers, outside remat, so the forward and
+    each backward kernel run once an application."""
+    groups = cfg.n_layers // cfg.attn_every
+    return dict.fromkeys(FA_PAIR_OPS, groups * sum(rings))
+
+
+def ssd_expected(cfg, rings) -> dict:
+    """B9's launches over steps at the ring sizes ``rings``: per step, layer
+    and rank S1 once (twice with remat: again in the recompute of
+    backward) and S2 once."""
+    ranks = sum(rings)
+    return {SSD_FWD: (2 if cfg.remat else 1) * cfg.n_layers * ranks,
+            SSD_BWD: cfg.n_layers * ranks}
+
+
+def check_zamba_small_against_cpu() -> None:
+    """Reduced zamba2-1.2b, two steps of the f32 ring at w=4 on the card (the
+    SSD through B9, the shared attention through B4) and on the CPU (the
+    plain forms) from the same weights, the first loss compared; and one
+    rank's gradients at those weights on both, leaf by leaf."""
+    cfg = get_arch(ZAMBA_ARCH).reduced()
+    model = build_model(cfg)
+    data = SyntheticTokens(cfg.vocab, 40, GLOBAL_BATCH, seed=0)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    losses, grads = {}, {}
+    SSD.reset_launches()
+    fa.reset_launches()
+    batch = {k: torch.as_tensor(v) for k, v in data.batch(0).items()}
+    for device in ("cpu", DEVICE):
+        tr = ElasticTrainer(model, make_optimizer("adamw"), data,
+                            global_batch=GLOBAL_BATCH, base_lr=1e-3,
+                            mode="ring", device=device,
+                            params=tree_map(lambda t, d=device: t.to(d), params))
+        home = tr.group.devices[0]
+        shard = shard_batch(batch, [home] * 4)[:1]
+        _, (g,) = rank_grads(model, {home: tree_map(lambda t: t.to(home), params)},
+                             shard, [home])
+        grads[device] = {k: v.cpu() for k, v in g.items()}
+        tr.run_slot(SlotPlan(workers=4, steps=2))
+        losses[device] = tr.losses
+    want = {**ssd_expected(cfg, [4, 4] + [1]), **zamba_fa_expected(cfg, [4, 4] + [1])}
+    got = {**SSD.LAUNCHES, **fa.LAUNCHES}
+    if got != want:
+        raise AssertionError(f"reduced zamba2: B9, B4 launches {got} != {want}")
+    gaps = [abs(a - b) for a, b in zip(losses["cpu"], losses[DEVICE])]
+    norms = {k: rel_norm(grads[DEVICE][k], grads["cpu"][k]) for k in grads["cpu"]}
+    worst = max(norms, key=norms.get)
+    log(f"reduced zamba2, ring, card (SSD through B9, attention through B4) vs "
+        f"CPU losses {losses[DEVICE]} vs {losses['cpu']}: gaps {gaps}; one "
+        f"rank's gradients at the first weights: worst leaf {worst} "
+        f"{norms[worst]:.3g}")
+    if not (gaps[0] <= SMALL_FIRST_TOL and all(map(math.isfinite, gaps))
+            and within(n / SMALL_GRAD_TOL for n in norms.values())):
+        raise AssertionError(f"reduced zamba2: card and CPU differ: loss gaps "
+                             f"{gaps}, gradient norms {norms}")
 
 
 # -- phase 4: the main paths ------------------------------------------------
@@ -1041,29 +1318,25 @@ def slot_evals(trainer) -> tuple:
     return tuple(out)
 
 
-def rwkv_slot(model, data):
+def ring_slot(model, data):
     """``PLAN`` in the f32 ``ring`` mode from ``model.init(0)``; returns
     ``(trainer, run_slot's result, {"heldout", "first_batch"}: each loss
-    before and after, slot seconds, peak bytes, B8's launches)``, the
-    counters set to 0 just before the slot and read just after."""
+    before and after, slot seconds, peak bytes, every kernel's launches)``,
+    the counters set to 0 just before the slot and read just after."""
     trainer = ElasticTrainer(model, make_optimizer("adamw"), data,
                              global_batch=GLOBAL_BATCH, base_lr=LR,
                              mode="ring", device=DEVICE)
     before = slot_evals(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    qr.reset_launches()
-    fa.reset_launches()
-    W.reset_launches()
+    for module in (qr, fa, W, SSD):
+        module.reset_launches()
     t0 = time.perf_counter()
     res = trainer.run_slot(PLAN)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(W.LAUNCHES)
+    launches = {**qr.LAUNCHES, **fa.LAUNCHES, **W.LAUNCHES, **SSD.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
-    if any(qr.LAUNCHES.values()) or any(fa.LAUNCHES.values()):
-        raise AssertionError(f"rwkv ring: ring or attention kernels launched: "
-                             f"{qr.LAUNCHES} {fa.LAUNCHES}")
     after = slot_evals(trainer)
     evals = {"heldout": (before[0], after[0]), "first_batch": (before[1], after[1])}
     return trainer, res, evals, seconds, peak, launches
@@ -1083,12 +1356,15 @@ def rwkv_path(cfg) -> dict:
 
     model = build_model(cfg)
     data = SyntheticTokens(cfg.vocab, SEQ, GLOBAL_BATCH, seed=0)
-    trainer, res, evals, seconds, peak, launches = rwkv_slot(model, data)
+    trainer, res, evals, seconds, peak, launches = ring_slot(model, data)
     ranks = sum(MAIN_RINGS)
     want = {WKV_FWD: (2 if cfg.remat else 1) * cfg.n_layers * ranks,
             WKV_BWD: cfg.n_layers * ranks}
-    if launches != want:
-        raise AssertionError(f"rwkv: B8 launches {launches} != schedule {want}")
+    launches, others = ({k: v for k, v in launches.items() if (k in want) == mine}
+                        for mine in (True, False))
+    if launches != want or any(others.values()):
+        raise AssertionError(f"rwkv: B8 launches {launches} != schedule {want}, "
+                             f"or other kernels launched: {others}")
     losses = trainer.losses
     heldout, first = evals["heldout"], evals["first_batch"]
     log(f"rwkv {cfg.name} {cfg.n_layers} layers, "
@@ -1111,7 +1387,7 @@ def rwkv_path(cfg) -> dict:
     rwkv_model.wkv6 = lambda r, k, v, logw, u: rwkv_model.wkv6_chunked(
         r, k, v, logw, u)[0]
     try:
-        plain, _, plain_evals, plain_s, _, plain_launches = rwkv_slot(model, data)
+        plain, _, plain_evals, plain_s, _, plain_launches = ring_slot(model, data)
     finally:
         rwkv_model.wkv6 = kernel_wkv6
     plain_values = (plain.losses + list(plain_evals["heldout"])
@@ -1136,7 +1412,115 @@ def rwkv_path(cfg) -> dict:
         "b8_share_of_rank_grads": share}}
 
 
-# -- phase 7: GADGET's online loop --------------------------------------------
+# -- phase 7: the Zamba2 path -------------------------------------------------
+
+def ssd_calls_against_plain(model, trainer, data) -> dict:
+    """One rank's forward and backward on the Zamba2 path (rank 0's shard of
+    a w=4 step, at the trainer's weights) with every S1 and S2 call held
+    against its plain version on the same inputs: y and the chunk states
+    within FA_FWD_TOL of their largest value, each gradient within
+    FA_BWD_TOL's relative norm; and S1's y against the SSD in f64 (the
+    plain version on f64 inputs), beside the model's plain ``ssd_chunked``
+    in f32 at its chunk of 256."""
+    from repro_torch.models import ssm as ssm_model
+
+    cfg = model.cfg
+    batch = {k: torch.as_tensor(v) for k, v in data.batch(trainer.step).items()}
+    devices = trainer.group.devices[:4]
+    shard, dev = shard_batch(batch, devices)[:1], devices[:1]
+    kernel_fwd, kernel_bwd = SSD.ssd_scan_fwd, SSD.ssd_scan_bwd
+    out = {"fwd_calls": 0, "bwd_calls": 0, "fwd_of_limit": 0.0,
+           "bwd_of_limit": 0.0, "kernel_vs_f64": 0.0, "chunked_vs_f64": 0.0}
+
+    def fwd(x, dt, A, Bm, Cm):
+        y, states = kernel_fwd(x, dt, A, Bm, Cm)
+        y_ref, st_ref = SSD.ssd_scan_plain(x, dt, A, Bm, Cm)
+        exact = SSD.ssd_scan_plain(*(t.double() for t in (x, dt, A, Bm, Cm)))[0]
+        chunked = ssm_model.ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk)[0]
+        out["fwd_calls"] += 1
+        out["fwd_of_limit"] = max(out["fwd_of_limit"], wkv_fwd_over(y, y_ref),
+                                  wkv_fwd_over(states, st_ref))
+        out["kernel_vs_f64"] = max(out["kernel_vs_f64"], rel_max(y, exact))
+        out["chunked_vs_f64"] = max(out["chunked_vs_f64"], rel_max(chunked, exact))
+        return y, states
+
+    def bwd(x, dt, A, Bm, Cm, states, dy):
+        grads = kernel_bwd(x, dt, A, Bm, Cm, states, dy)
+        refs = SSD.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy)
+        out["bwd_calls"] += 1
+        out["bwd_of_limit"] = max(out["bwd_of_limit"],
+                                  *(bwd_over(g, r) for g, r in zip(grads, refs)))
+        return grads
+
+    SSD.ssd_scan_fwd, SSD.ssd_scan_bwd = fwd, bwd
+    try:
+        rank_grads(model, trainer.params, shard, dev)
+    finally:
+        SSD.ssd_scan_fwd, SSD.ssd_scan_bwd = kernel_fwd, kernel_bwd
+    log(f"zamba2: every SSD call of one rank's forward and backward against "
+        f"the plain versions on its own inputs: {out}")
+    want_calls = ssd_expected(cfg, [1])
+    if (out["fwd_calls"], out["bwd_calls"]) != (want_calls[SSD_FWD],
+                                                want_calls[SSD_BWD]):
+        raise AssertionError(f"zamba2: {out['fwd_calls']} S1 and "
+                             f"{out['bwd_calls']} S2 calls, want {want_calls}")
+    if not (within([out["fwd_of_limit"], out["bwd_of_limit"]])
+            and out["kernel_vs_f64"] <= out["chunked_vs_f64"]):
+        raise AssertionError(f"zamba2: the kernels against the plain versions, "
+                             f"or against the f64 SSD: {out}")
+    return out
+
+
+def zamba_path(cfg) -> dict:
+    """``PLAN`` on zamba2-1.2b (``cfg``: full width) through B9 and B4, their
+    launches against the model's schedule and no other kernel's, its loss
+    on the slot's first batch falling; every S1 and S2 call of one rank's
+    forward and backward against the plain versions on the path's own
+    inputs; B9's and B4's shares of one rank's forward and backward. The
+    held-out loss is recorded, not required to fall (as on the RWKV6 path).
+    The slot is not held against the same slot through the plain SSD: the
+    model at random init turns the reordered sums of any exact SSD into
+    loss gaps of 1e-2 and more (``tools/zamba2_ssd_forms.py``, PERF.md)."""
+    model = build_model(cfg)
+    data = SyntheticTokens(cfg.vocab, SEQ, GLOBAL_BATCH, seed=0)
+    want = {**ssd_expected(cfg, MAIN_RINGS), **zamba_fa_expected(cfg, MAIN_RINGS)}
+    trainer, res, evals, seconds, peak, launches = ring_slot(model, data)
+    launches, others = ({k: v for k, v in launches.items() if (k in want) == mine}
+                        for mine in (True, False))
+    if launches != want or any(others.values()):
+        raise AssertionError(f"zamba2: B9, B4 launches {launches} != schedule "
+                             f"{want}, or other kernels launched: {others}")
+    losses = trainer.losses
+    heldout, first = evals["heldout"], evals["first_batch"]
+    log(f"zamba2 {cfg.name} {cfg.n_layers} layers, "
+        f"{n_params(model.param_specs())} params: losses {losses}, held-out "
+        f"{heldout[0]} -> {heldout[1]}, the slot's first batch {first[0]} -> "
+        f"{first[1]}, warm step s {res['timings']}, slot {seconds:.4f} s, peak "
+        f"{peak / 2**30:.4f} GiB, B9 and B4 {launches}")
+    values = losses + list(heldout) + list(first)
+    if not all(math.isfinite(x) for x in values) or not first[1] < first[0]:
+        raise AssertionError(f"zamba2: losses not finite, or the first batch's "
+                             f"not falling: {losses}, {evals}")
+    if trainer.re_ring_events != 1 or len(losses) != PLAN.steps:
+        raise AssertionError(f"zamba2: re_ring_events {trainer.re_ring_events}, "
+                             f"{len(losses)} steps")
+    shares = {"b9": kernel_share(model, trainer, data, SSD, "B9"),
+              "b4": kernel_share(model, trainer, data, fa, "B4")}
+    calls = ssd_calls_against_plain(model, trainer, data)
+    del trainer
+    free_cuda()
+    return {"launches": launches, "summary": {
+        "arch": cfg.name, "n_layers": cfg.n_layers,
+        "params": n_params(model.param_specs()), "losses": losses,
+        "heldout": list(heldout), "first_batch": list(first), "slot_s": seconds,
+        "ssd_calls": calls,
+        "warm_step_s": {str(w): t for w, t in res["timings"].items()},
+        "peak_gib": peak / 2**30, "launches": launches,
+        "b9_share_of_rank_grads": shares["b9"],
+        "b4_share_of_rank_grads": shares["b4"]}}
+
+
+# -- phase 8: GADGET's online loop --------------------------------------------
 
 def ring_kernel_expected(rows, n_leaves: int) -> dict:
     """The int8 fused ring's launches over ``rows`` (one backend report a
@@ -1274,9 +1658,11 @@ def main() -> int:
     rows = check_kernels(model)
     rows.update(check_flash_attention())
     rows.update(check_wkv6())
+    rows.update(check_ssd())
     for mode in MODE_KERNELS:
         check_small_against_cpu(mode)
     check_rwkv_small_against_cpu()
+    check_zamba_small_against_cpu()
 
     data = SyntheticTokens(cfg.vocab, SEQ, GLOBAL_BATCH, seed=0)
     log(f"main paths: {cfg.name}, {n_params(model.param_specs())} params, "
@@ -1323,9 +1709,13 @@ def main() -> int:
                                          n_layers=RWKV_LAYERS))
     log("summary rwkv " + json.dumps(rwkv["summary"]))
     free_cuda()
+    zamba = zamba_path(get_arch(ZAMBA_ARCH))
+    log("summary zamba2 " + json.dumps(zamba["summary"]))
+    free_cuda()
     gloop = gadget_loop()
     log("summary loop " + json.dumps(gloop["summary"]))
     for path, launches in (("rwkv ring", rwkv["launches"]),
+                           ("zamba2 ring", zamba["launches"]),
                            ("gadget loop", gloop["launches"])):
         for name, n in launches.items():
             if n:

@@ -19,4 +19,5 @@ from repro_torch.configs import (  # noqa: F401
     h2o_danube_1p8b,
     qwen3_0p6b,
     rwkv6_7b,
+    zamba2_1p2b,
 )

@@ -59,10 +59,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:
-    from repro_torch.models import rwkv, transformer
+    from repro_torch.models import rwkv, ssm, transformer
 
     if cfg.family == "dense":
         return transformer.DenseLM(cfg)
+    if cfg.family == "hybrid":
+        return ssm.Zamba2LM(cfg)
+    if cfg.family == "ssm":
+        return ssm.Mamba2LM(cfg)
     if cfg.family == "rwkv":
         return rwkv.Rwkv6LM(cfg)
     raise NotImplementedError(

@@ -1,0 +1,286 @@
+"""Mamba2 (SSD) blocks and the Zamba2 hybrid, a Mamba2 backbone with one
+*shared* attention block applied every ``attn_every`` layers (the
+counterpart of ``repro.models.ssm``, training forward only; decode comes
+with serving).
+
+The SSD runs the chunked algorithm (Dao & Gu, 2024): a dense intra-chunk
+term with per-head scalar decay plus an inter-chunk ``(N, P)`` state, every
+decay an exponent of ``g_t - g_j <= 0``. On the CPU it is
+:func:`ssd_chunked`, the reference's formulation in plain torch at the
+config's chunk; on a CUDA tensor it goes through the hand-written SSD
+kernels (``repro_torch.kernels.ssd_scan.ssd_scan``), forward and backward,
+and never through the plain form. The shared block's attention goes
+through ``layers.attention``, the flash attention kernels on the card.
+
+Mamba layers are stacked along a leading "layers" dim as in the reference;
+the forward unbinds each stacked leaf once and runs the layers in a loop,
+and ``cfg.remat`` recomputes each Mamba layer in backward through
+``torch.utils.checkpoint``. As in the reference, the shared attention
+block is not rematerialized.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models import layers as L
+from repro_torch.models.model import BaseModel, masked_lm_head
+from repro_torch.models.module import ParamSpec
+from repro_torch.models.transformer import _attn_specs, _mlp_specs
+
+CONV_K = 4  # mamba2 depthwise conv kernel width
+
+
+# ---------------------------------------------------------------------------
+# SSD core (chunked)
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
+                initial_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x ``(B, S, H, P)``, dt ``(B, S, H)`` (softplus'd), A ``(H,)``
+    (negative), Bm and Cm ``(B, S, N)``, the state ``(B, H, N, P)``.
+    Returns f32 y ``(B, S, H, P)`` and the final state. The pairwise decay
+    masks its exponent before ``exp`` (the reference masks after it), so
+    no ``inf`` reaches autograd's ``0 * inf`` when ``g`` spans more than
+    88 over a chunk."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    lc = min(chunk, s)
+    if s % lc:
+        pad = lc - s % lc
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt, Bm, Cm = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, Cm))
+    sp = x.shape[1]
+    nc = sp // lc
+
+    xf = (x * dt[..., None]).float().reshape(b, nc, lc, h, p)
+    a = (dt.float() * A.float()).reshape(b, nc, lc, h)
+    Bc = Bm.float().reshape(b, nc, lc, n)
+    Cc = Cm.float().reshape(b, nc, lc, n)
+
+    g = torch.cumsum(a, dim=2)                          # (B,nc,L,H)
+    # intra-chunk: y[t] += sum_{j<=t} exp(g_t - g_j) (C_t.B_j) x_j
+    mask = torch.tril(torch.ones(lc, lc, dtype=torch.bool, device=x.device))
+    mask = mask[None, None, :, :, None]
+    diff = g[:, :, :, None, :] - g[:, :, None, :, :]    # (B,nc,L,L,H), t index 2
+    decay = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+    cb = torch.einsum("bcln,bcmn->bclm", Cc, Bc)        # (B,nc,L,L)
+    y_intra = torch.einsum("bclm,bclmh,bcmhp->bclhp", cb, decay, xf)
+
+    # chunk summaries: S_c = sum_j exp(g_last - g_j) B_j (x) x_j
+    wlast = torch.exp(g[:, :, -1:, :] - g)              # (B,nc,L,H)
+    s_chunk = torch.einsum("bcln,bclh,bclhp->bchnp", Bc, wlast, xf)
+    chunk_decay = torch.exp(g[:, :, -1, :])             # (B,nc,H)
+
+    # inter-chunk recurrence
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    states_prev = []
+    for c in range(nc):
+        states_prev.append(state)                       # state entering chunk c
+        state = state * chunk_decay[:, c, :, None, None] + s_chunk[:, c]
+    states_prev = torch.stack(states_prev, dim=1)       # (B,nc,H,N,P)
+
+    y_inter = torch.einsum("bcln,bclh,bchnp->bclhp", Cc, torch.exp(g), states_prev)
+    y = (y_intra + y_inter).reshape(b, sp, h, p)[:, :s]
+    return y, state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+def mamba2_specs(cfg: ArchConfig, nl: int) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    din = cfg.d_inner
+    n = cfg.ssm_state
+    h = cfg.n_ssm_heads
+    conv_dim = din + 2 * n
+    d_in_proj = 2 * din + 2 * n + h
+    lead = (nl,)
+    ax = ("layers",)
+    return {
+        "ln": ParamSpec(lead + (d,), ax + ("embed",), init="ones"),
+        "in_proj": ParamSpec(lead + (d, d_in_proj), ax + ("embed", "ssm_heads")),
+        "conv_w": ParamSpec(lead + (CONV_K, conv_dim), ax + (None, "ssm_heads"),
+                            scale=0.5),
+        "conv_b": ParamSpec(lead + (conv_dim,), ax + ("ssm_heads",), init="zeros"),
+        "dt_bias": ParamSpec(lead + (h,), ax + ("ssm_heads",), init="zeros"),
+        "A_log": ParamSpec(lead + (h,), ax + ("ssm_heads",), init="ones"),
+        "D": ParamSpec(lead + (h,), ax + ("ssm_heads",), init="ones"),
+        "gate_ln": ParamSpec(lead + (din,), ax + ("ssm_heads",), init="ones"),
+        "out_proj": ParamSpec(lead + (din, d), ax + ("ssm_heads", "embed")),
+    }
+
+
+def _split_in_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
+    din, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * n, h], dim=-1)
+    return z, xbc, dt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d, kernel CONV_K. xbc: (B,S,C), w: (K,C).
+
+    Returns (out (B,S,C), new_state (B,K-1,C)) — state carries the last K-1
+    inputs for decode.
+    """
+    k = w.shape[0]
+    if state is None:
+        ctx = F.pad(xbc, (0, 0, k - 1, 0))
+    else:
+        ctx = torch.cat([state.to(xbc.dtype), xbc], dim=1)
+    out = sum(ctx[:, i:i + xbc.shape[1]] * w[i] for i in range(k)) + b
+    new_state = ctx[:, -(k - 1):] if k > 1 else None
+    return F.silu(out), new_state
+
+
+def mamba2_block(cfg: ArchConfig, lp, h_in: torch.Tensor, *,
+                 ssm_state: Optional[torch.Tensor] = None,
+                 conv_state: Optional[torch.Tensor] = None):
+    """Returns (h_out, new_ssm_state, new_conv_state). On the card the SSD
+    goes through the kernels, which start from a zero state and give no
+    final state (None): a state in or out comes with serving."""
+    din, n, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    p = cfg.ssm_head_dim
+    x = L.rms_norm(h_in, lp["ln"])
+    zxbcdt = x @ lp["in_proj"]
+    z, xbc, dt = _split_in_proj(cfg, zxbcdt)
+    xbc, new_conv = _causal_conv(xbc, lp["conv_w"], lp["conv_b"],
+                                 state=conv_state)
+    xs, Bm, Cm = torch.split(xbc, [din, n, n], dim=-1)
+    dt = F.softplus(dt.float() + lp["dt_bias"].float())
+    A = -torch.exp(lp["A_log"].float())
+    b, s, _ = xs.shape
+    xh = xs.reshape(b, s, nh, p)
+    if xh.device.type == "cpu":
+        y, new_state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
+                                   initial_state=ssm_state)
+    elif ssm_state is not None:
+        raise NotImplementedError(
+            "the SSD from an initial state on the card comes with serving")
+    else:
+        y, new_state = ssd_scan(xh, dt, A, Bm, Cm), None
+    y = y.float() + lp["D"].float()[None, None, :, None] * xh.float()
+    y = y.reshape(b, s, din).to(h_in.dtype)
+    y = L.rms_norm(y * F.silu(z), lp["gate_ln"])
+    return h_in + y @ lp["out_proj"], new_state, new_conv
+
+
+def _unstack(stacked: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """One dict of leaves per layer, each stacked leaf unbound once."""
+    names = list(stacked)
+    return [dict(zip(names, leaves)) for leaves in zip(
+        *(torch.unbind(stacked[k], 0) for k in names))]
+
+
+def _mamba_layer(cfg: ArchConfig, lp, h):
+    return mamba2_block(cfg, lp, h)[0]
+
+
+def _mamba_layers(cfg: ArchConfig, layers, h):
+    """The Mamba layers in turn, each recomputed in backward under
+    ``cfg.remat``."""
+    for lp in layers:
+        if cfg.remat:
+            h = checkpoint(_mamba_layer, cfg, lp, h, use_reentrant=False)
+        else:
+            h = _mamba_layer(cfg, lp, h)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Pure Mamba2 LM (used for testing + as a family baseline)
+# ---------------------------------------------------------------------------
+
+class Mamba2LM(BaseModel):
+    def param_specs(self):
+        cfg = self.cfg
+        return {
+            "embed": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                               ("vocab", "embed"), init="embed", scale=0.02),
+            "mamba": mamba2_specs(cfg, cfg.n_layers),
+            "ln_f": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+            "lm_head": ParamSpec((cfg.d_model, cfg.padded_vocab), ("embed", "vocab")),
+        }
+
+    def forward(self, params, batch):
+        cfg = self.cfg
+        h = params["embed"][batch["tokens"].long()]
+        h = _mamba_layers(cfg, _unstack(params["mamba"]), h)
+        h = L.rms_norm(h, params["ln_f"])
+        logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        return logits, {}
+
+
+# ---------------------------------------------------------------------------
+# Zamba2: mamba2 backbone + one shared attention block every attn_every layers
+# ---------------------------------------------------------------------------
+
+class Zamba2LM(BaseModel):
+    """38 mamba2 layers; a single *weight-shared* full-attention block (MHA +
+    SwiGLU) applied after every ``attn_every``-th mamba layer (Zamba2's
+    shared-block design; per-use LoRA adapters omitted — noted in config)."""
+
+    def _layout(self):
+        cfg = self.cfg
+        g = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        rem = cfg.n_layers - g * cfg.attn_every
+        return g, rem
+
+    def param_specs(self):
+        cfg = self.cfg
+        shared = {
+            "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+            "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+            **_attn_specs(cfg, 0, prefix_axes=()),
+            **_mlp_specs(cfg, 0, prefix_axes=()),
+        }
+        return {
+            "embed": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                               ("vocab", "embed"), init="embed", scale=0.02),
+            "mamba": mamba2_specs(cfg, cfg.n_layers),
+            "shared_attn": shared,
+            "ln_f": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+            "lm_head": ParamSpec((cfg.d_model, cfg.padded_vocab), ("embed", "vocab")),
+        }
+
+    def _shared_attn_train(self, sp, h, positions):
+        cfg = self.cfg
+        x = L.rms_norm(h, sp["ln1"])
+        q = torch.einsum("bsd,dhk->bshk", x, sp["wq"])
+        k = torch.einsum("bsd,dhk->bshk", x, sp["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, sp["wv"])
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        o = L.attention(q, k, v, causal=True)
+        h = h + torch.einsum("bshk,hkd->bsd", o, sp["wo"])
+        x = L.rms_norm(h, sp["ln2"])
+        return h + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
+
+    def _mamba_span(self, layers, h, lo, hi):
+        return _mamba_layers(self.cfg, layers[lo:hi], h)
+
+    def forward(self, params, batch):
+        cfg = self.cfg
+        g, rem = self._layout()
+        h = params["embed"][batch["tokens"].long()]
+        positions = torch.arange(h.shape[1], device=h.device)
+        layers = _unstack(params["mamba"])
+        for gi in range(g):
+            h = self._mamba_span(layers, h, gi * cfg.attn_every,
+                                 (gi + 1) * cfg.attn_every)
+            h = self._shared_attn_train(params["shared_attn"], h, positions)
+        if rem:
+            h = self._mamba_span(layers, h, g * cfg.attn_every, cfg.n_layers)
+        h = L.rms_norm(h, params["ln_f"])
+        logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        return logits, {}

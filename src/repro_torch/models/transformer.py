@@ -21,9 +21,12 @@ from repro_torch.models.model import BaseModel, masked_lm_head
 from repro_torch.models.module import ParamSpec
 
 
-def _attn_specs(cfg: ArchConfig, n_layers: int) -> Dict[str, ParamSpec]:
+def _attn_specs(cfg: ArchConfig, n_layers: int,
+                prefix_axes=("layers",)) -> Dict[str, ParamSpec]:
+    """Attention weights stacked over ``n_layers``; with ``prefix_axes=()``
+    one unstacked set (Zamba2's shared block)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    lead, lax = (n_layers,), ("layers",)
+    lead, lax = ((n_layers,) if prefix_axes else ()), prefix_axes
     out = {
         "wq": ParamSpec(lead + (d, h, hd), lax + ("embed", "heads", "head_dim")),
         "wk": ParamSpec(lead + (d, kv, hd), lax + ("embed", "kv_heads", "head_dim")),
@@ -36,9 +39,10 @@ def _attn_specs(cfg: ArchConfig, n_layers: int) -> Dict[str, ParamSpec]:
     return out
 
 
-def _mlp_specs(cfg: ArchConfig, n_layers: int) -> Dict[str, ParamSpec]:
+def _mlp_specs(cfg: ArchConfig, n_layers: int,
+               prefix_axes=("layers",)) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
-    lead, lax = (n_layers,), ("layers",)
+    lead, lax = ((n_layers,) if prefix_axes else ()), prefix_axes
     return {
         "w_gate": ParamSpec(lead + (d, f), lax + ("embed", "mlp")),
         "w_up": ParamSpec(lead + (d, f), lax + ("embed", "mlp")),

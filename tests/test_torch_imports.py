@@ -32,7 +32,8 @@ def test_port_modules_import_without_jax_or_reference():
                  "configs.h2o_danube_1p8b", "kernels.rwkv6_wkv",
                  "models.rwkv", "configs.rwkv6_7b", "core.gvne", "core.lp",
                  "sched.driver", "sched.backend", "analysis.sanitize",
-                 "cluster.calibrate", "launch.schedule_and_train"):
+                 "cluster.calibrate", "launch.schedule_and_train",
+                 "kernels.ssd_scan", "models.ssm", "configs.zamba2_1p2b"):
         assert f"repro_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -209,6 +209,6 @@ def test_params_cross_both_ways_including_bf16():
 
 
 def test_unported_families_raise():
-    cfg = dataclasses.replace(get_arch(ARCH).reduced(), family="ssm")
+    cfg = dataclasses.replace(get_arch(ARCH).reduced(), family="moe")
     with pytest.raises(NotImplementedError):
         build_model(cfg)
