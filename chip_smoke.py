@@ -20,8 +20,11 @@ non-zero and prints no result. Phases, each raising on failure:
      against their plain versions at the main paths' per-rank attention
      shapes, granite-3-2b's and h2o-danube-1.8b's (window 4096), ragged
      non-causal lengths and bf16, each run twice for identical bits, and
-     time them beside their bound, their plain versions and
-     ``scaled_dot_product_attention``; hold B8's two kernels (RWKV6's WKV:
+     time them beside their bounds (f32 FMAs; for F1, F3 and F4 also the
+     split TF32 form on the tensor cores), their blocks per SM, their plain
+     versions and ``scaled_dot_product_attention`` (its forward, its
+     backward alone, which is F3's and F4's library time, and both, with
+     the CUDA kernels it launches); hold B8's two kernels (RWKV6's WKV:
      forward W1, backward W2) against their plain versions at the RWKV6
      path's per-rank shapes at w=4 and w=2, the loop's reduced shape, a
      ragged length, every step at the decay clamp and bf16, each run twice
@@ -138,6 +141,8 @@ FP8 = qr.FP8_DTYPE
 # H100 SXM peaks (NVIDIA data sheet): device memory, f32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# dense TF32 on the tensor cores (the same data sheet)
+TF32_OPS_PER_S = 495e12
 SOURCE = "src/repro_torch/kernels/csrc/quant_ring.cu"
 _REF = "src/repro/kernels/quant_ring.py"
 # kernel -> (the pallas_call it replaces, bytes per element and per row with
@@ -468,10 +473,12 @@ def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
     return n
 
 
-def fa_bound(name: str, dims, causal: bool, window, dtype):
+def fa_bound(name: str, dims, causal: bool, window, dtype, tensor_cores: bool = False):
     """Least time for the kernel's work: each input read once and each
     output written once over the memory rate, against its f32 operations
-    on the visible pairs over the f32 rate."""
+    on the visible pairs over the f32 rate; with ``tensor_cores``, against
+    three times those operations (the split TF32 form's three products)
+    over the TF32 tensor-core rate."""
     b, s, hq, hkv, d = dims
     elt = torch.empty((), dtype=dtype).element_size()
     q_bytes, kv_bytes, row_bytes = b * s * hq * d * elt, b * s * hkv * d * elt, 4 * b * hq * s
@@ -484,7 +491,8 @@ def fa_bound(name: str, dims, causal: bool, window, dtype):
     }[name]
     if name == FA_BWD[0]:
         ops = 2 * b * s * hq * d
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 3 * ops / TF32_OPS_PER_S if tensor_cores else ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -529,6 +537,25 @@ def sdpa(q, k, v, causal: bool):
     return out.transpose(1, 2)
 
 
+def sdpa_kernel_names(q, k, v, do, causal: bool) -> dict:
+    """The CUDA kernels one SDPA forward and one backward launch, read once
+    with ``torch.profiler`` (each name cut to 96 characters)."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    names = {}
+    out = sdpa(*leaves, causal)
+    for part, fn in (("forward", lambda: sdpa(*leaves, causal)),
+                     ("backward", lambda: torch.autograd.grad(out, leaves, do,
+                                                              retain_graph=True))):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names[part] = sorted({e.name[:96] for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA})
+    return names
+
+
 def time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window):
     """Kernel, plain version and library call of each B4 kernel, and the
     forward and backward through autograd beside SDPA's."""
@@ -547,16 +574,39 @@ def time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window)
                     lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta, **opts),
                     None),
     }
+    # SDPA's backward alone, from one saved output: the library time of the
+    # whole B4 backward, given to F3 and F4 (no PyTorch call computes dK, dV
+    # or dQ alone)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    saved = sdpa(*leaves, causal)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(saved, leaves, do, retain_graph=True)
+
+    lib_bwd_ms = cuda_ms(sdpa_bwd)
     for name, (kernel, plain, library) in calls.items():
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, samples=5, calls=3)
         library_ms = cuda_ms(library) if library is not None else None
+        if name in FA_BWD[1:]:
+            library_ms = lib_bwd_ms
         bound_ms, bound_by = fa_bound(name, dims, causal, window, q.dtype)
+        extra = {}
+        if name != FA_BWD[0]:
+            tc_ms, tc_by = fa_bound(name, dims, causal, window, q.dtype,
+                                    tensor_cores=True)
+            extra = dict(bound_tc_ms=tc_ms, bound_tc_by=tc_by, blocks_per_sm={
+                str(hd): fa.blocks_per_sm(name, hd, q.dtype) for hd in (128, 64)})
         rows[name].update(shape=list(dims), ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
+                          library_ms=library_ms, **extra)
         log(f"{name} {dims}: {ms:.5g} ms, plain {plain_ms:.5g} ms, library "
-            f"{library_ms}, bound {bound_ms:.5g} ms ({bound_by})")
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            f"{library_ms}, bound {bound_ms:.5g} ms ({bound_by}) {extra}")
+    bwd_ms = sum(rows[name]["ms"] for name in FA_BWD)
+    rows[FA_FWD].update(bwd_kernels_ms=bwd_ms, library_bwd_ms=lib_bwd_ms,
+                        library_kernels=sdpa_kernel_names(q, k, v, do, causal))
+    log(f"flash attention backward {dims}: F2 + F3 + F4 {bwd_ms:.5g} ms, sdpa's "
+        f"backward {lib_bwd_ms:.5g} ms; sdpa's CUDA kernels "
+        f"{rows[FA_FWD]['library_kernels']}")
 
     def kernel_fwd_bwd():
         out = fa.flash_attention(*leaves, **opts)

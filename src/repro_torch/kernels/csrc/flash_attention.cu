@@ -22,7 +22,7 @@
 // rowsum p, acc = acc*corr + p.v; O = acc / max(l, 1e-30). The backward
 // recomputes P = exp(S - lse) (0 where masked: exp(-1e30 - lse) is 0) and
 // forms dV = P^T dO, dP = dO V^T, dS = P * (dP - delta), dQ = scale * dS K,
-// dK = dS^T (scale * q).
+// dK = scale * dS^T q.
 //
 // Skipped tiles. A kv tile that lies wholly above the diagonal (causal) or
 // wholly before the window of every row of a q tile is not visited. The
@@ -31,29 +31,62 @@
 // corr = 1, or before one, where the visible key's corr = exp(-1e30 - m) = 0
 // wipes what it added to l and acc. This needs every query row to see at
 // least one key, which fails only for Sq > Skv + window - 1; the wrapper
-// refuses that case. The backward skips the same (q tile, kv tile) pairs,
-// whose P is all 0.
+// refuses that case. The backward skips, at the finer grain of its stages,
+// the same pairs, whose P is all 0.
 //
-// Design. One thread block of 256 threads (16 x 16) per output tile of 64
-// rows: F1 and F4 per (q tile, q head, batch), F3 per (kv tile, kv head,
-// batch). Tiles of 64 rows of q, k, v and dO are staged in shared memory as
-// f32 with a row stride of D + 1 (odd: the column reads of 16 rows hit 16
-// banks); each thread holds 4 rows x 4 columns of a 64 x 64 score tile and 4
-// rows x D/16 columns of its output rows in registers, and a row's max and
-// sum are reduced over the 16 lanes that share it with shuffles. The
-// probabilities (and dS) go through shared memory to the second product.
-// F3 loops over the group's q heads and the q tiles that can see its kv tile
-// and accumulates dK and dV in registers: no atomics, so every run gives the
-// same bits. Plain f32 FMAs, no tensor cores (TF32 would change numbers the
-// tests hold); expf and logf, never the fast intrinsics.
+// F1 and F2. One thread block of 256 threads (16 x 16) per q tile of 64
+// rows and (q head, batch). Tiles of 64 rows of q, k and v are staged in
+// shared memory as f32 with a row stride of D + 1 (odd: the column reads of
+// 16 rows hit 16 banks); each thread holds 4 rows x 4 columns of a 64 x 64
+// score tile and 4 rows x D/16 columns of its output rows in registers, and
+// a row's max and sum are reduced over the 16 lanes that share it with
+// shuffles. The probabilities go through shared memory to the second
+// product. Plain f32 FMAs; expf and logf, never the fast intrinsics. F2 is a
+// warp per row.
+//
+// F3 and F4: the products on the tensor cores in split TF32. Every product
+// (F3: S^T = K q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T q; F4: S = q K^T,
+// dP = dO V^T, dQ += dS K; the scale applied to S, dK and dQ afterwards) is
+// mma.sync m16n8k8 with TF32 operands in three terms: each f32 operand x is
+// split into hi = tf32(x) and lo = tf32(x - hi) (rounded to nearest, ties
+// away), and lo.hi and hi.lo go into the accumulator before hi.hi. A bf16
+// input is exact in TF32: its lo is 0 and its terms are skipped; P and dS are
+// f32 and always split. Plain TF32 (hi.hi alone) puts dQ, dK and dV at
+// 5.6e-4, 5.5e-4 and 4.2e-4 relative norm of the f32 plain versions at the
+// main shape on the H100, over the limit of 1e-4; the split form 8.4e-7,
+// 1.2e-6 and 1.1e-6. The tensor cores add with truncation: one accumulator
+// carried over a long sum lost 1.3e-4 (dK at h2o-danube-1.8b's shape, S =
+// 5120), so each stage's products go to a fresh accumulator that is added to
+// the running sum in f32 (2.6e-6 there; tools/flash_attention_forms.py
+// measures each of these choices against the source).
+//   A block's warps hold 16 resident rows each (F3 kv rows, F4 q rows) and
+// the other side streams by in stages of 16 rows, double-buffered with
+// cp.async (16 bytes a thread; lse and delta 4): F3 streams q, dO, lse and
+// delta of each q head of the kv head's group, F4 k and v. Tiles are f32 in
+// shared memory (bf16 widened when staged) with a row stride of D + 4:
+// every fragment load is a float4 (F3's P^T and dS^T, F4's dS stay in
+// registers: the mma's accumulator layout is read as the next product's A
+// operand with its k permuted, and B's rows in the same order) and free of
+// bank conflicts. F3's dK and dV stay in registers over the whole walk and
+// the GQA group's sum is formed there: no atomics, the same bits every run.
+// A warp skips a stage in which none of its pairs is visible.
+//   Filling the card. F4's grid takes the q tiles from the last, the long
+// ones under the causal mask first. F3's block holds two kv tiles, kt and
+// nk - 1 - kt, one per group of 4 warps with its own shared memory and named
+// barrier, so that every block has the same causal work (a kv tile a block
+// leaves the SMs that drew two long tiles to finish last); at D = 128 its 128
+// accumulator registers a thread leave room for one block (8 warps) an SM
+// (203,264 bytes of shared memory, 255 registers a thread). F4's block has 4
+// warps, 101,376 bytes and 179 registers at D = 128: two blocks an SM.
 //
 // Bound: operations. Per visible (q, k) pair the forward does 4*D flops (two
 // products), F3 8*D (scores, dP, dV, dK) and F4 6*D (scores, dP, dQ), against
-// about 4 bytes a row element moved: at the main path's shapes (S = 1024,
-// D = 128) the products' flops over the card's 67 TFLOP/s f32 rate exceed
-// the bytes over 3.35 TB/s by eight times or more. F2 is bound by its bytes.
-// Shared memory per block at D = 128: F1 115,712 bytes, F3 165,888, F4
-// 148,736, all above the 48 KiB default (cudaFuncSetAttribute below).
+// about 4 bytes a row element moved. At the main path's shapes (S = 1024,
+// D = 128) the products over the card's 67 TFLOP/s f32 rate take F3 0.2567
+// ms and F4 0.1925 ms, and in split TF32 (three times the products over 495
+// TFLOP/s) 0.1042 and 0.0782 ms, against bytes at 3.35 TB/s of a tenth of
+// that. F2 is bound by its bytes. Shared memory above the 48 KiB default is
+// set with cudaFuncSetAttribute below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,15 +128,6 @@ __device__ void load_tile(float* dst, const T* src, int b, int row0, int S,
     float x = 0.f;
     if (s < S) x = to_f32(src[row_offset<D>(b, s, h, S, H) + c]) * mul;
     dst[r * (D + 1) + c] = x;
-  }
-}
-
-// Per-row values (lse or delta, layout (B, H, S)) of rows [row0, row0+kTile).
-__device__ void load_rowvals(float* dst, const float* src, int b, int h, int row0,
-                             int S, int H) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const int s = row0 + i;
-    dst[i] = s < S ? src[(static_cast<int64_t>(b) * H + h) * S + s] : 0.f;
   }
 }
 
@@ -268,172 +292,512 @@ bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// F3: grid (kv tiles, Hkv, B). Thread rows are kv rows, score columns q rows.
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                Dims d) {
-  constexpr int P = D + 1, DC = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kTile * P;
-  float* qs = vs + kTile * P;
-  float* dos = qs + kTile * P;
-  float* pts = dos + kTile * P;          // P^T tile
-  float* dsts = pts + kTile * kPStride;  // dS^T tile
-  float* lses = dsts + kTile * kPStride;
-  float* deltas = lses + kTile;
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  const int group = d.hq / d.hkv;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// ---------------------------------------------------------------------------
+// F3 and F4: the products on the tensor cores in split TF32
+// ---------------------------------------------------------------------------
 
-  load_tile<D>(ks, k, b, k0, d.skv, hk, d.hkv, 1.f);
-  load_tile<D>(vs, v, b, k0, d.skv, hk, d.hkv, 1.f);
-  float dkr[kRows][DC], dvr[kRows][DC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dkr[i][c] = dvr[i][c] = 0.f;
+constexpr int kBwdThreads = 128;  // 4 warps, 16 resident rows each
+constexpr int kBwdRows = 64;      // resident rows of a block: F3's kv tile, F4's q tile
+constexpr int kStage = 16;        // streamed rows a stage: F3's q rows, F4's kv rows
+constexpr int kDkdvGroups = 2;    // F3: kv tiles a block, one a group of kBwdThreads
 
-  // the q tiles with a row that sees a key of this tile
-  const int nq = (d.sq + kTile - 1) / kTile;
-  const int k_last = min(k0 + kTile, d.skv) - 1;
-  const int iq_lo = d.causal ? k0 / kTile : 0;
-  const int iq_hi = d.window > 0 ? min(nq, (k_last + d.window - 1) / kTile + 1) : nq;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    for (int iq = iq_lo; iq < iq_hi; ++iq) {
-      const int q0 = iq * kTile;
-      __syncthreads();  // the previous q tile's reads are done
-      load_tile<D>(qs, q, b, q0, d.sq, h, d.hq, d.scale);
-      load_tile<D>(dos, dout, b, q0, d.sq, h, d.hq, 1.f);
-      load_rowvals(lses, lse, b, h, q0, d.sq, d.hq);
-      load_rowvals(deltas, delta, b, h, q0, d.sq, d.hq);
-      __syncthreads();
-      float st[kRows][kCols] = {}, dpt[kRows][kCols] = {};
-      tile_dot<D>(st, ks, qs, ty, tx);
-      tile_dot<D>(dpt, vs, dos, ty, tx);
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as f32 bits:
+// cvt.rna.tf32.f32's rounding for every finite x, in two integer operations:
+// ptxas expands the cvt into a compare-and-select sequence, which made F3
+// and F4 about a quarter slower for the same bits (tools/flash_attention_forms.py
+// times both; PERF.md records it).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// One mma operand: hi = tf32(x) and lo = tf32(x - hi). An operand exact in
+// TF32 (a bf16 input) keeps lo unused.
+struct Split {
+  uint32_t hi, lo;
+};
+template <bool kExact>
+__device__ __forceinline__ Split operand(float x) {
+  if (kExact) return {__float_as_uint(x), 0u};
+  const uint32_t hi = tf32(x);
+  return {hi, tf32(x - __uint_as_float(hi))};
+}
+
+// c += a . b on one 16 x 8 x 8 tile.
+__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                    uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += a . b in split TF32: a.lo b.hi and a.hi b.lo first, then a.hi b.hi,
+// all into the f32 accumulator. The lo terms of an exact operand are 0 and
+// skipped.
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma3(float (&c)[4], const Split (&a)[4], const Split (&b)[2]) {
+  if (!kExactA) mma(c, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  if (!kExactB) mma(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// c[n] += A . B_n^T over the D columns: A the warp's 16 rows at a, B_n the
+// 8 rows at b + 8n * (D + 4), f32 in shared memory with row stride D + 4.
+// The mma's k is permuted so that a lane reads its columns as float4s, free
+// of bank conflicts: in a block of 32 columns lane t holds 8t .. 8t+7 and k
+// step s takes 8t+2s and 8t+2s+1 as the mma's k = t and t+4 (in the 16
+// columns past the last whole block, D = 80, lane t holds 4t .. 4t+3). Each
+// block's products go to a fresh accumulator, added to c in f32. The blocks
+// are unrolled kUnroll at a time: F3's dK and dV hold 128 registers a thread
+// at D = 128, and F3 unrolls two, since unrolled in full it spills
+// (tools/flash_attention_forms.py times both and the loop); F4's dQ holds 64
+// and F4 unrolls in full.
+template <int D, int NT, bool kExact, int kUnroll>
+__device__ __forceinline__ void mma_nt(float (&c)[NT][4], const float* a, const float* b,
+                                       int lane) {
+  constexpr int P = D + 4;
+  static_assert(D % 32 == 0 || D % 32 == 16, "head_dim");
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll(kUnroll)
+  for (int c0 = 0; c0 < D; c0 += 32) {
+    constexpr int kW = 8;                         // columns a lane holds in a whole block
+    const int w = c0 + 32 <= D ? kW : kW / 2;     // in the 16-column tail
+    float av[2][kW], bv[NT][kW];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int kpos = k0 + ty * kRows + i;
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int col = tx + 16 * j, qpos = q0 + col;
-          const bool vis = qpos < d.sq && visible(qpos, kpos, d);
-          const float p = vis ? expf(st[i][j] - lses[col]) : 0.f;
-          pts[(ty * kRows + i) * kPStride + col] = p;
-          dsts[(ty * kRows + i) * kPStride + col] = p * (dpt[i][j] - deltas[col]);
-        }
+      for (int x = 0; x < kW; x += 4) {
+        if (x >= w) break;
+        const float4 v4 = lds4(a + (g + 8 * r) * P + c0 + w * t + x);
+        av[r][x] = v4.x; av[r][x + 1] = v4.y; av[r][x + 2] = v4.z; av[r][x + 3] = v4.w;
       }
-      __syncthreads();
-      tile_apply<D>(dvr, pts, dos, ty, tx);
-      tile_apply<D>(dkr, dsts, qs, ty, tx);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int x = 0; x < kW; x += 4) {
+        if (x >= w) break;
+        const float4 v4 = lds4(b + (8 * n + g) * P + c0 + w * t + x);
+        bv[n][x] = v4.x; bv[n][x + 1] = v4.y; bv[n][x + 2] = v4.z; bv[n][x + 3] = v4.w;
+      }
+    float part[NT][4] = {};
+#pragma unroll
+    for (int s = 0; s < kW / 2; ++s) {
+      if (2 * s >= w) break;
+      const Split af[4] = {operand<kExact>(av[0][2 * s]), operand<kExact>(av[1][2 * s]),
+                           operand<kExact>(av[0][2 * s + 1]),
+                           operand<kExact>(av[1][2 * s + 1])};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const Split bf[2] = {operand<kExact>(bv[n][2 * s]), operand<kExact>(bv[n][2 * s + 1])};
+        mma3<kExact, kExact>(part[n], af, bf);
+      }
     }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += part[n][e];
+  }
+}
+
+// c[n] += F . B over B's 16 rows (at b, stride D + 4), for the D / 8 column
+// tiles n of B. F is a 16 x 16 product of the warp, held as the mma's
+// accumulators f[j][e] of its column tiles j (split here). As an A operand, k step
+// j takes F's columns 8j+2t and 8j+2t+1 (where lane t holds them) as the
+// mma's k = t and t+4, so B's rows are read in that order. The n index is
+// permuted so that a lane's B values of four n tiles are one float4: in a
+// block of 32 columns, tile 4J+i's column n is 32J + 4n + i (in the 16
+// columns past the last whole block, tile 2J+i's is 32J + 2n + i), and the
+// accumulator c[4J+i][e] holds output column 32J + 8t + 4(e & 1) + i. The
+// 16 rows' products go to a fresh accumulator, added to c in f32.
+template <int D, bool kExactB>
+__device__ __forceinline__ void mma_rn(float (&c)[D / 8][4], const float (&f)[2][4],
+                                       const float* b, int lane) {
+  constexpr int P = D + 4;
+  const int g = lane >> 2, t = lane & 3;
+  Split af[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    af[j][0] = operand<false>(f[j][0]);
+    af[j][1] = operand<false>(f[j][2]);
+    af[j][2] = operand<false>(f[j][1]);
+    af[j][3] = operand<false>(f[j][3]);
   }
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int kpos = k0 + ty * kRows + i;
-    if (kpos >= d.skv) continue;
-    const int64_t off = row_offset<D>(b, kpos, hk, d.skv, d.hkv);
+  for (int c0 = 0; c0 < D; c0 += 32) {
+    const int w = c0 + 32 <= D ? 4 : 2;  // n tiles in this block of columns
+    float bv[2][2][4];                    // [k step j][b0, b1][tile i]
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      put(dk + off + tx + 16 * c, dkr[i][c]);
-      put(dv + off + tx + 16 * c, dvr[i][c]);
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float* row = b + (8 * j + 2 * t + r) * P + c0;
+        if (w == 4) {
+          const float4 v4 = lds4(row + 4 * g);
+          bv[j][r][0] = v4.x; bv[j][r][1] = v4.y; bv[j][r][2] = v4.z; bv[j][r][3] = v4.w;
+        } else {
+          const float2 v2 = *reinterpret_cast<const float2*>(row + 2 * g);
+          bv[j][r][0] = v2.x; bv[j][r][1] = v2.y;
+        }
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= w) break;
+      float part[4] = {};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const Split bf[2] = {operand<kExactB>(bv[j][0][i]), operand<kExactB>(bv[j][1][i])};
+        mma3<false, kExactB>(part, af[j], bf);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[c0 / 8 + i][e] += part[e];
     }
   }
 }
 
-// F4: grid (q tiles, Hq, B). Thread rows are q rows, score columns kv rows.
+// Row `half` (0: g, 1: g + 8) of mma_rn's accumulators, times mul, to the
+// output row at dst (D elements of T).
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store_row(T* dst, const float (&c)[D / 8][4], int half, int t,
+                                          float mul) {
+  const int e = 2 * half;
+#pragma unroll
+  for (int c0 = 0; c0 + 32 <= D; c0 += 32) {
+    const int n = c0 / 8;
+    store4(dst + c0 + 8 * t, c[n][e] * mul, c[n + 1][e] * mul, c[n + 2][e] * mul,
+           c[n + 3][e] * mul);
+    store4(dst + c0 + 8 * t + 4, c[n][e + 1] * mul, c[n + 1][e + 1] * mul,
+           c[n + 2][e + 1] * mul, c[n + 3][e + 1] * mul);
+  }
+  if constexpr (D % 32 != 0) {
+    constexpr int c0 = D - 16, n = c0 / 8;
+    store4(dst + c0 + 4 * t, c[n][e] * mul, c[n + 1][e] * mul, c[n][e + 1] * mul,
+           c[n + 1][e + 1] * mul);
+  }
+}
+
+// Asynchronous copies to shared memory; `full` false fills zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
+               "r"(full ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Four elements of a row into shared memory as f32: f32 by cp.async, bf16
+// (4 x 2 bytes) loaded, widened and stored here.
+__device__ __forceinline__ void stage4(float* dst, const float* src, bool full) {
+  cp_async16(dst, src, full);
+}
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src, bool full) {
+  uint2 u = make_uint2(0u, 0u);
+  if (full) u = __ldg(reinterpret_cast<const uint2*>(src));
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                  __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Rows [row0, row0 + R) of head h of a (B, S, H, D) tensor into shared
+// memory (stride D + 4), zero past row S - 1, by the kBwdThreads threads
+// tid of a group.
+template <int D, int R, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int b, int row0, int S,
+                                           int h, int H, int tid) {
+  constexpr int P = D + 4, C = D / 4;
+  for (int i = tid; i < R * C; i += kBwdThreads) {
+    const int r = i / C, c = i - (i / C) * C, s = row0 + r;
+    const bool in = s < S;
+    stage4(dst + r * P + 4 * c, src + (in ? row_offset<D>(b, s, h, S, H) + 4 * c : 0), in);
+  }
+}
+
+// kStage per-row values (lse or delta, (B, H, S)) from row0, zero past S - 1,
+// by the threads tid in [lane0, lane0 + kStage).
+__device__ __forceinline__ void stage_vals(float* dst, const float* src, int b, int h, int row0,
+                                           int S, int H, int tid, int lane0) {
+  const int i = tid - lane0;
+  if (i < 0 || i >= kStage) return;
+  const bool in = row0 + i < S;
+  cp_async4(dst + i, src + (in ? (static_cast<int64_t>(b) * H + h) * S + row0 + i : 0), in);
+}
+
+// Whether some pair of the q rows [qa, qa + nq) and kv rows [ka, ka + nk)
+// is visible.
+__device__ __forceinline__ bool tile_sees(int qa, int nq, int ka, int nk, const Dims& d) {
+  const int qb = min(qa + nq, d.sq) - 1, kb = min(ka + nk, d.skv) - 1;
+  if (qb < qa || kb < ka) return false;
+  if (d.causal && qb - ka < 0) return false;             // every q - kv < 0
+  if (d.window > 0 && qa - kb >= d.window) return false;  // every q - kv >= window
+  return true;
+}
+
+// A barrier of the kBwdThreads threads of group `id` (1 + the group's index;
+// 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kBwdThreads) : "memory");
+}
+
+// F3's shared memory for one kv tile: k, v; two stages of q, dO, lse, delta.
+template <int D>
+__host__ __device__ constexpr int dkdv_floats() {
+  return 2 * kBwdRows * (D + 4) + 4 * kStage * (D + 4) + 4 * kStage;
+}
+
+// F3: one block per (pair of kv tiles, kv head, batch), a group of 4 warps
+// on each tile of the pair: kv tiles kt and nk - 1 - kt, so that under the
+// causal mask every block has the same work (the middle tile of an odd count
+// goes alone). Each warp holds 16 kv rows; the q rows of the group's heads
+// stream by in stages of kStage, double-buffered.
+template <int D, typename T>
+__global__ void __launch_bounds__(kDkdvGroups * kBwdThreads)
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                Dims d) {
+  constexpr int P = D + 4, NT = D / 8;
+  constexpr bool kExact = sizeof(T) == 2;
+  const int grp = threadIdx.x / kBwdThreads, tid = threadIdx.x % kBwdThreads;
+  const int heads = d.hkv * d.batch, nk = (d.skv + kBwdRows - 1) / kBwdRows;
+  const int pair = blockIdx.x / heads, rest = blockIdx.x - pair * heads;
+  const int kt = grp == 0 ? pair : nk - 1 - pair;
+  if (grp == 1 && kt == pair) return;  // the middle tile: group 0 has it
+  const int hk = rest % d.hkv, b = rest / d.hkv;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4) + grp * dkdv_floats<D>();
+  float* vs = ks + kBwdRows * P;
+  float* qs = vs + kBwdRows * P;      // [2][kStage * P]
+  float* dos = qs + 2 * kStage * P;   // [2][kStage * P]
+  float* lses = dos + 2 * kStage * P; // [2][kStage]
+  float* deltas = lses + 2 * kStage;  // [2][kStage]
+  const int k0 = kt * kBwdRows, group = d.hq / d.hkv;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int kr0 = k0 + 16 * warp;  // the warp's kv rows
+
+  // the q stages with a row that sees a key of this tile, for each q head
+  const int nst = (d.sq + kStage - 1) / kStage;
+  const int k_last = min(k0 + kBwdRows, d.skv) - 1;
+  const int st_lo = d.causal ? k0 / kStage : 0;
+  const int st_hi = d.window > 0 ? min(nst, (k_last + d.window - 1) / kStage + 1) : nst;
+  const int n_st = max(0, st_hi - st_lo), items = group * n_st;
+
+  float dkr[NT][4], dvr[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkr[n][e] = dvr[n][e] = 0.f;
+
+  auto issue = [&](int i) {  // item i: q head hk * group + i / n_st, stage st_lo + i % n_st
+    const int buf = i & 1, h = hk * group + i / n_st, q0 = (st_lo + i % n_st) * kStage;
+    stage_rows<D, kStage>(qs + buf * kStage * P, q, b, q0, d.sq, h, d.hq, tid);
+    stage_rows<D, kStage>(dos + buf * kStage * P, dout, b, q0, d.sq, h, d.hq, tid);
+    stage_vals(lses + buf * kStage, lse, b, h, q0, d.sq, d.hq, tid, 0);
+    stage_vals(deltas + buf * kStage, delta, b, h, q0, d.sq, d.hq, tid, kStage);
+  };
+  if (items > 0) {
+    stage_rows<D, kBwdRows>(ks, k, b, k0, d.skv, hk, d.hkv, tid);
+    stage_rows<D, kBwdRows>(vs, v, b, k0, d.skv, hk, d.hkv, tid);
+    issue(0);
+    cp_commit();
+  }
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) {
+      issue(i + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    group_sync(1 + grp);  // stage i is in shared memory for every thread of the group
+    const int buf = i & 1, q0 = (st_lo + i % n_st) * kStage;
+    const float* qb = qs + buf * kStage * P;
+    const float* dob = dos + buf * kStage * P;
+    const float* lb = lses + buf * kStage;
+    const float* db = deltas + buf * kStage;
+    if (tile_sees(q0, kStage, kr0, 16, d)) {
+      // S^T, then P^T and dV; then dP^T, dS^T and dK: kv rows x q columns
+      float pt[2][4] = {};
+      mma_nt<D, 2, kExact, 2>(pt, ks + 16 * warp * P, qb, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = kr0 + g + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+          const int qpos = q0 + col;
+          pt[j][e] = qpos < d.sq && visible(qpos, kpos, d)
+                         ? expf(pt[j][e] * d.scale - lb[col]) : 0.f;
+        }
+      mma_rn<D, kExact>(dvr, pt, dob, lane);
+      float dst[2][4] = {};
+      mma_nt<D, 2, kExact, 2>(dst, vs + 16 * warp * P, dob, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dst[j][e] = pt[j][e] * (dst[j][e] - db[8 * j + 2 * t + (e & 1)]);
+      mma_rn<D, kExact>(dkr, dst, qb, lane);
+    }
+    group_sync(1 + grp);  // every read of buffer buf is done before it is refilled
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kpos = kr0 + g + 8 * half;
+    if (kpos >= d.skv) continue;
+    const int64_t off = row_offset<D>(b, kpos, hk, d.skv, d.hkv);
+    store_row<D>(dk + off, dkr, half, t, d.scale);
+    store_row<D>(dv + off, dvr, half, t, 1.f);
+  }
+}
+
+// F4: one block per (q tile, q head, batch), the q tile the slowest index and
+// taken from the last, so that the long tiles (the last, under the causal
+// mask) start first. Each warp holds 16 q rows; the kv rows stream by in
+// stages of kStage, double-buffered.
+template <int D, typename T>
+__global__ void __launch_bounds__(kBwdThreads)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dq, Dims d) {
-  constexpr int P = D + 1, DC = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kTile * P;
-  float* ks = dos + kTile * P;
-  float* vs = ks + kTile * P;
-  float* dss = vs + kTile * P;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (d.hq / d.hkv);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  constexpr int P = D + 4, NT = D / 8;
+  constexpr bool kExact = sizeof(T) == 2;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + kBwdRows * P;
+  float* ks = dos + kBwdRows * P;   // [2][kStage * P]
+  float* vs = ks + 2 * kStage * P;  // [2][kStage * P]
+  const int heads = d.hq * d.batch, nq = (d.sq + kBwdRows - 1) / kBwdRows;
+  const int rank = blockIdx.x / heads, rest = blockIdx.x - rank * heads;
+  const int h = rest % d.hq, b = rest / d.hq;
+  const int q0 = (nq - 1 - rank) * kBwdRows, hk = h / (d.hq / d.hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int qr0 = q0 + 16 * warp;  // the warp's q rows
 
-  load_tile<D>(qs, q, b, q0, d.sq, h, d.hq, d.scale);
-  load_tile<D>(dos, dout, b, q0, d.sq, h, d.hq, 1.f);
-  float lse_r[kRows], delta_r[kRows], dqr[kRows][DC];
+  float lse_r[2], delta_r[2], dqr[NT][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qpos = q0 + ty * kRows + i;
+  for (int half = 0; half < 2; ++half) {
+    const int qpos = qr0 + g + 8 * half;
     const int64_t at = (static_cast<int64_t>(b) * d.hq + h) * d.sq + qpos;
-    lse_r[i] = qpos < d.sq ? lse[at] : 0.f;
-    delta_r[i] = qpos < d.sq ? delta[at] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dqr[i][c] = 0.f;
+    lse_r[half] = qpos < d.sq ? lse[at] : 0.f;
+    delta_r[half] = qpos < d.sq ? delta[at] : 0.f;
   }
-  int lo, hi;
-  kv_tile_range(q0, d, &lo, &hi);
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<D>(ks, k, b, k0, d.skv, hk, d.hkv, 1.f);
-    load_tile<D>(vs, v, b, k0, d.skv, hk, d.hkv, 1.f);
-    __syncthreads();
-    float s[kRows][kCols] = {}, dp[kRows][kCols] = {};
-    tile_dot<D>(s, qs, ks, ty, tx);
-    tile_dot<D>(dp, dos, vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty * kRows + i;
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const bool vis = qpos < d.sq && visible(qpos, k0 + tx + 16 * j, d);
-        const float p = vis ? expf(s[i][j] - lse_r[i]) : 0.f;
-        dss[(ty * kRows + i) * kPStride + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
-      }
+    for (int e = 0; e < 4; ++e) dqr[n][e] = 0.f;
+
+  // the kv stages with a key visible to some row of this tile
+  const int nst = (d.skv + kStage - 1) / kStage;
+  const int q_last = min(q0 + kBwdRows, d.sq) - 1;
+  const int st_lo = d.window > 0 ? max(0, q0 - d.window + 1) / kStage : 0;
+  const int st_hi = d.causal ? min(nst, q_last / kStage + 1) : nst;
+  const int items = max(0, st_hi - st_lo);
+
+  auto issue = [&](int i) {
+    const int buf = i & 1, k0 = (st_lo + i) * kStage;
+    stage_rows<D, kStage>(ks + buf * kStage * P, k, b, k0, d.skv, hk, d.hkv, threadIdx.x);
+    stage_rows<D, kStage>(vs + buf * kStage * P, v, b, k0, d.skv, hk, d.hkv, threadIdx.x);
+  };
+  if (items > 0) {
+    stage_rows<D, kBwdRows>(qs, q, b, q0, d.sq, h, d.hq, threadIdx.x);
+    stage_rows<D, kBwdRows>(dos, dout, b, q0, d.sq, h, d.hq, threadIdx.x);
+    issue(0);
+    cp_commit();
+  }
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) {
+      issue(i + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-    tile_apply<D>(dqr, dss, ks, ty, tx);
+    const int buf = i & 1, k0 = (st_lo + i) * kStage;
+    const float* kb = ks + buf * kStage * P;
+    const float* vb = vs + buf * kStage * P;
+    if (tile_sees(qr0, 16, k0, kStage, d)) {
+      float s[2][4] = {}, dp[2][4] = {};  // S and dP, then dS: q rows x kv columns
+      mma_nt<D, 2, kExact, D / 32 + 1>(s, qs + 16 * warp * P, kb, lane);
+      mma_nt<D, 2, kExact, D / 32 + 1>(dp, dos + 16 * warp * P, vb, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1, qpos = qr0 + g + 8 * half;
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const float p = qpos < d.sq && visible(qpos, kpos, d)
+                              ? expf(s[j][e] * d.scale - lse_r[half]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - delta_r[half]);
+        }
+      mma_rn<D, kExact>(dqr, dp, kb, lane);
+    }
+    __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qpos = q0 + ty * kRows + i;
+  for (int half = 0; half < 2; ++half) {
+    const int qpos = qr0 + g + 8 * half;
     if (qpos >= d.sq) continue;
-    T* row = dq + row_offset<D>(b, qpos, h, d.sq, d.hq);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) put(row + tx + 16 * c, dqr[i][c] * d.scale);
+    store_row<D>(dq + row_offset<D>(b, qpos, h, d.sq, d.hq), dqr, half, t, d.scale);
   }
 }
 
 template <int D>
 constexpr size_t fwd_smem() { return (3 * kTile * (D + 1) + kTile * kPStride) * sizeof(float); }
 template <int D>
-constexpr size_t dkdv_smem() {
-  return (4 * kTile * (D + 1) + 2 * kTile * kPStride + 2 * kTile) * sizeof(float);
-}
+constexpr size_t dkdv_smem() { return kDkdvGroups * dkdv_floats<D>() * sizeof(float); }
 template <int D>
-constexpr size_t dq_smem() { return (4 * kTile * (D + 1) + kTile * kPStride) * sizeof(float); }
+constexpr size_t dq_smem() {  // q, dO tiles; two stages of k, v
+  return (2 * kBwdRows * (D + 4) + 4 * kStage * (D + 4)) * sizeof(float);
+}
 
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 inline int tiles(int n) { return (n + kTile - 1) / kTile; }
 
-// Launch `kernel` with `smem` bytes of dynamic shared memory.
+// Launch `kernel` with `threads` threads a block and `smem` bytes of dynamic
+// shared memory.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, as_stream(stream)>>>(args...);
+  kernel<<<grid, threads, smem, as_stream(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// F3's and F4's one-dimensional grid: tiles x heads x batch blocks.
+inline int flat_grid(int n_tiles, int heads, int batch, unsigned* blocks) {
+  const int64_t n = static_cast<int64_t>(n_tiles) * heads * batch;
+  if (n > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  *blocks = static_cast<unsigned>(n);
+  return 0;
 }
 
 template <int D, typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, Dims d,
         void* stream) {
-  return launch(fwd_kernel<D, T>, dim3(tiles(d.sq), d.hq, d.batch), fwd_smem<D>(), stream,
+  return launch(fwd_kernel<D, T>, dim3(tiles(d.sq), d.hq, d.batch), kThreads, fwd_smem<D>(),
+                stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse), d);
 }
@@ -453,8 +817,11 @@ int preprocess(const void* o, const void* dout, void* delta, int batch, int sq, 
 template <int D, typename T>
 int dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
          const void* delta, void* dk, void* dv, Dims d, void* stream) {
-  return launch(bwd_dkdv_kernel<D, T>, dim3(tiles(d.skv), d.hkv, d.batch), dkdv_smem<D>(),
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
+  unsigned blocks;
+  if (int err = flat_grid((tiles(d.skv) + 1) / 2, d.hkv, d.batch, &blocks)) return err;
+  return launch(bwd_dkdv_kernel<D, T>, dim3(blocks), kDkdvGroups * kBwdThreads, dkdv_smem<D>(),
+                stream,
+                static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
                 static_cast<T*>(dk), static_cast<T*>(dv), d);
@@ -463,11 +830,34 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout, const vo
 template <int D, typename T>
 int dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
        const void* delta, void* dqp, Dims d, void* stream) {
-  return launch(bwd_dq_kernel<D, T>, dim3(tiles(d.sq), d.hq, d.batch), dq_smem<D>(), stream,
+  unsigned blocks;
+  if (int err = flat_grid(tiles(d.sq), d.hq, d.batch, &blocks)) return err;
+  return launch(bwd_dq_kernel<D, T>, dim3(blocks), kBwdThreads, dq_smem<D>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
                 static_cast<T*>(dqp), d);
+}
+
+// Blocks of F1 (which 0), F3 (1) or F4 (2) that fit on one SM, as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor reports.
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, size_t smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem));
+}
+template <int D, typename T>
+int blocks_per_sm(int which, int* blocks) {
+  switch (which) {
+    case 0: return occupancy(fwd_kernel<D, T>, kThreads, fwd_smem<D>(), blocks);
+    case 1:
+      return occupancy(bwd_dkdv_kernel<D, T>, kDkdvGroups * kBwdThreads, dkdv_smem<D>(), blocks);
+    case 2: return occupancy(bwd_dq_kernel<D, T>, kBwdThreads, dq_smem<D>(), blocks);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Call F<D, T>::run(args...) for the runtime head_dim and dtype; an
@@ -527,6 +917,10 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
                            float scale, int bf16, void* stream) {
   const Dims d = make_dims(batch, sq, skv, hq, hkv, causal, window, scale);
   DISPATCH(head_dim, bf16, dq, q, k, v, dout, lse, delta, dqp, d, stream);
+}
+
+int flash_attention_blocks_per_sm(int which, int head_dim, int bf16, void* blocks) {
+  DISPATCH(head_dim, bf16, blocks_per_sm, which, static_cast<int*>(blocks));
 }
 
 }  // extern "C"

@@ -19,9 +19,16 @@ hand-written CUDA kernels in ``csrc/flash_attention.cu``:
     each kv head's group inside one thread block (no atomics);
   * ``flash_attention_bwd_dq`` (F4) — ``dQ``.
 
+F1 and F2 use f32 FMAs. F3 and F4 run their products on the tensor cores
+in split TF32: each f32 operand is split into a TF32 ``hi`` and a TF32
+``lo = x - hi``, and three products (``lo.hi + hi.lo``, then ``hi.hi``)
+keep the f32 limits (plain TF32 would miss them by about 5x); the source's
+note gives the design and its measurements.
+
 Their wrappers are :func:`flash_attention_fwd`, :func:`bwd_preprocess`,
 :func:`bwd_dkdv` and :func:`bwd_dq`; :func:`flash_attention_bwd` runs the
-last three in turn.
+last three in turn. :func:`blocks_per_sm` reports the occupancy of F1, F3
+and F4 on the card.
 
 Each has a plain PyTorch version beside it (``*_plain``): the same blocked
 arithmetic in torch ops, B4's padding and masking included. A tensor on the
@@ -239,7 +246,23 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes + [_PTR]   # then the stream
         fn.restype = ctypes.c_int
+    lib.flash_attention_blocks_per_sm.argtypes = [_INT, _INT, _INT, _PTR]
+    lib.flash_attention_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def blocks_per_sm(kernel: str, head_dim: int, dtype: torch.dtype) -> int:
+    """Blocks of F1, F3 or F4 (by kernel name) that fit on one SM of the
+    current card at ``head_dim`` and ``dtype``, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports."""
+    which = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq").index(kernel)
+    out = ctypes.c_int(0)
+    err = _lib().flash_attention_blocks_per_sm(
+        which, head_dim, int(dtype == torch.bfloat16), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy of {kernel} failed: cudaError {err}")
+    return out.value
 
 
 def _route(*tensors: torch.Tensor) -> bool:
@@ -346,7 +369,9 @@ def _bwd_inputs(q, k, v, do, lse, delta, causal, window):
         if t.shape != (b, hq, sq) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be f32 {(b, hq, sq)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    return args, [t.contiguous() for t in (q, k, v, do, lse, delta)]
+    # F3 and F4 copy rows with 16-byte cp.async: start each tensor on 16 bytes
+    ins = [t.contiguous() for t in (q, k, v, do, lse, delta)]
+    return args, [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
 
 
 def bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,

@@ -3,9 +3,11 @@ against the JAX package: the plain forward against ``flash_attention_pallas``
 in interpret mode and against ``mha_reference``, the plain backward against
 ``jax.vjp`` of ``mha_reference``, the autograd function by ``gradcheck``,
 the port's wrappers against the JAX ``ops`` wrappers, the dense attention
-oracle ``layers.attention_reference`` against ``mha_reference``, and the
-dense LM trained through the function against the reference's loss and
-gradients.
+oracle ``layers.attention_reference`` against ``mha_reference``, the dense
+LM trained through the function against the reference's loss and
+gradients, and the backward kernels' split TF32 products emulated on the
+CPU against the plain backward (and plain TF32 shown to miss the card's
+limit).
 
 Inputs are made with numpy from a seed and handed to both sides. On the CPU
 the wrappers take their plain versions; the CUDA kernels are held against
@@ -299,3 +301,105 @@ def test_launch_counters_are_the_kernels():
                                 "flash_attention_bwd_dkdv",
                                 "flash_attention_bwd_dq"}
     assert not set(fa.LAUNCHES) & set(qr.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# F3's and F4's products on the tensor cores in split TF32, emulated
+# ---------------------------------------------------------------------------
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on f32 bits: 10 mantissa bits, to nearest, ties
+    away from zero (add half of the 13 dropped bits' weight, then drop them)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """``a @ b`` as the kernels' mma does it: with 3 terms each operand is
+    split into hi = tf32(x) and lo = tf32(x - hi), and lo.hi + hi.lo is
+    summed before hi.hi; with 1 term, hi.hi alone (plain TF32). The products
+    of TF32 values are exact in f32; the sums are f32."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    if terms == 1:
+        return ah @ bh
+    return (tf32_rna(a - ah) @ bh + ah @ tf32_rna(b - bh)) + ah @ bh
+
+
+def split_bwd(q, k, v, do, lse, delta, causal, window, terms):
+    """``(dQ, dK, dV)`` as F3 and F4 form them: S = scale (Q K^T), dP = dO V^T,
+    P = exp(S - lse) (0 where masked), dS = P (dP - delta), dQ = scale (dS K),
+    dK = scale (dS^T Q) and dV = P^T dO summed over each kv head's group,
+    every product through :func:`tf32_mm`."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group, scale = hq // hkv, d ** -0.5
+
+    def heads(x):  # (B, S, H, D) -> (B, Hq, S, D)
+        return x.permute(0, 2, 1, 3).repeat_interleave(hq // x.shape[2], dim=1)
+
+    qh, kh, vh, doh = (heads(x) for x in (q, k, v, do))
+    mask = fa._visible(torch.arange(sq), torch.arange(skv), skv, causal, window)
+    s = tf32_mm(qh, kh.transpose(-1, -2), terms) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (tf32_mm(doh, vh.transpose(-1, -2), terms) - delta[..., None])
+    dq = tf32_mm(ds, kh, terms) * scale
+    dk = tf32_mm(ds.transpose(-1, -2), qh, terms) * scale
+    dv = tf32_mm(p.transpose(-1, -2), doh, terms)
+
+    def back(x, h):  # (B, Hq, S, D) summed over the group -> (B, S, h, D)
+        return x.reshape(b, h, hq // h, x.shape[2], d).sum(2).permute(0, 2, 1, 3)
+
+    return back(dq, hq), back(dk, hkv), back(dv, hkv)
+
+
+def test_tf32_rounding_is_cvt_rna():
+    one = 1.0
+    x = torch.tensor([one, one + 2 ** -11, one + 2 ** -11 - 2 ** -23,
+                      one + 3 * 2 ** -11, -(one + 2 ** -11), 2.0 ** -130, 0.0])
+    want = torch.tensor([one, one + 2 ** -10, one, one + 2 ** -9,
+                         -(one + 2 ** -10), 2.0 ** -130, 0.0])
+    assert torch.equal(tf32_rna(x), want)
+    # a bf16 value is exact in TF32: its lo is 0, as the kernels take it
+    r = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    b = r.to(torch.bfloat16).float()
+    assert torch.equal(tf32_rna(b), b)
+    # and hi + lo keeps 21 or more bits of any f32
+    hi = tf32_rna(r)
+    assert float(((hi + tf32_rna(r - hi) - r).abs() / r.abs()).max()) < 2 ** -21
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_tf32_backward_within_plain_and_one_term_not(d):
+    """The three-term split puts dQ, dK and dV within 1e-5 relative norm of
+    the plain f32 versions; plain TF32 (one term) misses the card's f32
+    limit of 1e-4 (``chip_smoke.FA_BWD_TOL``), so a product left unsplit
+    fails the smoke. Causal GQA, inputs drawn as the smoke draws them."""
+    rng = np.random.default_rng(d)
+    b, s, hq, hkv = 1, 256, 4, 2
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d),
+                                 (b, s, hq, d)))
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    delta = fa.bwd_preprocess_plain(o, do)
+    dk, dv = fa.bwd_dkdv_plain(q, k, v, do, lse, delta, causal=True)
+    want = (fa.bwd_dq_plain(q, k, v, do, lse, delta, causal=True), dk, dv)
+
+    def rel(got):
+        return [float((a - w).norm() / w.norm()) for a, w in zip(got, want)]
+
+    split = rel(split_bwd(q, k, v, do, lse, delta, True, None, terms=3))
+    one = rel(split_bwd(q, k, v, do, lse, delta, True, None, terms=1))
+    assert max(split) < 1e-5, split
+    assert min(one) > 1e-4, one
+
+
+def test_backward_inputs_start_on_16_bytes():
+    """F3 and F4 copy rows with 16-byte ``cp.async``: a contiguous input
+    that starts off a 16-byte boundary is copied, with its values."""
+    base = torch.randn(1 + 2 * 8 * 2 * 32)
+    q = base[1:].view(2, 8, 2, 32)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    lse = torch.zeros(2, 2, 8)
+    _, ins = fa._bwd_inputs(q, q, q, q, lse, lse, True, None)
+    assert all(t.data_ptr() % 16 == 0 for t in ins)
+    assert all(torch.equal(t, q) for t in ins[:4])
