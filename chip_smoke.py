@@ -13,9 +13,10 @@ non-zero and prints no result. Phases, each raising on failure:
      it (each leaf's chunk at w=4 and w=2, and each bucket's of the
      overlap mode; the embed leaf's chunk at w=4 is 9,496 blocks of
      4,096), at ragged shapes, all-zero rows, exact .5 ties, values at
-     +-448, e4m3 subnormals and bf16 ties; time kernel, plain version and
-     the one PyTorch call computing the same function where there is one,
-     with CUDA events, beside the kernel's bound; hold B4's four kernels
+     +-448, e4m3 subnormals and bf16 ties, and the bf16 cast on inputs off
+     16 bytes; time kernel, plain version and the one PyTorch call
+     computing the same function where there is one, with CUDA events,
+     beside the kernel's bound; hold B4's four kernels
      (flash attention: forward, and the backward's delta, dK/dV and dQ)
      against their plain versions at the main paths' per-rank attention
      shapes, granite-3-2b's and h2o-danube-1.8b's (window 4096), ragged
@@ -34,7 +35,12 @@ non-zero and prints no result. Phases, each raising on failure:
      per-rank shapes at w=4 and w=2, the reduced model's, a ragged length,
      a weak decay (A = -0.01 exp(N) a head, so the carried state weighs)
      and bf16, each run twice for identical bits, and time them beside
-     their bound and their plain versions; then train reduced qwen3-0.6b
+     their bound and their plain versions. Every kernel and library call
+     timed is also timed on the device alone (``device_ms``: the summed
+     durations of the CUDA kernels one call launches, from
+     ``torch.profiler``, its inputs evicted from the L2 first) and every
+     kernel's wrapper on the host alone (``host_us``, while the device is
+     kept busy); then train reduced qwen3-0.6b
      two steps in each kernel mode on the card (attention through B4) and
      on the CPU (the plain path) from the same weights and compare, reduced
      rwkv6-7b two steps of the f32 ring (its time-mix through B8) likewise,
@@ -143,6 +149,18 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # dense TF32 on the tensor cores (the same data sheet)
 TF32_OPS_PER_S = 495e12
+# device_ms: a buffer of FLUSH_BYTES (over 5x the 50 MB L2) is read before
+# each timed call, and torch.cuda._sleep's kernel (named MARK) marks the
+# call's start, OPEN_CYCLES long (about 0.5 us at the H100's clock), and its
+# end, CLOSE_CYCLES long (about 50 us): a mark longer than SPLIT_US closes;
+# up to SESSIONS profiler sessions. host_us: HOST_CALLS calls behind a sleep
+# sized from WARM_CALLS calls before them, its cycles at MAX_CLOCK_HZ (the
+# H100 SXM's highest clock, 1.98 GHz, rounded up: the sleep lasts at least
+# as long at any clock)
+FLUSH_BYTES = 256 * 2**20
+MARK, OPEN_CYCLES, CLOSE_CYCLES, SPLIT_US = "spin_kernel", 1_000, 100_000, 20.0
+SESSIONS = 3
+WARM_CALLS, HOST_CALLS, MAX_CLOCK_HZ = 10, 100, 2e9
 SOURCE = "src/repro_torch/kernels/csrc/quant_ring.cu"
 _REF = "src/repro/kernels/quant_ring.py"
 # kernel -> (the pallas_call it replaces, bytes per element and per row with
@@ -309,6 +327,95 @@ def cuda_ms(fn, samples: int = 25, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, samples: int = 25) -> float:
+    """Median, over ``samples`` calls of ``fn``, of the summed durations of
+    the CUDA kernels one call launches (``torch.profiler``'s CUDA activity):
+    the call's device time, whatever its host path takes. Before each call
+    a buffer over the L2's size is read, so that the call finds its inputs
+    in device memory and not in the L2 (read, not written: a written
+    buffer's dirty lines would be written back during the timed call); a
+    short sleep kernel before the call and a long one after it delimit its
+    kernels, and the read's and the marks' own durations are not counted.
+    A call counts only between an opening and a closing mark and with as
+    many kernels as most calls have. The profiler now and then drops
+    records (once 2 of a session's 60 calls, once 20 of 25): a session in
+    which fewer than 80% of the calls count is run again, up to
+    ``SESSIONS`` sessions."""
+    flush = torch.ones(FLUSH_BYTES // 4, device=DEVICE)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(SESSIONS):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(samples):
+                flush.sum()
+                torch.cuda._sleep(OPEN_CYCLES)
+                fn()
+                torch.cuda._sleep(CLOSE_CYCLES)
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        calls, window = [], None
+        for start, end, name in kernels:
+            if MARK not in name:
+                if window is not None:
+                    window.append(end - start)
+            elif end - start < SPLIT_US:
+                window = []
+            else:
+                if window:
+                    calls.append(window)
+                window = None
+        n_kernels = statistics.mode(len(c) for c in calls) if calls else 0
+        sums = [sum(c) for c in calls if len(c) == n_kernels]
+        if len(sums) >= 0.8 * samples:
+            return statistics.median(sums) / 1e3
+        log(f"device_ms: the profiler shows {len(sums)} of {samples} calls with their "
+            f"{n_kernels} kernels (session {attempt + 1} of {SESSIONS})")
+    raise AssertionError(f"device_ms: {SESSIONS} profiler sessions dropped records")
+
+
+def host_us(fn) -> float:
+    """Host microseconds per call of ``fn``: the host clock over
+    ``HOST_CALLS`` calls issued behind a sleep kernel that keeps the device
+    busy until after the last of them, so that no call waits on the device.
+    The sleep is sized to three times what the warm-up calls took the host
+    for as many calls, at the card's highest clock."""
+    t0 = time.perf_counter()
+    for _ in range(WARM_CALLS):
+        fn()
+    warm = (time.perf_counter() - t0) / WARM_CALLS
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(3 * HOST_CALLS * warm * MAX_CLOCK_HZ))
+    slept = torch.cuda.Event()
+    slept.record()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    t = time.perf_counter() - t0
+    busy = not slept.query()
+    torch.cuda.synchronize()
+    if not busy:
+        raise AssertionError(f"the device went idle during host_us's {HOST_CALLS} calls "
+                             f"({t:.4g} s; the warm-up's took {warm:.4g} s each)")
+    return t / HOST_CALLS * 1e6
+
+
+def timings(kernel, library) -> dict:
+    """The device-alone and host-alone fields of a kernel's row: its
+    ``device_ms`` and ``host_us``, and its library call's
+    ``library_device_ms`` (None without one). With a library call the two
+    device times are taken in turns, kernel, library, library, kernel, and
+    each is the mean of its two readings."""
+    if library is None:
+        return dict(device_ms=device_ms(kernel), host_us=host_us(kernel),
+                    library_device_ms=None)
+    k0, l0, l1, k1 = (device_ms(fn) for fn in (kernel, library, library, kernel))
+    return dict(device_ms=(k0 + k1) / 2, host_us=host_us(kernel),
+                library_device_ms=(l0 + l1) / 2)
+
+
 def bits(t: torch.Tensor) -> torch.Tensor:
     """``t``'s raw bits as an integer tensor of its element size."""
     return t.view({4: torch.int32, 2: torch.int16, 1: torch.uint8}[t.element_size()])
@@ -417,9 +524,11 @@ def check_kernels(model) -> dict:
             bound_ms, bound_by = bound(name, nb, block)
             rows[name].update(shape=[nb, block], ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=library_ms)
+                              library_ms=library_ms, **timings(kernel, library))
             log(f"{name} ({nb}, {block}): {ms:.5g} ms, plain {plain_ms:.5g} ms, "
-                f"library {library_ms}, bound {bound_ms:.5g} ms ({bound_by})")
+                f"library {library_ms}, bound {bound_ms:.5g} ms ({bound_by}); "
+                f"device alone {rows[name]['device_ms']:.5g} ms, library "
+                f"{rows[name]['library_device_ms']}, host {rows[name]['host_us']:.4g} us")
 
     for shape in shapes:
         w, nb, block = shape
@@ -457,10 +566,25 @@ def check_kernels(model) -> dict:
         check("bf16_upcast", shape, lambda: qr.bf16_accumulate(hw),
               lambda: qr.bf16_accumulate_plain(hw), lambda: hw.to(torch.float32))
         del x, acc, h, hw, out
+    check_cast_off_16_bytes(gen)
     free_cuda()
     log(f"all {len(KERNELS)} kernels bit-exact against their plain versions "
         f"at {len(shapes)} shapes")
     return rows
+
+
+def check_cast_off_16_bytes(gen: torch.Generator) -> None:
+    """B5 through its wrapper on views one, two and three elements past a
+    16-byte boundary (7 x 33 elements), bit for bit against
+    ``x.to(bfloat16)``: x is not on 16 bytes, so the kernel casts every
+    element one by one."""
+    base = kernel_inputs(1, 7 * 33 + 3, gen, 3.0).reshape(-1)
+    for off in (1, 2, 3):
+        x = base[off:off + 7 * 33].view(7, 33)
+        if not same_bits(qr.cast_pack_bf16(x), x.to(torch.bfloat16)):
+            raise AssertionError(f"cast_pack_bf16 differs on a view {off} elements "
+                                 "past 16 bytes")
+    log("cast_pack_bf16 bit-exact on views off 16 bytes")
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
@@ -588,7 +712,7 @@ def time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window)
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, samples=5, calls=3)
         library_ms = cuda_ms(library) if library is not None else None
         if name in FA_BWD[1:]:
-            library_ms = lib_bwd_ms
+            library, library_ms = sdpa_bwd, lib_bwd_ms
         bound_ms, bound_by = fa_bound(name, dims, causal, window, q.dtype)
         extra = {}
         if name != FA_BWD[0]:
@@ -596,6 +720,7 @@ def time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window)
                                     tensor_cores=True)
             extra = dict(bound_tc_ms=tc_ms, bound_tc_by=tc_by, blocks_per_sm={
                 str(hd): fa.blocks_per_sm(name, hd, q.dtype) for hd in (128, 64)})
+        extra.update(timings(kernel, library))
         rows[name].update(shape=list(dims), ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms, **extra)
@@ -617,9 +742,12 @@ def time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window)
 
     gap = rel_max(sdpa(q, k, v, causal), o)
     fb_ms, lib_fb_ms = cuda_ms(kernel_fwd_bwd), cuda_ms(sdpa_fwd_bwd)
-    rows[FA_FWD].update(fwd_bwd_ms=fb_ms, library_fwd_bwd_ms=lib_fb_ms)
+    fb_dev, lib_fb_dev = device_ms(kernel_fwd_bwd), device_ms(sdpa_fwd_bwd)
+    rows[FA_FWD].update(fwd_bwd_ms=fb_ms, library_fwd_bwd_ms=lib_fb_ms,
+                        fwd_bwd_device_ms=fb_dev, library_fwd_bwd_device_ms=lib_fb_dev)
     log(f"flash attention forward+backward {dims}: kernels {fb_ms:.5g} ms, "
-        f"sdpa {lib_fb_ms:.5g} ms (sdpa's O against the plain O: {gap:.3g} of "
+        f"sdpa {lib_fb_ms:.5g} ms; on the device alone {fb_dev:.5g} and "
+        f"{lib_fb_dev:.5g} ms (sdpa's O against the plain O: {gap:.3g} of "
         f"its largest value)")
 
 
@@ -811,10 +939,12 @@ def check_wkv6() -> dict:
                 bound_ms, bound_by = wkv_bound(name, dims, dtype)
                 rows[name].update(shape=list(dims), ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
-                                  library_ms=None)
+                                  library_ms=None, **timings(kernel, None))
                 log(f"{name} {dims}: {ms:.5g} ms, plain {plain_ms:.5g} ms, "
                     f"library none (no PyTorch call computes the WKV), bound "
-                    f"{bound_ms:.5g} ms ({bound_by})")
+                    f"{bound_ms:.5g} ms ({bound_by}); device alone "
+                    f"{rows[name]['device_ms']:.5g} ms, host "
+                    f"{rows[name]['host_us']:.4g} us")
         del ins, u, dy, y, states, grads
         free_cuda()
     for row in rows.values():
@@ -965,12 +1095,15 @@ def check_ssd() -> dict:
                                   bound_ms=bound_ms, bound_by=bound_by,
                                   library_ms=None, bound_chunk=best,
                                   b9_chunk128_ms=yard_ms,
-                                  states_bytes=states.numel() * 4)
+                                  states_bytes=states.numel() * 4,
+                                  **timings(kernel, None))
                 log(f"{name} {dims}: {ms:.5g} ms, plain {plain_ms:.5g} ms, "
                     f"library none (no PyTorch call computes the SSD scan), "
                     f"bound {bound_ms:.5g} ms ({bound_by}, at chunk {best}); "
                     f"B9's algorithm at chunk {B9_CHUNK} {yard_ms:.5g} ms; chunk "
-                    f"states {states.numel() * 4} bytes")
+                    f"states {states.numel() * 4} bytes; device alone "
+                    f"{rows[name]['device_ms']:.5g} ms, host "
+                    f"{rows[name]['host_us']:.4g} us")
         del ins, dy, y, states, grads
         free_cuda()
     for row in rows.values():

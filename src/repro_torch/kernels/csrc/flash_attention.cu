@@ -22,71 +22,72 @@
 // rowsum p, acc = acc*corr + p.v; O = acc / max(l, 1e-30). The backward
 // recomputes P = exp(S - lse) (0 where masked: exp(-1e30 - lse) is 0) and
 // forms dV = P^T dO, dP = dO V^T, dS = P * (dP - delta), dQ = scale * dS K,
-// dK = scale * dS^T q.
+// dK = scale * dS^T q. The kernels form s as scale * (q . k), the same
+// function rounded once more.
 //
-// Skipped tiles. A kv tile that lies wholly above the diagonal (causal) or
-// wholly before the window of every row of a q tile is not visited. The
-// result is B4's, bit for bit as far as the online softmax goes: in B4 such a
-// tile either comes after a visible key, where p = exp(-1e30 - m) = 0 and
-// corr = 1, or before one, where the visible key's corr = exp(-1e30 - m) = 0
-// wipes what it added to l and acc. This needs every query row to see at
-// least one key, which fails only for Sq > Skv + window - 1; the wrapper
-// refuses that case. The backward skips, at the finer grain of its stages,
-// the same pairs, whose P is all 0.
+// Skipped pairs. A kernel does not visit a stage of kv rows (F1, F4) or q
+// rows (F3) in which none of a warp's pairs is visible. For F1 the result is
+// B4's, bit for bit as far as the online softmax goes: in B4 such keys either
+// come after a visible key, where p = exp(-1e30 - m) = 0 and corr = 1, or
+// before one, where the visible key's corr = exp(-1e30 - m) = 0 wipes what
+// they added to l and acc. This needs every query row to see at least one
+// key, which fails only for Sq > Skv + window - 1; the wrapper refuses that
+// case. In the backward the skipped pairs' P is all 0.
 //
-// F1 and F2. One thread block of 256 threads (16 x 16) per q tile of 64
-// rows and (q head, batch). Tiles of 64 rows of q, k and v are staged in
-// shared memory as f32 with a row stride of D + 1 (odd: the column reads of
-// 16 rows hit 16 banks); each thread holds 4 rows x 4 columns of a 64 x 64
-// score tile and 4 rows x D/16 columns of its output rows in registers, and
-// a row's max and sum are reduced over the 16 lanes that share it with
-// shuffles. The probabilities go through shared memory to the second
-// product. Plain f32 FMAs; expf and logf, never the fast intrinsics. F2 is a
-// warp per row.
-//
-// F3 and F4: the products on the tensor cores in split TF32. Every product
-// (F3: S^T = K q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T q; F4: S = q K^T,
-// dP = dO V^T, dQ += dS K; the scale applied to S, dK and dQ afterwards) is
-// mma.sync m16n8k8 with TF32 operands in three terms: each f32 operand x is
-// split into hi = tf32(x) and lo = tf32(x - hi) (rounded to nearest, ties
-// away), and lo.hi and hi.lo go into the accumulator before hi.hi. A bf16
-// input is exact in TF32: its lo is 0 and its terms are skipped; P and dS are
-// f32 and always split. Plain TF32 (hi.hi alone) puts dQ, dK and dV at
-// 5.6e-4, 5.5e-4 and 4.2e-4 relative norm of the f32 plain versions at the
-// main shape on the H100, over the limit of 1e-4; the split form 8.4e-7,
-// 1.2e-6 and 1.1e-6. The tensor cores add with truncation: one accumulator
+// F1, F3 and F4: the products on the tensor cores in split TF32. Every
+// product (F1: S = q K^T, O += P V; F3: S^T = K q^T, dP^T = V dO^T, dV +=
+// P^T dO, dK += dS^T q; F4: S = q K^T, dP = dO V^T, dQ += dS K; the scale
+// applied to S, dK and dQ afterwards, in f32, so that a bf16 q stays exact in
+// TF32) is mma.sync m16n8k8 with TF32 operands in three terms: each f32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi) (rounded to
+// nearest, ties away), and lo.hi and hi.lo go into the accumulator before
+// hi.hi. A bf16 input is exact in TF32: its lo is 0 and its terms are
+// skipped; P and dS are f32 and always split. Plain TF32 (hi.hi alone) puts
+// dQ, dK and dV at 5.6e-4, 5.5e-4 and 4.2e-4 relative norm of the f32 plain
+// versions at the main shape on the H100, over the limit of 1e-4; the split
+// form 8.4e-7, 1.2e-6 and 1.1e-6. F1's O in plain TF32 misses its limit of
+// 2e-5 of max |O| too: emulated on the CPU (tests/test_torch_flash_attention.py)
+// it lands at 4.2e-4 of max |O|, the split form at 3.8e-7. The tensor cores add with truncation: one accumulator
 // carried over a long sum lost 1.3e-4 (dK at h2o-danube-1.8b's shape, S =
 // 5120), so each stage's products go to a fresh accumulator that is added to
 // the running sum in f32 (2.6e-6 there; tools/flash_attention_forms.py
 // measures each of these choices against the source).
-//   A block's warps hold 16 resident rows each (F3 kv rows, F4 q rows) and
-// the other side streams by in stages of 16 rows, double-buffered with
-// cp.async (16 bytes a thread; lse and delta 4): F3 streams q, dO, lse and
-// delta of each q head of the kv head's group, F4 k and v. Tiles are f32 in
-// shared memory (bf16 widened when staged) with a row stride of D + 4:
-// every fragment load is a float4 (F3's P^T and dS^T, F4's dS stay in
-// registers: the mma's accumulator layout is read as the next product's A
-// operand with its k permuted, and B's rows in the same order) and free of
-// bank conflicts. F3's dK and dV stay in registers over the whole walk and
-// the GQA group's sum is formed there: no atomics, the same bits every run.
-// A warp skips a stage in which none of its pairs is visible.
-//   Filling the card. F4's grid takes the q tiles from the last, the long
-// ones under the causal mask first. F3's block holds two kv tiles, kt and
-// nk - 1 - kt, one per group of 4 warps with its own shared memory and named
-// barrier, so that every block has the same causal work (a kv tile a block
-// leaves the SMs that drew two long tiles to finish last); at D = 128 its 128
-// accumulator registers a thread leave room for one block (8 warps) an SM
-// (203,264 bytes of shared memory, 255 registers a thread). F4's block has 4
-// warps, 101,376 bytes and 179 registers at D = 128: two blocks an SM.
+//   A block's warps hold 16 resident rows each (F1 and F4 q rows, F3 kv
+// rows) and the other side streams by in stages of 16 rows, double-buffered
+// with cp.async (16 bytes a thread; lse and delta 4): F1 and F4 stream k and
+// v, F3 q, dO, lse and delta of each q head of the kv head's group. Tiles
+// are f32 in shared memory (bf16 widened when staged) with a row stride of
+// D + 4: every fragment load is a float4 (F1's P, F3's P^T and dS^T, F4's dS
+// stay in registers: the mma's accumulator layout is read as the next
+// product's A operand with its k permuted, and B's rows in the same order)
+// and free of bank conflicts. F1 keeps each row's running max m, its lane's
+// share of the sum l and its 16 x D output O in registers; a stage's S is
+// scaled and masked and turned into P = exp(S - m') in the accumulators, O
+// is multiplied by corr = exp(m - m'), and the stage's P V, formed in fresh
+// accumulators, is added to it in f32. F3's dK and dV stay in registers over
+// the whole walk and the GQA group's sum is formed there: no atomics, the
+// same bits every run.
+//   Filling the card. F1's and F4's grids take the q tiles from the last,
+// the long ones under the causal mask first. F3's block holds two kv tiles,
+// kt and nk - 1 - kt, one per group of 4 warps with its own shared memory
+// and named barrier, so that every block has the same causal work (a kv tile
+// a block leaves the SMs that drew two long tiles to finish last); at D =
+// 128 its 128 accumulator registers a thread leave room for one block (8
+// warps) an SM (203,264 bytes of shared memory, 255 registers a thread).
+// F4's block has 4 warps, 101,376 bytes and 179 registers at D = 128: two
+// blocks an SM. F1's has 4 warps and 67,584 bytes at D = 128 (q, and two
+// stages of k and v).
 //
-// Bound: operations. Per visible (q, k) pair the forward does 4*D flops (two
-// products), F3 8*D (scores, dP, dV, dK) and F4 6*D (scores, dP, dQ), against
-// about 4 bytes a row element moved. At the main path's shapes (S = 1024,
-// D = 128) the products over the card's 67 TFLOP/s f32 rate take F3 0.2567
-// ms and F4 0.1925 ms, and in split TF32 (three times the products over 495
-// TFLOP/s) 0.1042 and 0.0782 ms, against bytes at 3.35 TB/s of a tenth of
-// that. F2 is bound by its bytes. Shared memory above the 48 KiB default is
-// set with cudaFuncSetAttribute below.
+// F2 is a warp per row, on FMAs.
+//
+// Bound: operations. Per visible (q, k) pair F1 does 4*D flops (two
+// products), F3 8*D (scores, dP, dV, dK) and F4 6*D (scores, dP, dQ),
+// against about 4 bytes a row element moved. At the main path's shapes (S =
+// 1024, D = 128) the products over the card's 67 TFLOP/s f32 rate take F1
+// 0.1283 ms, F3 0.2567 ms and F4 0.1925 ms, and in split TF32 (three times
+// the products over 495 TFLOP/s) 0.0521, 0.1042 and 0.0782 ms, against bytes
+// at 3.35 TB/s of a tenth of that. F2 is bound by its bytes. Shared memory
+// above the 48 KiB default is set with cudaFuncSetAttribute below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,16 +96,10 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // B4's NEG_INF, not -inf
-constexpr int kTile = 64;          // rows of a q tile and of a kv tile
-constexpr int kThreads = 256;      // 16 x 16
-constexpr int kRows = kTile / 16;  // tile rows per thread
-constexpr int kCols = kTile / 16;  // score columns per thread
-constexpr int kPStride = kTile + 1;
+constexpr int kThreads = 256;      // F2: a warp per row
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 struct Dims {
   int batch, sq, skv, hq, hkv, causal, window;  // window <= 0: no window
@@ -117,157 +112,9 @@ __device__ __forceinline__ int64_t row_offset(int b, int s, int h, int S, int H)
   return ((static_cast<int64_t>(b) * S + s) * H + h) * D;
 }
 
-// Rows [row0, row0 + kTile) of head h of a (B, S, H, D) tensor into shared
-// memory (stride D + 1), each times mul, zero past row S - 1 (B4's padding).
-template <int D, typename T>
-__device__ void load_tile(float* dst, const T* src, int b, int row0, int S,
-                          int h, int H, float mul) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i - (i / D) * D;
-    const int s = row0 + r;
-    float x = 0.f;
-    if (s < S) x = to_f32(src[row_offset<D>(b, s, h, S, H) + c]) * mul;
-    dst[r * (D + 1) + c] = x;
-  }
-}
-
 __device__ __forceinline__ bool visible(int qpos, int kpos, const Dims& d) {
   return kpos < d.skv && (!d.causal || qpos >= kpos) &&
          (d.window <= 0 || qpos - kpos < d.window);
-}
-
-// Max and sum over the 16 lanes of a half warp (the threads sharing a row).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// The kv tiles [lo, hi) that hold a key visible to some real row of the q
-// tile starting at q0.
-__device__ __forceinline__ void kv_tile_range(int q0, const Dims& d, int* lo, int* hi) {
-  const int nk = (d.skv + kTile - 1) / kTile;
-  const int q_last = min(q0 + kTile, d.sq) - 1;
-  *lo = d.window > 0 ? max(0, q0 - d.window + 1) / kTile : 0;
-  *hi = d.causal ? min(nk, q_last / kTile + 1) : nk;
-}
-
-// acc[i][j] += sum_c a[row i][c] * b[col j][c] over c < D, with row i of the
-// thread at tile row ty*kRows + i and col j at tile row tx + 16*j of b.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[kRows][kCols], const float* a,
-                                         const float* b, int ty, int tx) {
-  constexpr int P = D + 1;
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    float x[kRows], y[kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) x[i] = a[(ty * kRows + i) * P + c];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) y[j] = b[(tx + 16 * j) * P + c];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-// out[i][c] += sum_r w[row i][r] * m[r][col c] over the kTile rows r of m,
-// with w (kTile x kTile, stride kPStride) and out columns tx + 16*c.
-template <int D>
-__device__ __forceinline__ void tile_apply(float (&out)[kRows][D / 16], const float* w,
-                                           const float* m, int ty, int tx) {
-  constexpr int P = D + 1;
-#pragma unroll 4
-  for (int r = 0; r < kTile; ++r) {
-    float x[kRows], y[D / 16];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) x[i] = w[(ty * kRows + i) * kPStride + r];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) y[c] = m[r * P + tx + 16 * c];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) out[i][c] = fmaf(x[i], y[c], out[i][c]);
-  }
-}
-
-// F1: grid (q tiles, Hq, B).
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, float* __restrict__ lse, Dims d) {
-  constexpr int P = D + 1, DC = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kTile * P;
-  float* vs = ks + kTile * P;
-  float* ps = vs + kTile * P;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (d.hq / d.hkv);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_tile<D>(qs, q, b, q0, d.sq, h, d.hq, d.scale);
-  float m[kRows], l[kRows], acc[kRows][DC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-  int lo, hi;
-  kv_tile_range(q0, d, &lo, &hi);
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's reads of ks, vs, ps are done
-    load_tile<D>(ks, k, b, k0, d.skv, hk, d.hkv, 1.f);
-    load_tile<D>(vs, v, b, k0, d.skv, hk, d.hkv, 1.f);
-    __syncthreads();
-    float s[kRows][kCols] = {};
-    tile_dot<D>(s, qs, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty * kRows + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        if (!visible(qpos, k0 + tx + 16 * j, d)) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        ps[(ty * kRows + i) * kPStride + tx + 16 * j] = p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(sum);
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
-      m[i] = m_new;
-    }
-    __syncthreads();
-    tile_apply<D>(acc, ps, vs, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qpos = q0 + ty * kRows + i;
-    if (qpos >= d.sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + row_offset<D>(b, qpos, h, d.sq, d.hq);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) put(orow + tx + 16 * c, acc[i][c] / den);
-    if (tx == 0)
-      lse[(static_cast<int64_t>(b) * d.hq + h) * d.sq + qpos] = m[i] + logf(l[i]);
-  }
 }
 
 // F2: delta[b, h, s] = sum_c dO[b, s, h, c] * O[b, s, h, c]; a warp per row.
@@ -293,13 +140,13 @@ bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// F3 and F4: the products on the tensor cores in split TF32
+// F1, F3 and F4: the products on the tensor cores in split TF32
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 128;  // 4 warps, 16 resident rows each
-constexpr int kBwdRows = 64;      // resident rows of a block: F3's kv tile, F4's q tile
+constexpr int kMmaThreads = 128;  // 4 warps, 16 resident rows each
+constexpr int kMmaRows = 64;      // resident rows of a block: F1's and F4's q tile, F3's kv tile
 constexpr int kStage = 16;        // streamed rows a stage: F3's q rows, F4's kv rows
-constexpr int kDkdvGroups = 2;    // F3: kv tiles a block, one a group of kBwdThreads
+constexpr int kDkdvGroups = 2;    // F3: kv tiles a block, one a group of kMmaThreads
 
 // x rounded to TF32 (10 mantissa bits, to nearest, ties away), as f32 bits:
 // cvt.rna.tf32.f32's rounding for every finite x, in two integer operations:
@@ -520,13 +367,13 @@ __device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src, boo
 }
 
 // Rows [row0, row0 + R) of head h of a (B, S, H, D) tensor into shared
-// memory (stride D + 4), zero past row S - 1, by the kBwdThreads threads
+// memory (stride D + 4), zero past row S - 1, by the kMmaThreads threads
 // tid of a group.
 template <int D, int R, typename T>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src, int b, int row0, int S,
                                            int h, int H, int tid) {
   constexpr int P = D + 4, C = D / 4;
-  for (int i = tid; i < R * C; i += kBwdThreads) {
+  for (int i = tid; i < R * C; i += kMmaThreads) {
     const int r = i / C, c = i - (i / C) * C, s = row0 + r;
     const bool in = s < S;
     stage4(dst + r * P + 4 * c, src + (in ? row_offset<D>(b, s, h, S, H) + 4 * c : 0), in);
@@ -553,16 +400,149 @@ __device__ __forceinline__ bool tile_sees(int qa, int nq, int ka, int nk, const 
   return true;
 }
 
-// A barrier of the kBwdThreads threads of group `id` (1 + the group's index;
+// A barrier of the kMmaThreads threads of group `id` (1 + the group's index;
 // 0 is __syncthreads').
 __device__ __forceinline__ void group_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kBwdThreads) : "memory");
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kMmaThreads) : "memory");
+}
+
+// The kv stages [lo, hi) of kStage rows that hold a key visible to some row
+// of the q tile of kMmaRows rows starting at q0 (F1's and F4's walk).
+__device__ __forceinline__ void kv_stages(int q0, const Dims& d, int* lo, int* hi) {
+  const int nst = (d.skv + kStage - 1) / kStage;
+  const int q_last = min(q0 + kMmaRows, d.sq) - 1;
+  *lo = d.window > 0 ? max(0, q0 - d.window + 1) / kStage : 0;
+  *hi = d.causal ? min(nst, q_last / kStage + 1) : nst;
+}
+
+// The block of F1 and F4 for blockIdx.x: its q tile's first row (the tiles
+// taken from the last, so that the long ones under the causal mask start
+// first), q head and batch row.
+__device__ __forceinline__ void q_tile_block(const Dims& d, int* q0, int* h, int* b) {
+  const int heads = d.hq * d.batch, nq = (d.sq + kMmaRows - 1) / kMmaRows;
+  const int rank = blockIdx.x / heads, rest = blockIdx.x - rank * heads;
+  *h = rest % d.hq;
+  *b = rest / d.hq;
+  *q0 = (nq - 1 - rank) * kMmaRows;
+}
+
+// F1's shared memory: the q tile; two stages of k and v.
+template <int D>
+__host__ __device__ constexpr int fwd_floats() {
+  return kMmaRows * (D + 4) + 4 * kStage * (D + 4);
+}
+
+// F1: one block per (q tile, q head, batch). Each warp holds 16 q rows with
+// their running max m, its lanes' shares of the sum l and the output O in
+// registers; the kv rows stream by in stages of kStage, double-buffered.
+// Per stage: S = q K^T, scaled and masked; m' = max(m, rowmax S); P =
+// exp(S - m') in S's accumulators; corr = exp(m - m'); l = l corr + rowsum
+// P; O = O corr + P V, P V in fresh accumulators.
+template <int D, typename T>
+__global__ void __launch_bounds__(kMmaThreads)
+fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           T* __restrict__ o, float* __restrict__ lse, Dims d) {
+  constexpr int P = D + 4, NT = D / 8;
+  constexpr bool kExact = sizeof(T) == 2;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + kMmaRows * P;    // [2][kStage * P]
+  float* vs = ks + 2 * kStage * P;  // [2][kStage * P]
+  int q0, h, b;
+  q_tile_block(d, &q0, &h, &b);
+  const int hk = h / (d.hq / d.hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int qr0 = q0 + 16 * warp;  // the warp's q rows: g and g + 8 of them a lane's
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int st_lo, st_hi;
+  kv_stages(q0, d, &st_lo, &st_hi);
+  const int items = max(0, st_hi - st_lo);
+  auto issue = [&](int i) {
+    const int buf = i & 1, k0 = (st_lo + i) * kStage;
+    stage_rows<D, kStage>(ks + buf * kStage * P, k, b, k0, d.skv, hk, d.hkv, threadIdx.x);
+    stage_rows<D, kStage>(vs + buf * kStage * P, v, b, k0, d.skv, hk, d.hkv, threadIdx.x);
+  };
+  if (items > 0) {
+    stage_rows<D, kMmaRows>(qs, q, b, q0, d.sq, h, d.hq, threadIdx.x);
+    issue(0);
+    cp_commit();
+  }
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) {
+      issue(i + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int buf = i & 1, k0 = (st_lo + i) * kStage;
+    if (tile_sees(qr0, 16, k0, kStage, d)) {
+      float s[2][4] = {};  // S, then P: q rows x kv columns
+      mma_nt<D, 2, kExact, D / 32 + 1>(s, qs + 16 * warp * P, ks + buf * kStage * P, lane);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1, qpos = qr0 + g + 8 * half;
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          s[j][e] = qpos < d.sq && visible(qpos, kpos, d) ? s[j][e] * d.scale : kNegInf;
+          mx[half] = fmaxf(mx[half], s[j][e]);
+        }
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // the row's max over its 4 lanes
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+        const float m_new = fmaxf(m[half], mx[half]);
+        corr[half] = expf(m[half] - m_new);
+        m[half] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) l[half] = l[half] * corr[half] + sum[half];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+      mma_rn<D, kExact>(acc, s, vs + buf * kStage * P, lane);
+    }
+    __syncthreads();  // every read of buffer buf is done before it is refilled
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);  // the row's sum over its 4 lanes
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    const int qpos = qr0 + g + 8 * half;
+    if (qpos >= d.sq) continue;
+    const float den = fmaxf(l[half], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][2 * half] /= den;
+      acc[n][2 * half + 1] /= den;
+    }
+    store_row<D>(o + row_offset<D>(b, qpos, h, d.sq, d.hq), acc, half, t, 1.f);
+    if (t == 0) lse[(static_cast<int64_t>(b) * d.hq + h) * d.sq + qpos] = m[half] + logf(l[half]);
+  }
 }
 
 // F3's shared memory for one kv tile: k, v; two stages of q, dO, lse, delta.
 template <int D>
 __host__ __device__ constexpr int dkdv_floats() {
-  return 2 * kBwdRows * (D + 4) + 4 * kStage * (D + 4) + 4 * kStage;
+  return 2 * kMmaRows * (D + 4) + 4 * kStage * (D + 4) + 4 * kStage;
 }
 
 // F3: one block per (pair of kv tiles, kv head, batch), a group of 4 warps
@@ -571,33 +551,33 @@ __host__ __device__ constexpr int dkdv_floats() {
 // goes alone). Each warp holds 16 kv rows; the q rows of the group's heads
 // stream by in stages of kStage, double-buffered.
 template <int D, typename T>
-__global__ void __launch_bounds__(kDkdvGroups * kBwdThreads)
+__global__ void __launch_bounds__(kDkdvGroups * kMmaThreads)
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                 Dims d) {
   constexpr int P = D + 4, NT = D / 8;
   constexpr bool kExact = sizeof(T) == 2;
-  const int grp = threadIdx.x / kBwdThreads, tid = threadIdx.x % kBwdThreads;
-  const int heads = d.hkv * d.batch, nk = (d.skv + kBwdRows - 1) / kBwdRows;
+  const int grp = threadIdx.x / kMmaThreads, tid = threadIdx.x % kMmaThreads;
+  const int heads = d.hkv * d.batch, nk = (d.skv + kMmaRows - 1) / kMmaRows;
   const int pair = blockIdx.x / heads, rest = blockIdx.x - pair * heads;
   const int kt = grp == 0 ? pair : nk - 1 - pair;
   if (grp == 1 && kt == pair) return;  // the middle tile: group 0 has it
   const int hk = rest % d.hkv, b = rest / d.hkv;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4) + grp * dkdv_floats<D>();
-  float* vs = ks + kBwdRows * P;
-  float* qs = vs + kBwdRows * P;      // [2][kStage * P]
+  float* vs = ks + kMmaRows * P;
+  float* qs = vs + kMmaRows * P;      // [2][kStage * P]
   float* dos = qs + 2 * kStage * P;   // [2][kStage * P]
   float* lses = dos + 2 * kStage * P; // [2][kStage]
   float* deltas = lses + 2 * kStage;  // [2][kStage]
-  const int k0 = kt * kBwdRows, group = d.hq / d.hkv;
+  const int k0 = kt * kMmaRows, group = d.hq / d.hkv;
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int kr0 = k0 + 16 * warp;  // the warp's kv rows
 
   // the q stages with a row that sees a key of this tile, for each q head
   const int nst = (d.sq + kStage - 1) / kStage;
-  const int k_last = min(k0 + kBwdRows, d.skv) - 1;
+  const int k_last = min(k0 + kMmaRows, d.skv) - 1;
   const int st_lo = d.causal ? k0 / kStage : 0;
   const int st_hi = d.window > 0 ? min(nst, (k_last + d.window - 1) / kStage + 1) : nst;
   const int n_st = max(0, st_hi - st_lo), items = group * n_st;
@@ -616,8 +596,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     stage_vals(deltas + buf * kStage, delta, b, h, q0, d.sq, d.hq, tid, kStage);
   };
   if (items > 0) {
-    stage_rows<D, kBwdRows>(ks, k, b, k0, d.skv, hk, d.hkv, tid);
-    stage_rows<D, kBwdRows>(vs, v, b, k0, d.skv, hk, d.hkv, tid);
+    stage_rows<D, kMmaRows>(ks, k, b, k0, d.skv, hk, d.hkv, tid);
+    stage_rows<D, kMmaRows>(vs, v, b, k0, d.skv, hk, d.hkv, tid);
     issue(0);
     cp_commit();
   }
@@ -670,12 +650,10 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-// F4: one block per (q tile, q head, batch), the q tile the slowest index and
-// taken from the last, so that the long tiles (the last, under the causal
-// mask) start first. Each warp holds 16 q rows; the kv rows stream by in
-// stages of kStage, double-buffered.
+// F4: one block per (q tile, q head, batch), as F1. Each warp holds 16 q
+// rows; the kv rows stream by in stages of kStage, double-buffered.
 template <int D, typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kMmaThreads)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dq, Dims d) {
@@ -683,13 +661,12 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   constexpr bool kExact = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kBwdRows * P;
-  float* ks = dos + kBwdRows * P;   // [2][kStage * P]
+  float* dos = qs + kMmaRows * P;
+  float* ks = dos + kMmaRows * P;   // [2][kStage * P]
   float* vs = ks + 2 * kStage * P;  // [2][kStage * P]
-  const int heads = d.hq * d.batch, nq = (d.sq + kBwdRows - 1) / kBwdRows;
-  const int rank = blockIdx.x / heads, rest = blockIdx.x - rank * heads;
-  const int h = rest % d.hq, b = rest / d.hq;
-  const int q0 = (nq - 1 - rank) * kBwdRows, hk = h / (d.hq / d.hkv);
+  int q0, h, b;
+  q_tile_block(d, &q0, &h, &b);
+  const int hk = h / (d.hq / d.hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const int qr0 = q0 + 16 * warp;  // the warp's q rows
 
@@ -706,11 +683,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqr[n][e] = 0.f;
 
-  // the kv stages with a key visible to some row of this tile
-  const int nst = (d.skv + kStage - 1) / kStage;
-  const int q_last = min(q0 + kBwdRows, d.sq) - 1;
-  const int st_lo = d.window > 0 ? max(0, q0 - d.window + 1) / kStage : 0;
-  const int st_hi = d.causal ? min(nst, q_last / kStage + 1) : nst;
+  int st_lo, st_hi;
+  kv_stages(q0, d, &st_lo, &st_hi);
   const int items = max(0, st_hi - st_lo);
 
   auto issue = [&](int i) {
@@ -719,8 +693,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     stage_rows<D, kStage>(vs + buf * kStage * P, v, b, k0, d.skv, hk, d.hkv, threadIdx.x);
   };
   if (items > 0) {
-    stage_rows<D, kBwdRows>(qs, q, b, q0, d.sq, h, d.hq, threadIdx.x);
-    stage_rows<D, kBwdRows>(dos, dout, b, q0, d.sq, h, d.hq, threadIdx.x);
+    stage_rows<D, kMmaRows>(qs, q, b, q0, d.sq, h, d.hq, threadIdx.x);
+    stage_rows<D, kMmaRows>(dos, dout, b, q0, d.sq, h, d.hq, threadIdx.x);
     issue(0);
     cp_commit();
   }
@@ -763,16 +737,16 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 template <int D>
-constexpr size_t fwd_smem() { return (3 * kTile * (D + 1) + kTile * kPStride) * sizeof(float); }
+constexpr size_t fwd_smem() { return fwd_floats<D>() * sizeof(float); }
 template <int D>
 constexpr size_t dkdv_smem() { return kDkdvGroups * dkdv_floats<D>() * sizeof(float); }
 template <int D>
 constexpr size_t dq_smem() {  // q, dO tiles; two stages of k, v
-  return (2 * kBwdRows * (D + 4) + 4 * kStage * (D + 4)) * sizeof(float);
+  return (2 * kMmaRows * (D + 4) + 4 * kStage * (D + 4)) * sizeof(float);
 }
 
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
-inline int tiles(int n) { return (n + kTile - 1) / kTile; }
+inline int tiles(int n) { return (n + kMmaRows - 1) / kMmaRows; }
 
 // Launch `kernel` with `threads` threads a block and `smem` bytes of dynamic
 // shared memory.
@@ -785,7 +759,7 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream, Arg
   return static_cast<int>(cudaGetLastError());
 }
 
-// F3's and F4's one-dimensional grid: tiles x heads x batch blocks.
+// F1's, F3's and F4's one-dimensional grid: tiles x heads x batch blocks.
 inline int flat_grid(int n_tiles, int heads, int batch, unsigned* blocks) {
   const int64_t n = static_cast<int64_t>(n_tiles) * heads * batch;
   if (n > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
@@ -796,8 +770,9 @@ inline int flat_grid(int n_tiles, int heads, int batch, unsigned* blocks) {
 template <int D, typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, Dims d,
         void* stream) {
-  return launch(fwd_kernel<D, T>, dim3(tiles(d.sq), d.hq, d.batch), kThreads, fwd_smem<D>(),
-                stream,
+  unsigned blocks;
+  if (int err = flat_grid(tiles(d.sq), d.hq, d.batch, &blocks)) return err;
+  return launch(fwd_kernel<D, T>, dim3(blocks), kMmaThreads, fwd_smem<D>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse), d);
 }
@@ -819,7 +794,7 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout, const vo
          const void* delta, void* dk, void* dv, Dims d, void* stream) {
   unsigned blocks;
   if (int err = flat_grid((tiles(d.skv) + 1) / 2, d.hkv, d.batch, &blocks)) return err;
-  return launch(bwd_dkdv_kernel<D, T>, dim3(blocks), kDkdvGroups * kBwdThreads, dkdv_smem<D>(),
+  return launch(bwd_dkdv_kernel<D, T>, dim3(blocks), kDkdvGroups * kMmaThreads, dkdv_smem<D>(),
                 stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -832,7 +807,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout, const void
        const void* delta, void* dqp, Dims d, void* stream) {
   unsigned blocks;
   if (int err = flat_grid(tiles(d.sq), d.hq, d.batch, &blocks)) return err;
-  return launch(bwd_dq_kernel<D, T>, dim3(blocks), kBwdThreads, dq_smem<D>(), stream,
+  return launch(bwd_dq_kernel<D, T>, dim3(blocks), kMmaThreads, dq_smem<D>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -852,10 +827,10 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* blocks) {
 template <int D, typename T>
 int blocks_per_sm(int which, int* blocks) {
   switch (which) {
-    case 0: return occupancy(fwd_kernel<D, T>, kThreads, fwd_smem<D>(), blocks);
+    case 0: return occupancy(fwd_kernel<D, T>, kMmaThreads, fwd_smem<D>(), blocks);
     case 1:
-      return occupancy(bwd_dkdv_kernel<D, T>, kDkdvGroups * kBwdThreads, dkdv_smem<D>(), blocks);
-    case 2: return occupancy(bwd_dq_kernel<D, T>, kBwdThreads, dq_smem<D>(), blocks);
+      return occupancy(bwd_dkdv_kernel<D, T>, kDkdvGroups * kMmaThreads, dkdv_smem<D>(), blocks);
+    case 2: return occupancy(bwd_dq_kernel<D, T>, kMmaThreads, dq_smem<D>(), blocks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

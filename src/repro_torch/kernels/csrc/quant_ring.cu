@@ -30,6 +30,20 @@
 // on the row length. The dequantizers take one row per thread block as
 // well, so each thread reads its row's scale once. The bf16 kernels have no
 // rows (no scales): a flat grid-stride loop over all elements.
+//   cast_pack_bf16 moves 16 bytes a load: a block of kCastThreads casts
+// kCastVecs * kCastThreads consecutive float4s, each thread kCastVecs of
+// them (four elements each, written as one 8-byte store of four bf16),
+// both loads issued before the first store and neighbouring lanes on
+// neighbouring vectors. Its grid covers the whole tensor once (a grid-stride
+// loop takes what a grid of 2^31 - 1 blocks cannot). The elements past the
+// last whole vector go one by one, and so does every element where x is not
+// on 16 bytes or out not on 8 (a view; the wrapper's fresh out always is on
+// 16). At the embed chunk's
+// shape it runs with x.to(bfloat16)'s own kernel, both about 99% of the
+// byte bound on the device alone; a grid sized to the card (SMs times
+// resident blocks) with four float4s a thread ran 2.7% slower, and the
+// scalar loop it replaces (4 bytes a thread at a time, at most 16 blocks an
+// SM) 67% of the bound (tools/cast_forms.py times the forms; PERF.md).
 //
 // Bits. The kernels are bit-exact against the plain PyTorch versions:
 //   scale = amax > 0 ? amax / qmax : 1 with correctly rounded division
@@ -54,6 +68,8 @@ namespace {
 constexpr int kRowThreads = 256;
 constexpr int kWarps = kRowThreads / 32;
 constexpr int kFlatThreads = 256;
+constexpr int kCastThreads = 128;  // cast_pack_bf16's block
+constexpr int kCastVecs = 2;       // its float4s a thread
 
 // The int8 wire: integer codes, rounded half to even.
 struct Int8Wire {
@@ -160,12 +176,35 @@ dequant_kernel(const typename W::T* __restrict__ q, const float* __restrict__ sc
     out[base + i] = __fmul_rn(W::decode(q[base + i]), s);
 }
 
-__global__ void __launch_bounds__(kFlatThreads)
+// Four f32 values as four bf16 in one 8-byte word, the first in the low half.
+__device__ __forceinline__ uint2 bf16x4(float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// out = bf16(x): the first 4 nvec elements as float4s (x on 16 bytes and out
+// on 8), the rest one by one.
+__global__ void __launch_bounds__(kCastThreads)
 cast_pack_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                      int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kFlatThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kFlatThreads + threadIdx.x;
-       i < n; i += stride)
+                      int64_t n, int64_t nvec) {
+  constexpr int64_t kPerBlock = static_cast<int64_t>(kCastVecs) * kCastThreads;
+  const float4* __restrict__ xv = reinterpret_cast<const float4*>(x);
+  uint2* __restrict__ ov = reinterpret_cast<uint2*>(out);
+  for (int64_t b0 = blockIdx.x * kPerBlock; b0 < nvec; b0 += gridDim.x * kPerBlock) {
+    const int64_t i0 = b0 + threadIdx.x;
+    float4 v[kCastVecs];
+#pragma unroll
+    for (int u = 0; u < kCastVecs; ++u)
+      if (i0 + u * kCastThreads < nvec) v[u] = xv[i0 + u * kCastThreads];
+#pragma unroll
+    for (int u = 0; u < kCastVecs; ++u)
+      if (i0 + u * kCastThreads < nvec) ov[i0 + u * kCastThreads] = bf16x4(v[u]);
+  }
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kCastThreads;
+  for (int64_t i = 4 * nvec + blockIdx.x * static_cast<int64_t>(kCastThreads) + threadIdx.x;
+       i < n; i += threads)
     out[i] = __float2bfloat16_rn(x[i]);
 }
 
@@ -203,6 +242,14 @@ bf16_upcast_kernel(const __nv_bfloat16* __restrict__ recv, float* __restrict__ o
 unsigned int flat_blocks(int64_t n) {
   const int64_t want = (n + kFlatThreads - 1) / kFlatThreads;
   return static_cast<unsigned int>(want < 132 * 16 ? want : 132 * 16);
+}
+
+// Blocks of cast_pack_bf16's grid: one per kCastVecs * kCastThreads float4s
+// of n elements (at least one), at most 2^31 - 1.
+unsigned int cast_blocks(int64_t n) {
+  const int64_t per_block = static_cast<int64_t>(4) * kCastVecs * kCastThreads;
+  const int64_t want = (n + per_block - 1) / per_block;
+  return static_cast<unsigned int>(want < 0x7fffffff ? want : 0x7fffffff);
 }
 
 cudaStream_t as_stream(void* stream) { return static_cast<cudaStream_t>(stream); }
@@ -307,9 +354,12 @@ int quant_ring_dequant_fp8(const void* q, const void* scales, void* out,
   return launch_dequant<Fp8Wire>(q, scales, out, n_blocks, block, stream);
 }
 
+// Whole float4s where x is on 16 bytes and out on 8, else every element one by one.
 int quant_ring_cast_pack_bf16(const void* x, void* out, int64_t n, void* stream) {
-  cast_pack_bf16_kernel<<<flat_blocks(n), kFlatThreads, 0, as_stream(stream)>>>(
-      static_cast<const float*>(x), static_cast<__nv_bfloat16*>(out), n);
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  cast_pack_bf16_kernel<<<cast_blocks(n), kCastThreads, 0, as_stream(stream)>>>(
+      static_cast<const float*>(x), static_cast<__nv_bfloat16*>(out), n, vec ? n / 4 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,11 +19,11 @@ hand-written CUDA kernels in ``csrc/flash_attention.cu``:
     each kv head's group inside one thread block (no atomics);
   * ``flash_attention_bwd_dq`` (F4) — ``dQ``.
 
-F1 and F2 use f32 FMAs. F3 and F4 run their products on the tensor cores
-in split TF32: each f32 operand is split into a TF32 ``hi`` and a TF32
-``lo = x - hi``, and three products (``lo.hi + hi.lo``, then ``hi.hi``)
-keep the f32 limits (plain TF32 would miss them by about 5x); the source's
-note gives the design and its measurements.
+F1, F3 and F4 run their products on the tensor cores in split TF32: each
+f32 operand is split into a TF32 ``hi`` and a TF32 ``lo = x - hi``, and
+three products (``lo.hi + hi.lo``, then ``hi.hi``) keep the f32 limits
+(plain TF32 would miss them); the source's note gives the design and its
+measurements. F2 uses f32 FMAs.
 
 Their wrappers are :func:`flash_attention_fwd`, :func:`bwd_preprocess`,
 :func:`bwd_dkdv` and :func:`bwd_dq`; :func:`flash_attention_bwd` runs the
@@ -34,9 +34,9 @@ Each has a plain PyTorch version beside it (``*_plain``): the same blocked
 arithmetic in torch ops, B4's padding and masking included. A tensor on the
 CPU takes the plain versions; a CUDA tensor launches the kernels or raises;
 any other device raises. Every launch adds one to its kernel's entry in
-:data:`LAUNCHES`. The kernels tile 64 x 64; the plain forward's kv block
-(``block_k``, B4's 128 by default) changes the rounding only, not the
-function.
+:data:`LAUNCHES`. The kernels hold 64 rows a block and stream the other
+side 16 rows a stage; the plain forward's kv block (``block_k``, B4's 128
+by default) changes the rounding only, not the function.
 """
 
 from __future__ import annotations
@@ -296,6 +296,13 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
+def _on_16_bytes(*tensors: torch.Tensor) -> List[torch.Tensor]:
+    """The tensors made contiguous, each starting on 16 bytes (a copy where
+    it does not): F1, F3 and F4 stage rows with 16-byte ``cp.async``."""
+    ins = [t.contiguous() for t in tensors]
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
+
+
 def _kernel_args(q, k, v, causal: bool, window: Optional[int]):
     """Check what the CUDA kernels take and return their dimension
     arguments; raise on anything else."""
@@ -328,7 +335,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     if not _route(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     args = _kernel_args(q, k, v, causal, window)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _on_16_bytes(q, k, v)
     o = torch.empty_like(q)
     b, sq, hq = q.shape[0], q.shape[1], q.shape[2]
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -369,9 +376,7 @@ def _bwd_inputs(q, k, v, do, lse, delta, causal, window):
         if t.shape != (b, hq, sq) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be f32 {(b, hq, sq)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    # F3 and F4 copy rows with 16-byte cp.async: start each tensor on 16 bytes
-    ins = [t.contiguous() for t in (q, k, v, do, lse, delta)]
-    return args, [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
+    return args, _on_16_bytes(q, k, v, do, lse, delta)
 
 
 def bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,

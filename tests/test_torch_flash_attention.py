@@ -5,9 +5,9 @@ in interpret mode and against ``mha_reference``, the plain backward against
 the port's wrappers against the JAX ``ops`` wrappers, the dense attention
 oracle ``layers.attention_reference`` against ``mha_reference``, the dense
 LM trained through the function against the reference's loss and
-gradients, and the backward kernels' split TF32 products emulated on the
-CPU against the plain backward (and plain TF32 shown to miss the card's
-limit).
+gradients, and the kernels' split TF32 products emulated on the CPU
+against the plain forward and backward (and plain TF32 shown to miss the
+card's limits).
 
 Inputs are made with numpy from a seed and handed to both sides. On the CPU
 the wrappers take their plain versions; the CUDA kernels are held against
@@ -391,6 +391,73 @@ def test_split_tf32_backward_within_plain_and_one_term_not(d):
     one = rel(split_bwd(q, k, v, do, lse, delta, True, None, terms=1))
     assert max(split) < 1e-5, split
     assert min(one) > 1e-4, one
+
+
+def split_fwd(q, k, v, causal, window, terms, stage=16):
+    """``(O, lse)`` as F1 forms them: over kv stages of ``stage`` keys, S =
+    scale (Q K^T) through :func:`tf32_mm`, masked to -1e30; m' = max(m,
+    rowmax S), P = exp(S - m'), corr = exp(m - m'), l = l corr + rowsum P,
+    O = O corr + P V with each stage's P V through :func:`tf32_mm`, a fresh
+    sum added in f32; O / max(l, 1e-30) and lse = m + log l. ``Skv`` a
+    multiple of ``stage``."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+
+    def heads(x):  # (B, S, H, D) -> (B, Hq, S, D)
+        return x.permute(0, 2, 1, 3).repeat_interleave(hq // x.shape[2], dim=1)
+
+    qh, kh, vh = (heads(x) for x in (q, k, v))
+    m = torch.full((b, hq, sq), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qh)
+    for k0 in range(0, skv, stage):
+        kpos = torch.arange(k0, k0 + stage)
+        s = tf32_mm(qh, kh[:, :, k0:k0 + stage].transpose(-1, -2), terms) * d ** -0.5
+        s = torch.where(fa._visible(torch.arange(sq), kpos, skv, causal, window), s,
+                        fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + tf32_mm(p, vh[:, :, k0:k0 + stage], terms)
+        m = m_new
+    o = acc / torch.clamp(l[..., None], min=1e-30)
+    return o.permute(0, 2, 1, 3), m + torch.log(l)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_tf32_forward_within_plain_and_one_term_not(d):
+    """F1's three-term split puts O and lse within the card's forward limit,
+    2e-5 of their largest value (``chip_smoke.FA_FWD_TOL``), of the plain
+    forward; plain TF32 (one term) puts O beyond it, so a product of F1 left
+    unsplit fails the smoke. Causal GQA, inputs drawn as the smoke draws
+    them."""
+    rng = np.random.default_rng(10 + d)
+    b, s, hq, hkv = 1, 256, 4, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+
+    def over(got):  # each output's largest gap as a share of its largest value
+        return [float((a - w).abs().max() / w.abs().max()) for a, w in zip(got, want)]
+
+    split = over(split_fwd(q, k, v, True, None, terms=3))
+    one = over(split_fwd(q, k, v, True, None, terms=1))
+    assert max(split) < 2e-5, split
+    assert one[0] > 2e-5, one
+
+
+def test_forward_inputs_start_on_16_bytes():
+    """F1 copies rows with 16-byte ``cp.async``, as F3 and F4 do: a
+    contiguous input that starts off a 16-byte boundary is copied, with its
+    values, and one on 16 bytes is passed as it is."""
+    base = torch.randn(1 + 2 * 8 * 2 * 32)
+    q = base[1:].view(2, 8, 2, 32)
+    k = base[:-1].view(2, 8, 2, 32)
+    assert q.data_ptr() % 16 != 0 and k.data_ptr() % 16 == 0
+    ins = fa._on_16_bytes(q, k)
+    assert all(t.data_ptr() % 16 == 0 for t in ins)
+    assert torch.equal(ins[0], q) and ins[1] is k
 
 
 def test_backward_inputs_start_on_16_bytes():

@@ -193,6 +193,23 @@ def test_bf16_kernels_match_pallas(nb, block, special):
         np.testing.assert_array_equal(bits(got), ref_bits(want))
 
 
+def test_cast_pack_bf16_off_16_bytes_matches_pallas():
+    """Views that do not start on 16 bytes (one, two and three elements
+    past a 16-byte boundary), with a size not a multiple of 8, give the
+    Pallas kernel's bits through the wrapper."""
+    n = 7 * 33
+    base = torch.empty(n + 8)  # the CPU allocator starts it on 64 bytes
+    base.copy_(torch.from_numpy(make_rows(1, n + 8, seed=10).reshape(-1)))
+    assert base.data_ptr() % 16 == 0
+    for off in (1, 2, 3):
+        x = base[off:off + n].view(7, 33)
+        assert x.data_ptr() % 16 != 0 and x.numel() % 8 != 0
+        h = qr.cast_pack_bf16(x)
+        want = jax_qr.cast_pack_bf16_pallas(_jax(x.numpy()), interpret=True)
+        np.testing.assert_array_equal(h.view(torch.int16).numpy(),
+                                      np.asarray(want).view(np.int16))
+
+
 @pytest.mark.parametrize("nb,block", SHAPES)
 def test_fp8_hop_message_byte_identical(nb, block):
     x = make_rows(nb, block, seed=7)

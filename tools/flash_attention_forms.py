@@ -1,35 +1,40 @@
 #!/usr/bin/env python3
-"""What each design choice of B4's backward kernels (F3, F4) buys, on one CUDA card.
+"""What each design choice of B4's tensor-core kernels (F1, F3, F4) buys, on one CUDA card.
 
 Run from the root of a checkout: ``python3 tools/flash_attention_forms.py``.
 It needs one card and ``nvcc``. It writes forms of
 ``src/repro_torch/kernels/csrc/flash_attention.cu`` that each undo one
 choice, by exact substitutions in the source (each must match), builds them
-side by side into ``build/kernels/forms/``, and times F3 and F4 of every
-form at ``chip_smoke.FA_TIMED`` (in turns, the source's own form first and
-last) and measures their gradients' relative norms against the plain
-versions there and at h2o-danube-1.8b's shape (S = 5120, window 4096, the
-longest sums of ``chip_smoke.FA_SHAPES``). The forms:
+side by side into ``build/kernels/forms/``, and times F1, F3 and F4 of
+every form at ``chip_smoke.FA_TIMED`` on the device alone
+(``chip_smoke.device_ms``; in turns, the source's own form first and
+last) and measures
+F1's O and lse (largest gap over the largest plain value) and F3's and
+F4's gradients (relative norms) against the plain versions there and at
+h2o-danube-1.8b's shape (S = 5120, window 4096, the longest sums of
+``chip_smoke.FA_SHAPES``). The forms:
 
 - ``source``: the kernels as they are;
 - ``cvt_rna``: the TF32 rounding by ``cvt.rna.tf32.f32`` instead of its two
   integer operations (the same bits);
-- ``one_accumulator``: every product into the running sum, no fresh
-  accumulator per stage or block of columns;
+- ``one_accumulator``: every product into the running sum (F1: P V into
+  O), no fresh accumulator per stage or block of columns;
 - ``unrolled``, ``rolled``: F3's score products with their blocks of 32
   columns unrolled in full, or not at all (the source unrolls two);
 - ``unpaired``: one kv tile a block of 4 warps in F3, not two;
 - ``one_term``: plain TF32, hi.hi alone (the products' error without the
   split).
 
+The F3-only forms leave F1 and F4 as they are. F1 on f32 FMAs, the kernel
+before the tensor cores, is no substitution of this source: it is timed
+from its own commit's tree (``tools/kernel_times.py``).
+
 The last line of the output is the result as JSON.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -41,6 +46,7 @@ import torch  # noqa: E402
 import chip_smoke as C  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from source_forms import build_forms  # noqa: E402
 
 SOURCE = build.CSRC / "flash_attention.cu"
 OUT = build.BUILD_DIR / "forms"
@@ -71,38 +77,6 @@ FORMS = {
 LONG = ("h2o-danube-1.8b", (1, 5120, 32, 8, 80), True, 4096, torch.float32)
 
 
-def write_forms() -> dict:
-    text = SOURCE.read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    paths = {}
-    for name, subs in FORMS.items():
-        form = text
-        for old, new in subs:
-            if form.count(old) != 1:
-                raise AssertionError(f"{name}: {old!r} is not in the source once")
-            form = form.replace(old, new)
-        paths[name] = OUT / f"{name}.cu"
-        paths[name].write_text(form)
-    return paths
-
-
-def compile_forms(paths: dict) -> dict:
-    nvcc = build.find_nvcc()
-    procs = {n: subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-o", str(p.with_suffix(".so")),
-                                  str(p)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                 text=True) for n, p in paths.items()}
-    libs = {}
-    for n, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on form {n}:\n{out}")
-        lib = ctypes.CDLL(str(paths[n].with_suffix(".so")))
-        for fn, argtypes in fa._SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes + [ctypes.c_void_p]
-        libs[n] = lib
-    return libs
-
-
 class Inputs:
     """One shape's inputs, plain gradients and output buffers on the card."""
 
@@ -116,11 +90,20 @@ class Inputs:
         opts = dict(causal=causal, window=window)
         o, lse = fa.flash_attention_plain(self.q, self.k, self.v, **opts)
         delta = fa.bwd_preprocess_plain(o, self.do)
-        ins = (self.q, self.k, self.v, self.do, lse, delta)
-        self.want = (fa.bwd_dq_plain(*ins, **opts), *fa.bwd_dkdv_plain(*ins, **opts))
-        self.ptrs = [t.data_ptr() for t in ins]
+        # held here: the kernels read them by pointer after __init__ returns
+        self.ins = (self.q, self.k, self.v, self.do, lse, delta)
+        self.want = (fa.bwd_dq_plain(*self.ins, **opts), *fa.bwd_dkdv_plain(*self.ins, **opts))
+        self.want_fwd = (o, lse)
+        self.ptrs = [t.data_ptr() for t in self.ins]
         self.args = fa._kernel_args(self.q, self.k, self.v, causal, window)
-        self.dq, self.dk, self.dv = (torch.empty_like(t) for t in (self.q, self.k, self.v))
+        self.dq, self.dk, self.dv, self.o = (torch.empty_like(t)
+                                             for t in (self.q, self.k, self.v, self.q))
+        self.lse = torch.empty_like(lse)
+
+    def f1(self, lib):
+        err = lib.flash_attention_fwd(*self.ptrs[:3], self.o.data_ptr(), self.lse.data_ptr(),
+                                      *self.args, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
 
     def f3(self, lib):
         err = lib.flash_attention_bwd_dkdv(*self.ptrs, self.dk.data_ptr(), self.dv.data_ptr(),
@@ -137,24 +120,30 @@ class Inputs:
         self.f4(lib)
         return [C.rel_norm(a, w) for a, w in zip((self.dq, self.dk, self.dv), self.want)]
 
+    def fwd_errors(self, lib) -> list:
+        self.f1(lib)
+        return [C.rel_max(a, w) for a, w in zip((self.o, self.lse), self.want_fwd)]
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_attention_forms: no CUDA card", file=sys.stderr)
         return 1
     card = C.card_line()
-    libs = compile_forms(write_forms())
+    libs = build_forms(SOURCE, OUT, FORMS, fa._SIGNATURES)
     timed = next(row for row in C.FA_SHAPES if row[0] == C.FA_TIMED)
-    res = {n: {"f3_ms": [], "f4_ms": []} for n in libs}
+    res = {n: {"f1_ms": [], "f3_ms": [], "f4_ms": []} for n in libs}
     for label, dims, causal, window, dtype in (timed, LONG):
         shape = Inputs(dims, causal, window, dtype)
         for n, lib in libs.items():
             res[n][f"errors {label} (dq, dk, dv)"] = shape.errors(lib)
+            res[n][f"errors {label} (o, lse)"] = shape.fwd_errors(lib)
         if label == C.FA_TIMED:
             order = list(libs) + ["source"]
             for n in order:
-                res[n]["f3_ms"].append(C.cuda_ms(lambda: shape.f3(libs[n])))
-                res[n]["f4_ms"].append(C.cuda_ms(lambda: shape.f4(libs[n])))
+                res[n]["f1_ms"].append(C.device_ms(lambda: shape.f1(libs[n])))
+                res[n]["f3_ms"].append(C.device_ms(lambda: shape.f3(libs[n])))
+                res[n]["f4_ms"].append(C.device_ms(lambda: shape.f4(libs[n])))
         del shape
         C.free_cuda()
     for n, r in res.items():

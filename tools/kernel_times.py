@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Kernel and step times of one checkout of the port by chip_smoke.py's phases 3 and 4, to compare commits.
+
+Run from the root of a checkout: ``python3 tools/kernel_times.py [ROOT]``.
+It needs one card and ``nvcc``. ``ROOT`` (by default this checkout) is the
+checkout whose ``src/repro_torch`` is timed: its kernels are built from its
+own sources into its own ``build/kernels/``, and its wrappers are called.
+Everything else is this checkout's ``chip_smoke``: its phase 3
+(``check_kernels``, ``check_flash_attention``, ``check_wkv6``,
+``check_ssd``) holds every kernel against its plain version and times it
+(``ms``, ``device_ms``, ``host_us``, the library call's, the bound); then
+its phase-4 slot of full-width qwen3-0.6b in ``STEP_MODE``
+(``run_main_path``: warm steps at w=4 and w=2) and B4's share of one rank's
+forward and backward (``kernel_share``). To compare two commits, unpack the
+other one into a directory that ``.gitignore`` lists and run, in one call
+and in turns, ``tools/kernel_times.py DIR``, ``tools/kernel_times.py``,
+``tools/kernel_times.py``, ``tools/kernel_times.py DIR``.
+
+The last line of the output is the result as JSON: each kernel's times
+and the step's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+# the mode whose step B4's share is read in (PERF.md section 5)
+STEP_MODE = "compressed-fused"
+
+
+def load(root: Path):
+    """This checkout's ``chip_smoke`` over ``root``'s package: imported
+    first, ``root``'s ``repro_torch`` is the one ``chip_smoke``'s imports
+    find."""
+    sys.path.insert(0, str(root / "src"))
+    import repro_torch
+    sys.path.insert(1, str(HERE))
+    import chip_smoke
+    if not Path(repro_torch.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"{repro_torch.__file__} is not under {root}")
+    return chip_smoke
+
+
+def times(row: dict) -> dict:
+    """A phase-3 row's times and bound."""
+    return {k: v for k, v in row.items()
+            if (k == "ms" or k.endswith(("_ms", "_us"))) and isinstance(v, (int, float))}
+
+
+def main() -> int:
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("root", nargs="?", default=str(HERE), help="the checkout to time")
+    opts = args.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA card", file=sys.stderr)
+        return 1
+    root = Path(opts.root).resolve()
+    C = load(root)
+    card = C.card_line()
+    C.build.build_all()
+    model = C.build_model(C.get_arch(C.ARCH))
+    rows = C.check_kernels(model)
+    rows.update(C.check_flash_attention())
+    rows.update(C.check_wkv6())
+    rows.update(C.check_ssd())
+    data = C.SyntheticTokens(model.cfg.vocab, C.SEQ, C.GLOBAL_BATCH, seed=0)
+    run = C.run_main_path(model, data, STEP_MODE)
+    out = {"card": card, "root": str(root),
+           "rows": {name: times(row) for name, row in rows.items()},
+           "step": {"mode": STEP_MODE, "warm_step_s": run["res"]["timings"],
+                    "b4_share": C.kernel_share(model, run["trainer"], data, C.fa, "B4")}}
+    for name, row in out["rows"].items():
+        print(f"{name}: {json.dumps(row)}", flush=True)
+    print(card, flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
