@@ -35,7 +35,8 @@ non-zero and prints no result. Phases, each raising on failure:
      per-rank shapes at w=4 and w=2, the reduced model's, a ragged length,
      a weak decay (A = -0.01 exp(N) a head, so the carried state weighs)
      and bf16, each run twice for identical bits, and time them beside
-     their bound and their plain versions. Every kernel and library call
+     their bounds (f32 FMAs and the split TF32 form on the tensor cores)
+     and their plain versions. Every kernel and library call
      timed is also timed on the device alone (``device_ms``: the summed
      durations of the CUDA kernels one call launches, from
      ``torch.profiler``, its inputs evicted from the L2 first) and every
@@ -978,18 +979,19 @@ def ssd_ops(name: str, dims, lc: int) -> int:
     return b * (whole * chunk(lc) + (chunk(rest) if rest else 0))
 
 
-def ssd_bound(name: str, dims, dtype):
+def ssd_bound(name: str, dims, dtype, tensor_cores: bool = False):
     """Least time for an SSD kernel's work: the function's inputs read once
     and outputs written once over the memory rate (S1: x, dt, A, B, C in, y
     out; S2: those and dy in, dx, d(dt), dA, dB, dC out; the chunk states
     are the kernels' own and are not counted), against the function's f32
     operations (``ssd_ops``) at the chunk that needs fewest over the f32
-    rate; and, apart, B9's own algorithm's at its chunk of 128, every L x L
-    product counted in full and per head, per token and head S1 2L(N + P)
-    + 4NP (C B^T, M xf, the readout C S, the state update), S2 2L(3N + 2P)
-    + 10NP (C B^T, dy xf^T, M^T dy, G B, G^T C; B dS, C S, dy S^T, dS
-    xf^T, the dS update): a yardstick that stays when a kernel changes its
-    chunk. Returns ``(bound ms, "bytes" or "operations", the fewest
+    rate, or with ``tensor_cores`` three times them (the split TF32 form's
+    three products) over the TF32 tensor-core rate; and, apart, B9's own
+    algorithm's at its chunk of 128, every L x L product counted in full
+    and per head, per token and head S1 2L(N + P) + 4NP (C B^T, M xf, the
+    readout C S, the state update), S2 2L(3N + 2P) + 10NP (C B^T, dy
+    xf^T, M^T dy, G B, G^T C; B dS, C S, dy S^T, dS xf^T, the dS update):
+    a yardstick that stays when a kernel changes its chunk. Returns ``(bound ms, "bytes" or "operations", the fewest
     operations' chunk, the yardstick in ms)``."""
     b, s, h, p, n = dims
     elt = torch.empty((), dtype=dtype).element_size()
@@ -1004,7 +1006,8 @@ def ssd_bound(name: str, dims, dtype):
         yard = b * s * h * (2 * lc * (3 * n + 2 * p) + 10 * n * p)
     best = min(range(1, s + 1), key=lambda c: ssd_ops(name, dims, c))
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = ssd_ops(name, dims, best) / F32_OPS_PER_S
+    ops = ssd_ops(name, dims, best)
+    t_ops = 3 * ops / TF32_OPS_PER_S if tensor_cores else ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             best, max(t_bytes, yard / F32_OPS_PER_S) * 1e3)
 
@@ -1091,15 +1094,18 @@ def check_ssd() -> dict:
                      lambda: SSD.ssd_scan_bwd_plain(*ins, states, dy))):
                 ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, samples=5, calls=3)
                 bound_ms, bound_by, best, yard_ms = ssd_bound(name, dims, dtype)
+                tc_ms, tc_by = ssd_bound(name, dims, dtype, tensor_cores=True)[:2]
                 rows[name].update(shape=list(dims), ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
+                                  bound_tc_ms=tc_ms, bound_tc_by=tc_by,
                                   library_ms=None, bound_chunk=best,
                                   b9_chunk128_ms=yard_ms,
                                   states_bytes=states.numel() * 4,
                                   **timings(kernel, None))
                 log(f"{name} {dims}: {ms:.5g} ms, plain {plain_ms:.5g} ms, "
                     f"library none (no PyTorch call computes the SSD scan), "
-                    f"bound {bound_ms:.5g} ms ({bound_by}, at chunk {best}); "
+                    f"bound {bound_ms:.5g} ms ({bound_by}, at chunk {best}), on "
+                    f"the tensor cores {tc_ms:.5g} ms ({tc_by}); "
                     f"B9's algorithm at chunk {B9_CHUNK} {yard_ms:.5g} ms; chunk "
                     f"states {states.numel() * 4} bytes; device alone "
                     f"{rows[name]['device_ms']:.5g} ms, host "

@@ -15,24 +15,37 @@ and the state update ``S exp(g_L) + (B ⊙ exp(g_L - g))^T xf``. Every decay
 is an exponent that is at most 0: ``exp(g_t - g_j)`` is never factorized
 into ``exp(g_t) exp(-g_j)``, which overflows once g falls below -88 (at
 init, A = -e and dt near 0.7, g falls about 2 a step). Everything is f32
-inside; y comes out in x's dtype.
+inside (the CUDA kernels take g and its differences in f64); y comes out in
+x's dtype.
 
 :func:`ssd_scan` is a ``torch.autograd.Function`` over two hand-written
-CUDA kernels in ``csrc/ssd_scan.cu``:
+CUDA entry points in ``csrc/ssd_scan.cu``, each a chunk-parallel scan whose
+products run on the tensor cores in split TF32 (three TF32 products an f32
+product, as B4's kernels):
 
   * ``ssd_fwd`` (S1) — y, and the state at the start of every chunk,
     ``(B, H, chunks, N, P)`` f32, which the backward reads instead of
-    walking the chunks forward again;
-  * ``ssd_bwd`` (S2) — dx, d(dt), per-``(b, h)`` partials of dB and dC
-    ``(B, H, S, N)`` and of dA ``(B, H)``, walking the chunks in reverse
-    with ``dS`` (``N x P``) carried in shared memory. The wrapper sums the
-    partials over the heads (dB, dC) and the batch (dA) in a fixed order:
-    no atomics, the same bits every run.
+    walking the chunks forward again. Three kernels: every chunk's summary
+    ``(B ⊙ exp(g_L - g))^T xf`` and ``C B^T`` once per batch row and chunk
+    (B and C are shared by the heads); the short pass that carries the
+    states across the chunks; every chunk's outputs;
+  * ``ssd_bwd`` (S2) — dx, d(dt), dA, dB and dC. Four kernels: every
+    chunk's ``(C ⊙ exp(g))^T dy``; the pass that carries ``dS`` back across
+    the chunks; every chunk's local terms from its state and ``dS``, dB and
+    dC summed over a block's heads in order; and the sums over head groups,
+    batch rows and chunks, each in a fixed order: no atomics, the same bits
+    every run.
+
+The wrappers allocate the scratch (``C B^T`` of every chunk, ``exp(g_L)``
+of every chunk and head, S2's ``dS`` and partial sums) with ``torch.empty``.
+At the main shape the function's fewest operations bound it on f32 FMAs,
+and its bytes once its products run on the tensor cores
+(``chip_smoke.ssd_bound``).
 
 The kernels take chunks of :data:`SSD_CHUNK` = 64 steps, not B9's 128 or
-the model's 256: an ``L x L`` f32 tile at 256 would not fit an SM's shared
-memory. The chunked algorithm is exact for any chunk; only the rounding
-moves.
+the model's 256: S2's tiles at 64 (with two buffers of a head's) take 214
+KB of an SM's 227 KB of shared memory. The chunked algorithm is exact for
+any chunk; only the rounding moves.
 
 Each kernel has a plain PyTorch version beside it (``*_plain``), the same
 formulas in torch ops: the backward written out, not autograd of the
@@ -57,6 +70,8 @@ SSD_CHUNK = 64
 # what the CUDA kernels take, (state size N, head dim P): the reduced and
 # the full zamba2-1.2b
 STATE_HEAD_DIMS = ((16, 32), (64, 64))
+# most heads a block of S2's chunk-local stage takes (a divisor of H)
+SSD_BWD_HEADS = 16
 
 
 def _work_dtype(x: torch.Tensor) -> torch.dtype:
@@ -209,11 +224,10 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, *, chunk: int = SSD_CHUNK
 # ---------------------------------------------------------------------------
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# batch, seq, heads, head_dim, state, chunk; bf16
-_DIMS = [_INT] * 7
+# batch, seq, heads, head_dim, state, chunk; S2: heads a block; bf16
 _SIGNATURES = {
-    "ssd_fwd": [_PTR] * 7 + _DIMS,
-    "ssd_bwd": [_PTR] * 12 + _DIMS,
+    "ssd_fwd": [_PTR] * 9 + [_INT] * 7,
+    "ssd_bwd": [_PTR] * 18 + [_INT] * 8,
 }
 
 # launches of each CUDA kernel since the last reset_launches()
@@ -274,8 +288,9 @@ def _kernel_inputs(x, dt, A, Bm, Cm):
     input dtype (bf16 only when all three are bf16, else f32: widening is
     exact), dt and A as f32, all contiguous (x reaches the SSD as a view of
     a split of the conv output: this is where it is copied into the
-    kernels' layout), and the dimension arguments. Raise on anything
-    else."""
+    kernels' layout), x, Bm and Cm on 16 bytes (the kernels read their rows
+    16 or 8 bytes at a time), and the dimension arguments. Raise on
+    anything else."""
     b, s, h, p, n = _dims(x, dt, A, Bm, Cm)
     if (n, p) not in STATE_HEAD_DIMS:
         raise ValueError(f"state size {n} with head_dim {p} not supported; the "
@@ -291,10 +306,36 @@ def _kernel_inputs(x, dt, A, Bm, Cm):
             raise TypeError(f"the kernels take f32 or bf16 inputs; got {t.dtype}")
     wire = torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in ins) \
         else torch.float32
-    xk, bk, ck = (t.to(wire).contiguous() for t in ins)
+    xk, bk, ck = _on_16_bytes(*(t.to(wire) for t in ins))
     dtk, ak = (t.float().contiguous() for t in (dt, A))
     lc = min(SSD_CHUNK, s)
     return (xk, dtk, ak, bk, ck), [b, s, h, p, n, lc, int(wire == torch.bfloat16)]
+
+
+def _on_16_bytes(*tensors: torch.Tensor) -> List[torch.Tensor]:
+    """The tensors made contiguous, each starting on 16 bytes (a copy where
+    it does not)."""
+    ins = [t.contiguous() for t in tensors]
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
+
+
+def _heads_per_block(h: int) -> int:
+    """Heads a block of S2's chunk-local stage: the largest divisor of
+    ``h`` up to :data:`SSD_BWD_HEADS`."""
+    return max(k for k in range(1, SSD_BWD_HEADS + 1) if h % k == 0)
+
+
+def _f32(*shape, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def _scratch(device, *sizes: int) -> Tuple[torch.Tensor, List[int]]:
+    """One f32 buffer of ``sizes`` elements, part after part, and each
+    part's address: one allocation a call. A part starts on 16 bytes where
+    the parts before it have a multiple of 4 elements."""
+    buf = _f32(sum(sizes), device=device)
+    ptrs = [buf.data_ptr() + 4 * sum(sizes[:i]) for i in range(len(sizes))]
+    return buf, ptrs
 
 
 def ssd_scan_fwd(x, dt, A, Bm, Cm) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -304,11 +345,12 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm) -> Tuple[torch.Tensor, torch.Tensor]:
         return ssd_scan_plain(x, dt, A, Bm, Cm)
     ins, args = _kernel_inputs(x, dt, A, Bm, Cm)
     b, s, h, p, n, lc, _ = args
-    y = torch.empty(x.shape, dtype=ins[0].dtype, device=x.device)
-    states = torch.empty((b, h, -(-s // lc), n, p), dtype=torch.float32,
-                         device=x.device)
-    _launch("ssd_fwd", x.device, *(t.data_ptr() for t in ins), y.data_ptr(),
-            states.data_ptr(), *args)
+    nc, dev = -(-s // lc), x.device
+    y = torch.empty(x.shape, dtype=ins[0].dtype, device=dev)
+    states = _f32(b, h, nc, n, p, device=dev)
+    # C B^T of every chunk, exp(g_L) of every chunk and head
+    _, scratch = _scratch(dev, b * nc * SSD_CHUNK ** 2, b * h * nc)
+    _launch("ssd_fwd", dev, *(t.data_ptr() for t in ins + (y, states)), *scratch, *args)
     return y.to(x.dtype), states
 
 
@@ -324,19 +366,18 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy) -> Tuple[torch.Tensor, ...]:
                          f"{states.dtype} {tuple(states.shape)}")
     if dy.shape != x.shape:
         raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
-    dy = dy.to(ins[0].dtype).contiguous()
-    states = states.contiguous()
-    dev = x.device
-    dx = torch.empty(x.shape, dtype=torch.float32, device=dev)
-    ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
-    db_part, dc_part = (torch.empty((b, h, s, n), dtype=torch.float32, device=dev)
-                        for _ in range(2))
-    da_part = torch.empty((b, h), dtype=torch.float32, device=dev)
-    _launch("ssd_bwd", dev, *(t.data_ptr() for t in ins), states.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da_part.data_ptr(),
-            db_part.data_ptr(), dc_part.data_ptr(), *args)
-    return (dx.to(x.dtype), ddt.to(dt.dtype), da_part.sum(dim=0).to(A.dtype),
-            db_part.sum(dim=1).to(Bm.dtype), dc_part.sum(dim=1).to(Cm.dtype))
+    states, dy = _on_16_bytes(states, dy.to(ins[0].dtype))
+    nc, dev, hb = -(-s // lc), x.device, _heads_per_block(h)
+    outs = (_f32(b, s, h, p, device=dev), _f32(b, s, h, device=dev), _f32(h, device=dev),
+            _f32(b, s, n, device=dev), _f32(b, s, n, device=dev))
+    # C B^T of every chunk, dS, the groups' partials of dB and dC (each on
+    # 16 bytes), then exp(g_L) and dA's partials of every chunk and head
+    _, (cb, ds, db_part, dc_part, el, da_part) = _scratch(
+        dev, b * nc * SSD_CHUNK ** 2, b * h * nc * n * p, b * (h // hb) * s * n,
+        b * (h // hb) * s * n, b * h * nc, b * h * nc)
+    _launch("ssd_bwd", dev, *(t.data_ptr() for t in ins + (states, dy) + outs),
+            cb, el, ds, da_part, db_part, dc_part, *args[:-1], hb, args[-1])
+    return tuple(g.to(t.dtype) for g, t in zip(outs, (x, dt, A, Bm, Cm)))
 
 
 class _SsdScan(torch.autograd.Function):

@@ -23,6 +23,11 @@ reference's own limits (``tests/test_kernels.py:108``: atol 1e-4, rtol
 (measured at most 3.4e-6); the backward per input to a relative norm of
 1e-4 (measured at most 6.1e-6, dA at init decay): both sides sum in f32,
 in other orders.
+
+S1's and S2's order of work, with every product in split TF32 on the tensor
+cores, is emulated at the matrix level (``split_ssd``) and held against the
+plain versions within the smoke's limits, and at one shape against the JAX
+package; plain TF32 (one term) misses those limits.
 """
 
 import jax
@@ -37,6 +42,7 @@ from repro.models.ssm import CONV_K as JAX_CONV_K
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import ssd_scan as S
 from repro_torch.models import ssm
+from test_torch_flash_attention import tf32_mm
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -299,3 +305,152 @@ def test_kernel_arguments_of_the_main_path():
     ins, args = S._kernel_inputs(bf, torch.zeros(4, 40, 8), torch.zeros(8),
                                  bf_bc.float(), bf_bc)
     assert args[-1] == 0 and all(t.dtype == torch.float32 for t in ins)
+
+
+# ---------------------------------------------------------------------------
+# S1's and S2's order on the tensor cores in split TF32, emulated
+# ---------------------------------------------------------------------------
+
+def split_ssd(x, dt, A, Bm, Cm, dy, terms):
+    """``(y, states)`` and ``(dx, ddt, dA, dB, dC)`` in the order of S1's and
+    S2's stages, every product through :func:`tf32_mm` (``terms`` 3: the
+    split the kernels run; 1: plain TF32): C B^T once per batch row and
+    chunk; the chunk summaries ``(B ⊙ exp(g_L - g))^T xf``, the state pass,
+    ``y = (C B^T ⊙ exp(g_t - g_j)) xf + exp(g) ⊙ (C S)``; the dS summaries
+    ``(C ⊙ exp(g))^T dy``, the dS pass, then the chunk-local terms, with dg's
+    state terms as the rows' dots of C and B with dC's and dB's state terms;
+    g and the exponents of the decays in f64.
+    The kernels' sums over 16 k a fresh accumulator are not emulated."""
+    b, s, h, p, n = S._dims(x, dt, A, Bm, Cm)
+    lc = min(S.SSD_CHUNK, s)
+    xc, dtc, bc, cc, _ = S._chunk_all(x, dt, A, Bm, Cm, lc, torch.float32)
+    dyc = S._chunks(dy, lc, torch.float32)
+    # g and its differences in f64, as the kernels take them
+    g = torch.cumsum(dtc.double() * A.double()[None, :, None, None], dim=-1)
+    nc = xc.shape[2]
+
+    def mm(a, b_):
+        return tf32_mm(a, b_, terms)
+
+    def t(m):
+        return m.transpose(-1, -2)
+
+    xf = xc * dtc[..., None]
+    e = torch.exp(g).float()
+    e_last, w = e[..., -1], torch.exp(g[..., -1:] - g).float()
+    decay = S._pair_decay(g).float()
+    cb = mm(cc, t(bc))                                 # (B, 1, nc, L, L)
+    summary = mm(t(bc * w[..., None]), xf)             # (B, H, nc, N, P)
+    states = [torch.zeros(b, h, n, p)]
+    for c in range(1, nc):
+        states.append(e_last[:, :, c - 1, None, None] * states[-1] + summary[:, :, c - 1])
+    st = torch.stack(states, dim=2)
+    y = mm(cb * decay, xf) + e[..., None] * mm(cc, st)
+    read = mm(t(cc * e[..., None]), dyc)
+    d_ends = [torch.zeros(b, h, n, p)]
+    for c in range(nc - 2, -1, -1):
+        d_ends.append(e_last[:, :, c + 1, None, None] * d_ends[-1] + read[:, :, c + 1])
+    ds = torch.stack(d_ends[::-1], dim=2)
+    gg = mm(dyc, t(xf)) * decay
+    dxf = mm(t(cb * decay), dyc) + w[..., None] * mm(bc, ds)
+    dc_state = e[..., None] * mm(dyc, t(st))
+    db_state = w[..., None] * mm(xf, t(ds))
+    dc = mm(gg, bc) + dc_state
+    db = mm(t(gg), cc) + db_state
+    strict = torch.tril(torch.ones(lc, lc, dtype=torch.bool), diagonal=-1)
+    q = torch.where(strict, gg * cb, 0.0)
+    r = (bc * db_state).sum(dim=-1)
+    dg = q.sum(dim=-1) - q.sum(dim=-2) - r + (cc * dc_state).sum(dim=-1)
+    dg[..., -1] += e_last * (st * ds).sum(dim=(-1, -2)) + r.sum(dim=-1)
+    da = torch.flip(torch.cumsum(torch.flip(dg, [-1]), dim=-1), [-1])
+    ddt = da * A[None, :, None, None] + (dxf * xc).sum(dim=-1)
+    grads = (S._unchunk(dxf * dtc[..., None], s, torch.float32),
+             S._unchunk(ddt[..., None], s, torch.float32)[..., 0],
+             (da * dtc).sum(dim=(0, 2, 3)),
+             S._unchunk(db.sum(dim=1, keepdim=True), s, torch.float32)[:, :, 0],
+             S._unchunk(dc.sum(dim=1, keepdim=True), s, torch.float32)[:, :, 0])
+    return (S._unchunk(y, s, torch.float32), st), grads
+
+
+def split_errors(arrs, dy, terms):
+    """The emulation's errors against the plain versions, as the smoke
+    measures the kernels': y and the states as their largest gap over their
+    largest value (the largest value itself where the plain one is all 0:
+    one chunk's states), each gradient as its relative norm."""
+    ins = torch_of(arrs)
+    want_fwd = S.ssd_scan_plain(*ins)
+    want_bwd = S.ssd_scan_bwd_plain(*ins, want_fwd[1], dy)
+    got_fwd, got_bwd = split_ssd(*ins, dy, terms)
+    fwd = [float((a - w_).abs().max() / w_.abs().max()) if bool(w_.abs().max() > 0)
+           else float(a.abs().max()) for a, w_ in zip(got_fwd, want_fwd)]
+    bwd = [rel_norm(a.numpy(), w_.numpy()) for a, w_ in zip(got_bwd, want_bwd)]
+    return fwd, bwd
+
+
+# the reduced model's S = 40 (one chunk of 40); ragged lengths over several
+# chunks; both (N, P) pairs; the init decay, where the carried state weighs
+# nothing, and the weak one, where it weighs in every output
+@pytest.mark.parametrize("b,s,h,p,n,decay", [
+    pytest.param(2, 40, 4, 32, 16, "init", id="reduced-40-init"),
+    pytest.param(2, 40, 4, 32, 16, "weak", id="reduced-40-weak"),
+    pytest.param(1, 200, 3, 32, 16, "weak", id="16-32-200-weak"),
+    pytest.param(1, 150, 2, 64, 64, "weak", id="64-64-150-weak"),
+    pytest.param(1, 100, 2, 64, 64, "init", id="64-64-100-init")])
+def test_split_tf32_order_within_plain(b, s, h, p, n, decay):
+    """S1's and S2's order with every product in split TF32 stays within
+    the smoke's limits of the plain versions: y and the states within
+    ``FA_FWD_TOL`` (2e-5) of their largest value, every gradient within
+    1e-4 relative norm."""
+    arrs = ssd_inputs(s + p + n, b=b, s=s, h=h, p=p, n=n, decay=decay)
+    dy = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (b, s, h, p)).astype(np.float32))
+    fwd, bwd = split_errors(arrs, dy, terms=3)
+    assert max(fwd) < 2e-5 and max(bwd) < 1e-4, (fwd, bwd)
+
+
+def test_split_tf32_one_term_misses_the_limits():
+    """Plain TF32 (hi.hi alone) puts the SSD's y beyond the smoke's forward
+    limit and its gradients beyond 1e-4, at the weak decay over three
+    chunks: a product left unsplit fails the smoke. The split stays far
+    inside both. Emulated at S = 40 to 1024 and both (N, P) pairs, one
+    term puts y at 4.2e-4 to 4.9e-4 of its largest value and the gradients
+    at 3.3e-4 to 7.8e-4 relative norm; three terms at 3.8e-7 to 3.9e-6 and
+    2.1e-7 to 1.5e-5 (the larger ones at init decay, from the plain
+    version's f32 g, which the emulation takes in f64 as the kernels do)."""
+    arrs = ssd_inputs(11, b=1, s=150, h=2, p=64, n=64, decay="weak")
+    dy = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 150, 2, 64)).astype(np.float32))
+    fwd, bwd = split_errors(arrs, dy, terms=1)
+    split_fwd, split_bwd = split_errors(arrs, dy, terms=3)
+    assert fwd[0] > 2e-5 and min(bwd) > 1e-4, (fwd, bwd)
+    assert max(split_fwd) < 2e-5 / 10 and max(split_bwd) < 1e-4 / 10, (split_fwd, split_bwd)
+
+
+def test_split_tf32_order_against_pallas_and_jax():
+    """At one small shape (two chunks, the last ragged) the emulated order
+    against the JAX package: y against ``ssd_scan_pallas`` in interpret mode
+    at the kernels' chunk and against ``ssd_reference``, every gradient
+    against ``jax.vjp`` of ``ssd_reference``."""
+    arrs = ssd_inputs(12, b=2, s=100, h=2, p=32, n=16, decay="weak")
+    dy = np.random.default_rng(12).standard_normal((2, 100, 2, 32)).astype(np.float32)
+    (y, _), grads = split_ssd(*torch_of(arrs), torch.from_numpy(dy), terms=3)
+    pallas = ssd_scan_pallas(*jax_of(arrs), chunk=S.SSD_CHUNK, interpret=True)
+    ref, _ = ssd_reference(*jax_of(arrs))
+    for want in (pallas, ref):
+        assert_close_to_max(y.numpy(), want, 2e-5)
+    _, vjp = jax.vjp(lambda *a: ssd_reference(*a)[0], *jax_of(arrs))
+    for name, got, want in zip(("dx", "ddt", "dA", "dB", "dC"), grads, vjp(jnp.asarray(dy))):
+        assert rel_norm(got.numpy(), want) <= 1e-4, name
+
+
+def test_kernel_inputs_start_on_16_bytes():
+    """The kernels read x, B and C rows 16 (f32) or 8 (bf16) bytes at a
+    time: a contiguous input that starts off a 16-byte boundary is copied,
+    with its values, and one on 16 bytes is passed as it is."""
+    base = torch.randn(1 + 1 * 8 * 2 * 32)
+    x = base[1:].view(1, 8, 2, 32)
+    bc = torch.randn(1, 8, 16)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    ins, _ = S._kernel_inputs(x, torch.zeros(1, 8, 2), torch.zeros(2), bc, bc)
+    assert all(t.data_ptr() % 16 == 0 for t in ins)
+    assert torch.equal(ins[0], x) and ins[3] is bc
