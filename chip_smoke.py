@@ -28,11 +28,13 @@ non-zero and prints no result. Phases, each raising on failure:
      the CUDA kernels it launches); hold B8's two kernels (RWKV6's WKV:
      forward W1, backward W2) against their plain versions at the RWKV6
      path's per-rank shapes at w=4 and w=2, the loop's reduced shape, a
-     ragged length, every step at the decay clamp and bf16, each run twice
-     for identical bits, and time them beside their bound and their plain
-     versions; hold B9's two kernels (Mamba2's SSD scan: forward S1,
-     backward S2) against their plain versions at the Zamba2 path's
-     per-rank shapes at w=4 and w=2, the reduced model's, a ragged length,
+     ragged length, every step at the decay clamp, a weak decay and bf16,
+     each run twice for identical bits, and time them beside their bounds
+     (f32 FMAs and the split TF32 form on the tensor cores) and their plain
+     versions, with the largest operand each factorization forms; hold
+     B9's two kernels (Mamba2's SSD scan: forward S1, backward S2) against
+     their plain versions at the Zamba2 path's per-rank shapes at w=4 and
+     w=2, the reduced model's, a ragged length,
      a weak decay (A = -0.01 exp(N) a head, so the carried state weighs)
      and bf16, each run twice for identical bits, and time them beside
      their bounds (f32 FMAs and the split TF32 form on the tensor cores)
@@ -819,14 +821,16 @@ def check_flash_attention() -> dict:
     return rows
 
 
-def wkv_bound(name: str, dims, dtype):
+def wkv_bound(name: str, dims, dtype, tensor_cores: bool = False):
     """Least time for a WKV kernel's work: its inputs read once and outputs
     written once (W1 writes y and the chunk states, W2 reads the states and
-    writes four f32 gradients and the du partials) over the memory rate,
-    against its f32 operations over the f32 rate: per chunk the L x L and
-    L x P products counted in full, two operations a multiply-add (W1: A,
-    A v, r_dec S and the state update; W2: A and dA again, the intra-chunk
-    dr, dk and dv, and dr's, dk's and dv's state terms and the dS update)."""
+    writes four f32 gradients and du) over the memory rate, against its f32
+    operations over the f32 rate, or with ``tensor_cores`` three times them
+    (the split TF32 form's three products) over the TF32 tensor-core rate:
+    per chunk the L x L and L x P products counted in full, two operations
+    a multiply-add (W1: A, A v, r_dec S and the state update; W2: A and dA
+    again, the intra-chunk dr, dk and dv, and dr's, dk's and dv's state
+    terms and the dS update)."""
     b, s, h, p = dims
     lc = min(W.WKV_CHUNK, s)
     chunks = b * h * -(-s // lc)
@@ -836,9 +840,10 @@ def wkv_bound(name: str, dims, dtype):
         n_bytes = 5 * n * elt + u + states
         ops = chunks * (4 * lc * lc * p + 4 * lc * p * p)
     else:
-        n_bytes = 5 * n * elt + u + states + 4 * n * 4 + 4 * b * h * p
+        n_bytes = 5 * n * elt + u + states + 4 * n * 4 + u
         ops = chunks * (10 * lc * lc * p + 8 * lc * p * p)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 3 * ops / TF32_OPS_PER_S if tensor_cores else ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -867,6 +872,21 @@ def boost_peak(k: torch.Tensor, logw: torch.Tensor) -> float:
     lc = min(W.WKV_CHUNK, k.shape[1])
     cum = torch.cumsum(W._chunks(logw, lc, torch.float32), dim=3)
     return float((W._chunks(k, lc, torch.float32) * torch.exp(-cum)).abs().max())
+
+
+def rebased_peak(r: torch.Tensor, k: torch.Tensor, logw: torch.Tensor) -> float:
+    """The largest |r exp(cumprev - m)| or |k exp(m - cum)| on these
+    inputs, m the cum of the chunk's middle row, as ``csrc/wkv6.cu``
+    chooses it: the span the middle-row rebase gives, computed here, not
+    read from the kernels."""
+    lc = min(W.WKV_CHUNK, k.shape[1])
+    lw = W._chunks(logw, lc, torch.float32)
+    cum = torch.cumsum(lw, dim=3)
+    mid = (lc + 1) // 2 - 1
+    m = cum[..., mid:mid + 1, :]
+    rp = W._chunks(r, lc, torch.float32) * torch.exp(cum - lw - m)
+    kp = W._chunks(k, lc, torch.float32) * torch.exp(m - cum)
+    return max(float(rp.abs().max()), float(kp.abs().max()))
 
 
 def chunk_decay_range(logw: torch.Tensor) -> tuple:
@@ -925,11 +945,14 @@ def check_wkv6() -> dict:
         bwd = check(WKV_BWD, label, lambda: W.wkv6_bwd(*ins, u, states, dy),
                     grads, rel_norm, bwd_over)
         label_peak = boost_peak(ins[1], ins[3])
+        label_rebased = rebased_peak(ins[0], ins[1], ins[3])
         peak = max(peak, label_peak)
         lo, hi = chunk_decay_range(ins[3])
         log(f"B8 {label} {dims} {dtype}: y, states errors {fwd}; dr dk dv "
-            f"dlogw du errors {bwd}; largest |k exp(-cum)| {label_peak:.4g}; "
-            f"exp(cum_L) in [{lo:.4g}, {hi:.4g}]; bits identical run to run")
+            f"dlogw du errors {bwd}; largest |k exp(-cum)| {label_peak:.4g}, "
+            f"with m the middle row's cum the largest |r exp(cumprev - m)|, "
+            f"|k exp(m - cum)| {label_rebased:.4g}; exp(cum_L) in "
+            f"[{lo:.4g}, {hi:.4g}]; bits identical run to run")
         if label == WKV_TIMED:
             for name, kernel, plain in (
                     (WKV_FWD, lambda: W.wkv6_fwd(*ins, u),
@@ -938,12 +961,15 @@ def check_wkv6() -> dict:
                      lambda: W.wkv6_bwd_plain(*ins, u, states, dy))):
                 ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, samples=5, calls=3)
                 bound_ms, bound_by = wkv_bound(name, dims, dtype)
+                tc_ms, tc_by = wkv_bound(name, dims, dtype, tensor_cores=True)
                 rows[name].update(shape=list(dims), ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
+                                  bound_tc_ms=tc_ms, bound_tc_by=tc_by,
                                   library_ms=None, **timings(kernel, None))
                 log(f"{name} {dims}: {ms:.5g} ms, plain {plain_ms:.5g} ms, "
                     f"library none (no PyTorch call computes the WKV), bound "
-                    f"{bound_ms:.5g} ms ({bound_by}); device alone "
+                    f"{bound_ms:.5g} ms ({bound_by}), on the tensor cores "
+                    f"{tc_ms:.5g} ms ({tc_by}); device alone "
                     f"{rows[name]['device_ms']:.5g} ms, host "
                     f"{rows[name]['host_us']:.4g} us")
         del ins, u, dy, y, states, grads

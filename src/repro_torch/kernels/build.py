@@ -4,7 +4,10 @@ Each ``csrc/*.cu`` file is one shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` (H100) and loaded with ``ctypes``. A
 library's file name carries a hash of its source and of the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. There is
-no fallback: a missing ``nvcc`` or a failed compile raises.
+no fallback: a missing ``nvcc`` or a failed compile raises. Beside the
+build, what the wrappers of the chunked scans share: their inputs on 16
+bytes (:func:`on_16_bytes`) and their scratch in one allocation a call
+(:func:`scratch`).
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -85,6 +90,22 @@ def build(name: str) -> Path:
 def build_all() -> Dict[str, Path]:
     """Build every ``csrc/*.cu``, the compiles running side by side."""
     return _compile(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
+def on_16_bytes(*tensors: torch.Tensor) -> List[torch.Tensor]:
+    """The tensors made contiguous, each starting on 16 bytes (a copy where
+    it does not): the kernels read rows 16 or 8 bytes at a time."""
+    ins = [t.contiguous() for t in tensors]
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
+
+
+def scratch(device, *sizes: int) -> Tuple[torch.Tensor, List[int]]:
+    """One f32 buffer of ``sizes`` elements, part after part, and each
+    part's address: one allocation a call. A part starts on 16 bytes where
+    the parts before it have a multiple of 4 elements."""
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    ptrs = [buf.data_ptr() + 4 * sum(sizes[:i]) for i in range(len(sizes))]
+    return buf, ptrs
 
 
 @functools.lru_cache(maxsize=None)

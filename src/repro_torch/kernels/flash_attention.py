@@ -296,13 +296,6 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
-def _on_16_bytes(*tensors: torch.Tensor) -> List[torch.Tensor]:
-    """The tensors made contiguous, each starting on 16 bytes (a copy where
-    it does not): F1, F3 and F4 stage rows with 16-byte ``cp.async``."""
-    ins = [t.contiguous() for t in tensors]
-    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
-
-
 def _kernel_args(q, k, v, causal: bool, window: Optional[int]):
     """Check what the CUDA kernels take and return their dimension
     arguments; raise on anything else."""
@@ -335,7 +328,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     if not _route(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     args = _kernel_args(q, k, v, causal, window)
-    q, k, v = _on_16_bytes(q, k, v)
+    q, k, v = build.on_16_bytes(q, k, v)
     o = torch.empty_like(q)
     b, sq, hq = q.shape[0], q.shape[1], q.shape[2]
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -376,7 +369,7 @@ def _bwd_inputs(q, k, v, do, lse, delta, causal, window):
         if t.shape != (b, hq, sq) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be f32 {(b, hq, sq)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    return args, _on_16_bytes(q, k, v, do, lse, delta)
+    return args, build.on_16_bytes(q, k, v, do, lse, delta)
 
 
 def bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,

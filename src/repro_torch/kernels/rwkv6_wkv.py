@@ -15,21 +15,31 @@ and the state update ``S exp(cum_L) + (k exp(cum_L - cum))^T v``. Everything
 is f32 inside; y comes out in r's dtype.
 
 :func:`wkv6` is a ``torch.autograd.Function`` over two hand-written CUDA
-kernels in ``csrc/wkv6.cu``:
+entry points in ``csrc/wkv6.cu``, each a chunk-parallel scan whose products
+run on the tensor cores in split TF32 (three TF32 products an f32 product,
+as B4's and B9's kernels):
 
   * ``wkv6_fwd`` (W1) — y, and the state at the start of every chunk,
     ``(B, H, chunks, P, P)`` f32, which the backward reads instead of
-    recomputing (a recompute would be a second sequential walk over the
-    chunks; the states are 67 MB at the main shape, a fifth of W1's bytes);
-  * ``wkv6_bwd`` (W2) — dr, dk, dv, dlogw and per-``(b, h)`` partials of
-    du, walking the chunks in reverse with ``dS`` (``P x P``) carried in
-    shared memory. The partials are summed over the batch in a fixed order:
-    no atomics, the same bits every run.
+    forming them again (67 MB at the main shape). Three kernels: every
+    chunk's summary ``(k exp(cum_L - cum))^T v``; the short pass that
+    carries the states across the chunks; every chunk's outputs;
+  * ``wkv6_bwd`` (W2) — dr, dk, dv, dlogw and du. Four kernels: every
+    chunk's ``(r exp(cumprev))^T dy``; the pass that carries ``dS`` back
+    across the chunks; every chunk's local terms from its state and ``dS``,
+    with du's partial of each chunk; and du's sum over the batch and the
+    chunks in a fixed order: no atomics, the same bits every run.
 
-The backward computes each intra-chunk pair's decay ``exp(cumprev_t -
-cum_j)`` (at most 1) instead of the forward's factorization: its products
-``dA K exp(-cum)`` would sum values up to ``|k| e^80`` before the small
-factor comes in.
+The kernels refer each chunk's pair decays to its middle row ``m``:
+``A = (r exp(cumprev - m)) (k exp(m - cum))^T``, every exponent within
+``(L / 2) 2.5`` of 0, and the backward's pair sums are products of the same
+factors (``csrc/wkv6.cu``). The plain backward below computes each
+intra-chunk pair's decay ``exp(cumprev_t - cum_j)`` (at most 1) on its own
+instead: referred to the chunk's first row, as the forward's factorization
+is, its products ``dA K exp(-cum)`` would sum values up to ``|k| e^80``
+before the small factor comes in. The wrappers allocate the kernels'
+scratch (``exp(cum_L)`` of every chunk, W2's ``dS`` and du's partials) in
+one ``torch.empty`` a call.
 
 Each kernel has a plain PyTorch version beside it (``*_plain``), the same
 formulas in torch ops: the backward written out, not autograd of the
@@ -185,8 +195,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # batch, seq, heads, head_dim, chunk; bf16
 _DIMS = [_INT] * 6
 _SIGNATURES = {
-    "wkv6_fwd": [_PTR] * 7 + _DIMS,
-    "wkv6_bwd": [_PTR] * 12 + _DIMS,
+    "wkv6_fwd": [_PTR] * 8 + _DIMS,
+    "wkv6_bwd": [_PTR] * 15 + _DIMS,
 }
 
 # launches of each CUDA kernel since the last reset_launches()
@@ -245,8 +255,9 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
 def _kernel_inputs(r, k, v, logw, u):
     """Check what the CUDA kernels take; return r, k, v, logw in the
     kernels' input dtype (bf16 only when all four are bf16, else f32:
-    widening is exact), u as f32, all contiguous, and the dimension
-    arguments. Raise on anything else."""
+    widening is exact), u as f32, all contiguous, r, k, v and logw on 16
+    bytes (the kernels read their rows 16 or 8 bytes at a time), and the
+    dimension arguments. Raise on anything else."""
     b, s, h, p = _dims(r, k, v, logw, u)
     if p not in HEAD_DIMS:
         raise ValueError(f"head_dim {p} not supported; the kernels take {HEAD_DIMS}")
@@ -261,7 +272,7 @@ def _kernel_inputs(r, k, v, logw, u):
             raise TypeError(f"the kernels take f32 or bf16 inputs; got {t.dtype}")
     dt = torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in ins) \
         else torch.float32
-    ins = [t.to(dt).contiguous() for t in ins]
+    ins = build.on_16_bytes(*(t.to(dt) for t in ins))
     lc = min(WKV_CHUNK, s)
     return ins, u.float().contiguous(), [b, s, h, p, lc,
                                          int(dt == torch.bfloat16)]
@@ -274,11 +285,13 @@ def wkv6_fwd(r, k, v, logw, u) -> Tuple[torch.Tensor, torch.Tensor]:
         return wkv6_plain(r, k, v, logw, u)
     ins, uf, args = _kernel_inputs(r, k, v, logw, u)
     b, s, h, p, lc, _ = args
-    y = torch.empty(r.shape, dtype=ins[0].dtype, device=r.device)
-    states = torch.empty((b, h, -(-s // lc), p, p), dtype=torch.float32,
-                         device=r.device)
-    _launch("wkv6_fwd", r.device, *(t.data_ptr() for t in ins), uf.data_ptr(),
-            y.data_ptr(), states.data_ptr(), *args)
+    nc, dev = -(-s // lc), r.device
+    y = torch.empty(r.shape, dtype=ins[0].dtype, device=dev)
+    states = torch.empty((b, h, nc, p, p), dtype=torch.float32, device=dev)
+    # exp(cum_L) of every chunk
+    _, scratch = build.scratch(dev, b * h * nc * p)
+    _launch("wkv6_fwd", dev, *(t.data_ptr() for t in ins), uf.data_ptr(),
+            y.data_ptr(), states.data_ptr(), *scratch, *args)
     return y.to(r.dtype), states
 
 
@@ -289,21 +302,22 @@ def wkv6_bwd(r, k, v, logw, u, states, dy) -> Tuple[torch.Tensor, ...]:
         return wkv6_bwd_plain(r, k, v, logw, u, states, dy)
     ins, uf, args = _kernel_inputs(r, k, v, logw, u)
     b, s, h, p, lc, _ = args
-    if states.shape != (b, h, -(-s // lc), p, p) or states.dtype != torch.float32:
-        raise ValueError(f"states must be f32 {(b, h, -(-s // lc), p, p)}, got "
+    nc, dev = -(-s // lc), r.device
+    if states.shape != (b, h, nc, p, p) or states.dtype != torch.float32:
+        raise ValueError(f"states must be f32 {(b, h, nc, p, p)}, got "
                          f"{states.dtype} {tuple(states.shape)}")
     if dy.shape != r.shape:
         raise ValueError(f"dy must be {tuple(r.shape)}, got {tuple(dy.shape)}")
-    dy = dy.to(ins[0].dtype).contiguous()
-    states = states.contiguous()
-    grads = [torch.empty(r.shape, dtype=torch.float32, device=r.device)
-             for _ in range(4)]
-    du_part = torch.empty((b, h, p), dtype=torch.float32, device=r.device)
-    _launch("wkv6_bwd", r.device, *(t.data_ptr() for t in ins), uf.data_ptr(),
+    states, dy = build.on_16_bytes(states, dy.to(ins[0].dtype))
+    grads = [torch.empty(r.shape, dtype=torch.float32, device=dev) for _ in range(4)]
+    du = torch.empty((h, p), dtype=torch.float32, device=dev)
+    # dS of every chunk, then exp(cum_L) and du's partials of every chunk
+    _, scratch = build.scratch(dev, b * h * nc * p * p, b * h * nc * p, b * h * nc * p)
+    _launch("wkv6_bwd", dev, *(t.data_ptr() for t in ins), uf.data_ptr(),
             states.data_ptr(), dy.data_ptr(),
-            *(g.data_ptr() for g in grads), du_part.data_ptr(), *args)
+            *(g.data_ptr() for g in grads + [du]), *scratch, *args)
     dr, dk, dv, dlw = (g.to(t.dtype) for g, t in zip(grads, (r, k, v, logw)))
-    return dr, dk, dv, dlw, du_part.sum(dim=0).to(u.dtype)
+    return dr, dk, dv, dlw, du.to(u.dtype)
 
 
 class _Wkv6(torch.autograd.Function):

@@ -306,17 +306,10 @@ def _kernel_inputs(x, dt, A, Bm, Cm):
             raise TypeError(f"the kernels take f32 or bf16 inputs; got {t.dtype}")
     wire = torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in ins) \
         else torch.float32
-    xk, bk, ck = _on_16_bytes(*(t.to(wire) for t in ins))
+    xk, bk, ck = build.on_16_bytes(*(t.to(wire) for t in ins))
     dtk, ak = (t.float().contiguous() for t in (dt, A))
     lc = min(SSD_CHUNK, s)
     return (xk, dtk, ak, bk, ck), [b, s, h, p, n, lc, int(wire == torch.bfloat16)]
-
-
-def _on_16_bytes(*tensors: torch.Tensor) -> List[torch.Tensor]:
-    """The tensors made contiguous, each starting on 16 bytes (a copy where
-    it does not)."""
-    ins = [t.contiguous() for t in tensors]
-    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
 
 
 def _heads_per_block(h: int) -> int:
@@ -327,15 +320,6 @@ def _heads_per_block(h: int) -> int:
 
 def _f32(*shape, device) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=device)
-
-
-def _scratch(device, *sizes: int) -> Tuple[torch.Tensor, List[int]]:
-    """One f32 buffer of ``sizes`` elements, part after part, and each
-    part's address: one allocation a call. A part starts on 16 bytes where
-    the parts before it have a multiple of 4 elements."""
-    buf = _f32(sum(sizes), device=device)
-    ptrs = [buf.data_ptr() + 4 * sum(sizes[:i]) for i in range(len(sizes))]
-    return buf, ptrs
 
 
 def ssd_scan_fwd(x, dt, A, Bm, Cm) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -349,7 +333,7 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm) -> Tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty(x.shape, dtype=ins[0].dtype, device=dev)
     states = _f32(b, h, nc, n, p, device=dev)
     # C B^T of every chunk, exp(g_L) of every chunk and head
-    _, scratch = _scratch(dev, b * nc * SSD_CHUNK ** 2, b * h * nc)
+    _, scratch = build.scratch(dev, b * nc * SSD_CHUNK ** 2, b * h * nc)
     _launch("ssd_fwd", dev, *(t.data_ptr() for t in ins + (y, states)), *scratch, *args)
     return y.to(x.dtype), states
 
@@ -366,13 +350,13 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy) -> Tuple[torch.Tensor, ...]:
                          f"{states.dtype} {tuple(states.shape)}")
     if dy.shape != x.shape:
         raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
-    states, dy = _on_16_bytes(states, dy.to(ins[0].dtype))
+    states, dy = build.on_16_bytes(states, dy.to(ins[0].dtype))
     nc, dev, hb = -(-s // lc), x.device, _heads_per_block(h)
     outs = (_f32(b, s, h, p, device=dev), _f32(b, s, h, device=dev), _f32(h, device=dev),
             _f32(b, s, n, device=dev), _f32(b, s, n, device=dev))
     # C B^T of every chunk, dS, the groups' partials of dB and dC (each on
     # 16 bytes), then exp(g_L) and dA's partials of every chunk and head
-    _, (cb, ds, db_part, dc_part, el, da_part) = _scratch(
+    _, (cb, ds, db_part, dc_part, el, da_part) = build.scratch(
         dev, b * nc * SSD_CHUNK ** 2, b * h * nc * n * p, b * (h // hb) * s * n,
         b * (h // hb) * s * n, b * h * nc, b * h * nc)
     _launch("ssd_bwd", dev, *(t.data_ptr() for t in ins + (states, dy) + outs),

@@ -33,6 +33,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.ref import mha_reference as jax_mha_reference
 from repro.models.model import build_model as jax_build_model
 from repro_torch.configs import get_arch
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quant_ring as qr
 from repro_torch.models import layers as L
@@ -455,7 +456,7 @@ def test_forward_inputs_start_on_16_bytes():
     q = base[1:].view(2, 8, 2, 32)
     k = base[:-1].view(2, 8, 2, 32)
     assert q.data_ptr() % 16 != 0 and k.data_ptr() % 16 == 0
-    ins = fa._on_16_bytes(q, k)
+    ins = build.on_16_bytes(q, k)  # as F1 calls it
     assert all(t.data_ptr() % 16 == 0 for t in ins)
     assert torch.equal(ins[0], q) and ins[1] is k
 

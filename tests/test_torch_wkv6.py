@@ -14,6 +14,13 @@ reference's own limits (``tests/test_kernels.py:160``: atol 1e-4, rtol 1e-3;
 ``max|got - want| <= 1e-5 * max|want|`` (measured at most 2.4e-6); the
 backward per input to a relative norm of 1e-5 (measured at most 1.9e-6, on
 dlogw): both sides sum in f32, in other orders.
+
+W1's and W2's order of work, with every product in split TF32 on the tensor
+cores and each chunk's pair decays referred to its middle row, is emulated
+at the matrix level (``split_wkv6``) and held against the plain versions
+within the smoke's limits, and against the JAX package within this file's
+tolerances; plain TF32 (one term) misses the smoke's limits, and every
+rebased operand stays within ``e^((L/2) 2.5)`` of |r| and |k|.
 """
 
 import jax
@@ -31,6 +38,7 @@ from repro.models.rwkv import WKV_CHUNK as JAX_WKV_CHUNK
 from repro.models.rwkv import wkv6_chunked as jax_wkv6_chunked
 from repro_torch.kernels import rwkv6_wkv as W
 from repro_torch.models import rwkv
+from test_torch_flash_attention import tf32_mm
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -261,3 +269,191 @@ def test_kernel_arguments_of_the_main_path():
     short = torch.zeros(8, 5, 4, 32)
     assert W._kernel_inputs(short, short, short, short,
                             torch.zeros(4, 32))[2][4] == 5
+
+
+# ---------------------------------------------------------------------------
+# W1's and W2's order on the tensor cores in split TF32, emulated
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's limits: y and the states (FA_FWD_TOL) as the largest gap
+# over the largest value, each gradient (FA_BWD_TOL) as a relative norm
+SMOKE_FWD_TOL, SMOKE_BWD_TOL = 2e-5, 1e-4
+
+
+def split_wkv6(r, k, v, logw, u, dy, terms):
+    """``(y, states)``, ``(dr, dk, dv, dlogw, du)`` and the largest exponent
+    of a rebased factor, in the order of W1's and W2's stages, every
+    product through :func:`tf32_mm` (``terms`` 3: the split the kernels
+    run; 1: plain TF32). cum is the plain version's (a sequential f32 sum
+    down each column); m is the cum of the chunk's middle row, row
+    ``ceil(L/2) - 1``; r' = r exp(cumprev - m), k' = k exp(m - cum). W1:
+    the chunk summaries ``(k exp(cum_L - cum))^T v``, the state pass,
+    ``y = (r' k'^T below the diagonal) v + bonus v + r' (exp(m) S)``. W2:
+    the dS summaries ``(r exp(cumprev))^T dy``, the dS pass, then with
+    ``dS'' = exp(cum_L - m) dS``: ``dr_dec = exp(cumprev - m) (dA k' + dy
+    (exp(m) S)^T)``, ``dk = exp(m - cum) (dA^T r') + exp(m - cum) (v
+    dS''^T)`` (+ the bonus terms), ``dv = A^T dy + bonus dy + k' dS''``, and
+    dlogw from dcum. The kernels' sums over 16 k a fresh accumulator are not
+    emulated."""
+    b, s, h, p = W._dims(r, k, v, logw, u)
+    lc = min(W.WKV_CHUNK, s)
+    rc, kc, vc, lw, dyc = (W._chunks(t, lc, torch.float32) for t in (r, k, v, logw, dy))
+    nc = rc.shape[2]
+
+    def mm(a, b_):
+        return tf32_mm(a, b_, terms)
+
+    def t(x):
+        return x.transpose(-1, -2)
+
+    cum = torch.cumsum(lw, dim=3)
+    cumprev = cum - lw
+    mid = (lc + 1) // 2 - 1
+    m, cum_l = cum[..., mid:mid + 1, :], cum[..., -1:, :]     # (B, H, nc, 1, P)
+    fr, fk = torch.exp(cumprev - m), torch.exp(m - cum)
+    spread = float(torch.maximum((cumprev - m).abs().max(), (m - cum).abs().max()))
+    rp, kp = rc * fr, kc * fk
+    s_rows, ds_rows = t(torch.exp(m)), t(torch.exp(cum_l - m))  # (B, H, nc, P, 1)
+    el = torch.exp(cum_l[..., 0, :])                            # (B, H, nc, P)
+    lower = W._strictly_lower(lc, r.device)
+    uf = u.float()[None, :, None, None, :]
+    # W1
+    summary = mm(t(kc * torch.exp(cum_l - cum)), vc)            # (B, H, nc, P, P)
+    states = [torch.zeros(b, h, p, p)]
+    for c in range(1, nc):
+        states.append(el[:, :, c - 1, :, None] * states[-1] + summary[:, :, c - 1])
+    st = torch.stack(states, dim=2)
+    s_m = s_rows * st
+    a = torch.where(lower, mm(rp, t(kp)), 0.0)
+    bonus = torch.sum(rc * uf * kc, dim=-1)
+    y = (mm(a, vc) + bonus[..., None] * vc) + mm(rp, s_m)
+    # W2
+    read = mm(t(rc * torch.exp(cumprev)), dyc)
+    d_ends = [torch.zeros(b, h, p, p)]
+    for c in range(nc - 2, -1, -1):
+        d_ends.append(el[:, :, c + 1, :, None] * d_ends[-1] + read[:, :, c + 1])
+    ds = torch.stack(d_ends[::-1], dim=2)
+    ds_m = ds_rows * ds
+    d_a = torch.where(lower, mm(dyc, t(vc)), 0.0)
+    d_bonus = torch.sum(dyc * vc, dim=-1)[..., None]
+    dr_dec = fr * (mm(d_a, kp) + mm(dyc, t(s_m)))
+    dkb, dkt = fk * mm(t(d_a), rp), fk * mm(vc, t(ds_m))
+    dr = dr_dec + d_bonus * uf * kc
+    dk = (dkb + dkt) + d_bonus * uf * rc
+    dv = (mm(t(a), dyc) + bonus[..., None] * dyc) + mm(kp, ds_m)
+    d_cumprev = rc * dr_dec
+    d_cum = (d_cumprev - kc * dkb) - kc * dkt
+    d_cum[..., -1, :] += torch.sum(kc * dkt, dim=3) + el * torch.sum(st * ds, dim=-1)
+    dlw = torch.flip(torch.cumsum(torch.flip(d_cum, [3]), dim=3), [3]) - d_cumprev
+    du = torch.sum(d_bonus * rc * kc, dim=3).sum(dim=(0, 2))
+    grads = tuple(W._unchunk(g, s, torch.float32) for g in (dr, dk, dv, dlw)) + (du,)
+    return (W._unchunk(y, s, torch.float32), st), grads, spread
+
+
+def split_inputs(seed, b, s, h, p, decay):
+    """``wkv_inputs`` with the logw of ``decay``: "model" (within the
+    model's clamp), "weak", or "clamp" (every step at -2.5, the widest span
+    of the decays: k exp(-cum) reaches |k| e^80 over a chunk)."""
+    arrs = wkv_inputs(seed, b=b, s=s, h=h, p=p, weak=decay == "weak")
+    if decay == "clamp":
+        arrs[3] = np.full_like(arrs[3], -rwkv.DECAY_CLAMP)
+    return arrs
+
+
+def split_errors(arrs, dy, terms):
+    """The emulation's errors against the plain versions, as the smoke
+    measures the kernels': y and the states as their largest gap over their
+    largest value (the largest value itself where the plain one is all 0:
+    one chunk's states), each gradient as its relative norm; and the
+    largest rebased exponent."""
+    ins = torch_of(arrs)
+    want_fwd = W.wkv6_plain(*ins)
+    want_bwd = W.wkv6_bwd_plain(*ins, want_fwd[1], dy)
+    got_fwd, got_bwd, spread = split_wkv6(*ins, dy, terms)
+    fwd = [float((a - w_).abs().max() / w_.abs().max()) if bool(w_.abs().max() > 0)
+           else float(a.abs().max()) for a, w_ in zip(got_fwd, want_fwd)]
+    bwd = [rel_norm(a.numpy(), w_.numpy()) for a, w_ in zip(got_bwd, want_bwd)]
+    return fwd, bwd, spread
+
+
+# the loop's reduced model (one chunk of 32, P 32); a chunk shorter than 32;
+# ragged lengths over several chunks; every logw at the clamp; the weak
+# decay, where the carried state weighs in every output; both head dims
+@pytest.mark.parametrize("b,s,h,p,decay", [
+    pytest.param(2, 32, 4, 32, "model", id="reduced-32-model"),
+    pytest.param(2, 20, 2, 32, "model", id="short-20-model"),
+    pytest.param(1, 100, 2, 64, "model", id="64-100-model"),
+    pytest.param(1, 96, 2, 64, "clamp", id="64-96-clamp"),
+    pytest.param(1, 75, 2, 32, "clamp", id="32-75-clamp"),
+    pytest.param(1, 160, 2, 64, "weak", id="64-160-weak"),
+    pytest.param(2, 70, 3, 32, "weak", id="32-70-weak")])
+def test_split_tf32_order_within_plain(b, s, h, p, decay):
+    """W1's and W2's order with every product in split TF32, referred to
+    the chunk's middle row, stays within the smoke's limits of the plain
+    versions: y and the states within ``FA_FWD_TOL`` (2e-5) of their
+    largest value, every gradient within 1e-4 relative norm."""
+    arrs = split_inputs(s + p + 7, b, s, h, p, decay)
+    dy = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (b, s, h, p)).astype(np.float32))
+    fwd, bwd, _ = split_errors(arrs, dy, terms=3)
+    assert max(fwd) < SMOKE_FWD_TOL and max(bwd) < SMOKE_BWD_TOL, (fwd, bwd)
+
+
+@pytest.mark.parametrize("b,s,h,p,decay", [
+    pytest.param(1, 96, 2, 64, "clamp", id="64-96-clamp"),
+    pytest.param(2, 20, 2, 32, "clamp", id="short-20-clamp"),
+    pytest.param(1, 100, 2, 64, "model", id="64-100-model"),
+    pytest.param(1, 160, 2, 64, "weak", id="64-160-weak")])
+def test_split_rebased_operands_stay_within_the_clamp_span(b, s, h, p, decay):
+    """Every rebased factor, exp(cumprev - m) of r and exp(m - cum) of k, is
+    within e^((L/2) 2.5) of 1: the operands stay within e^40 of |r| and |k|
+    at chunk 32 (referred to row 0, k exp(-cum) reaches e^80), and at the
+    clamp the bound is reached to within f32's rounding of cum."""
+    arrs = split_inputs(s + p, b, s, h, p, decay)
+    dy = torch.zeros((b, s, h, p))
+    _, _, spread = split_wkv6(*torch_of(arrs), dy, terms=3)
+    lc = min(W.WKV_CHUNK, s)
+    bound = (lc // 2) * rwkv.DECAY_CLAMP
+    assert spread <= bound * (1 + 1e-6), (spread, bound)
+    if decay == "clamp":
+        assert spread >= bound * (1 - 1e-6) - rwkv.DECAY_CLAMP, (spread, bound)
+
+
+def test_split_tf32_one_term_misses_the_limits():
+    """Plain TF32 (hi.hi alone) puts y beyond the smoke's forward limit and
+    every gradient that a product forms (dr, dk, dv, dlogw; du is a sum of
+    elementwise terms) beyond 1e-4, at the weak decay over five chunks: a
+    product left unsplit fails the smoke. The split stays ten times inside
+    both."""
+    arrs = split_inputs(11, 1, 160, 2, 64, "weak")
+    dy = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 160, 2, 64)).astype(np.float32))
+    fwd, bwd, _ = split_errors(arrs, dy, terms=1)
+    split_fwd, split_bwd, _ = split_errors(arrs, dy, terms=3)
+    assert fwd[0] > SMOKE_FWD_TOL and min(bwd[:4]) > SMOKE_BWD_TOL, (fwd, bwd)
+    assert max(split_fwd) < SMOKE_FWD_TOL / 10 and max(split_bwd) < SMOKE_BWD_TOL / 10, (
+        split_fwd, split_bwd)
+
+
+@pytest.mark.parametrize("s,p,decay", [
+    pytest.param(80, 32, "model", id="80-32-model"),
+    pytest.param(100, 64, "clamp", id="100-64-clamp"),
+    pytest.param(150, 32, "weak", id="150-32-weak")])
+def test_split_tf32_order_against_pallas_and_jax(s, p, decay):
+    """The emulated order against the JAX package, with this file's
+    tolerances: y against ``wkv6_pallas`` in interpret mode and against
+    ``wkv6_reference`` (atol 1e-4, rtol 1e-3, and 1e-5 of the largest
+    value), every gradient against ``jax.vjp`` of ``wkv6_reference`` (1e-5
+    relative norm)."""
+    arrs = split_inputs(s + p + 1, 2, s, 2, p, decay)
+    dy = np.random.default_rng(s).standard_normal((2, s, 2, p)).astype(np.float32)
+    (y, _), grads, _ = split_wkv6(*torch_of(arrs), torch.from_numpy(dy), terms=3)
+    pallas = wkv6_pallas(*jax_of(arrs), interpret=True)
+    ref, _ = wkv6_reference(*jax_of(arrs))
+    for want in (pallas, ref):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=1e-4, rtol=1e-3)
+        assert_close_to_max(y.numpy(), want, 1e-5)
+    _, vjp = jax.vjp(lambda *a: wkv6_reference(*a)[0], *jax_of(arrs))
+    for name, got, want in zip(("dr", "dk", "dv", "dlogw", "du"), grads,
+                               vjp(jnp.asarray(dy))):
+        assert rel_norm(got.numpy(), want) <= 1e-5, name

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernel and step times of one checkout of the port by chip_smoke.py's phases 3 and 4, to compare commits.
 
-Run from the root of a checkout: ``python3 tools/kernel_times.py [--zamba2] [ROOT]``.
+Run from the root of a checkout: ``python3 tools/kernel_times.py [--zamba2] [--rwkv] [ROOT]``.
 It needs one card and ``nvcc``. ``ROOT`` (by default this checkout) is the
 checkout whose ``src/repro_torch`` is timed: its kernels are built from its
 own sources into its own ``build/kernels/``, and its wrappers are called.
@@ -14,7 +14,10 @@ its phase-4 slot of full-width qwen3-0.6b in ``STEP_MODE``
 forward and backward (``kernel_share``). With ``--zamba2``, then also
 the phase-7 slot of full-width zamba2-1.2b (``ring_slot``: warm steps at
 w=4 and w=2) and B9's and B4's shares of one of its ranks' forward and
-backward. To compare two commits, unpack the
+backward. With ``--rwkv``, then also the phase-6 slot of rwkv6-7b at
+full width cut to ``RWKV_LAYERS`` layers (``ring_slot``: warm steps at w=4
+and w=2) and B8's share of one of its ranks' forward and backward, with
+each B8 kernel's time in it. To compare two commits, unpack the
 other one into a directory that ``.gitignore`` lists and run, in one call
 and in turns, ``tools/kernel_times.py DIR``, ``tools/kernel_times.py``,
 ``tools/kernel_times.py``, ``tools/kernel_times.py DIR``.
@@ -26,6 +29,7 @@ and the step's.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -69,11 +73,25 @@ def zamba2_times(C) -> dict:
             "b4_share": C.kernel_share(model, trainer, data, C.fa, "B4")}
 
 
+def rwkv_times(C) -> dict:
+    """The smoke's phase-6 slot of rwkv6-7b at full width, depth cut to
+    ``RWKV_LAYERS``, in the f32 ring mode: its warm steps, and B8's share
+    of one rank's forward and backward."""
+    cfg = dataclasses.replace(C.get_arch(C.RWKV_ARCH), n_layers=C.RWKV_LAYERS)
+    model = C.build_model(cfg)
+    data = C.SyntheticTokens(cfg.vocab, C.SEQ, C.GLOBAL_BATCH, seed=0)
+    trainer, res, _, _, _, _ = C.ring_slot(model, data)
+    return {"warm_step_s": res["timings"],
+            "b8_share": C.kernel_share(model, trainer, data, C.W, "B8")}
+
+
 def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("root", nargs="?", default=str(HERE), help="the checkout to time")
     args.add_argument("--zamba2", action="store_true",
                       help="also zamba2-1.2b's slot and B9's and B4's shares of a rank")
+    args.add_argument("--rwkv", action="store_true",
+                      help="also rwkv6-7b's slot (4 layers) and B8's share of a rank")
     opts = args.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA card", file=sys.stderr)
@@ -93,10 +111,13 @@ def main() -> int:
            "rows": {name: times(row) for name, row in rows.items()},
            "step": {"mode": STEP_MODE, "warm_step_s": run["res"]["timings"],
                     "b4_share": C.kernel_share(model, run["trainer"], data, C.fa, "B4")}}
+    del run, model
+    C.free_cuda()
     if opts.zamba2:
-        del run, model
-        C.free_cuda()
         out["zamba2"] = zamba2_times(C)
+        C.free_cuda()
+    if opts.rwkv:
+        out["rwkv"] = rwkv_times(C)
     for name, row in out["rows"].items():
         print(f"{name}: {json.dumps(row)}", flush=True)
     print(card, flush=True)
