@@ -97,7 +97,25 @@ non-zero and prints no result. Phases, each raising on failure:
      against the slots the jobs ran (B8 for the rwkv job, B4 for the dense
      jobs, the int8 ring for job 1), and one ``solve_slot`` with the PDHG
      engine on the card against HiGHS;
-  9. the ``kernels`` JSON line, the card line, and last the result line.
+  9. serving (``repro_torch.launch.serve``; decode is plain PyTorch on the
+     card, as it is XLA in the reference, so no ported kernel runs in it):
+     qwen3-0.6b at full width and depth answers 16 staggered requests
+     through ``ServingEngine(max_batch=8, max_seq=1024, prefill_chunk=8)``
+     with a clean audit, each of its three steps captured once as a CUDA
+     graph and no kernel launched; two requests' logits held against the
+     training forward (F1 on the card) and against the token-by-token
+     oracle within ``SERVE_GAP_FACTOR`` times the reference's own
+     forward-vs-decode gap (``SERVE_REF_GAP``, measured by
+     ``tests/test_torch_serving.py``); prefill and decode tokens/s, the
+     decode step's device ms at full occupancy beside its byte bound, TTFT
+     and peak memory. zamba2-1.2b (full) and rwkv6-7b (4 layers) serve 4
+     requests through 2 lanes each: a request on a reused lane gives logits
+     bit-identical to a fresh engine's in the same lane, and decode against
+     the forward (S1 and F1, W1) is held for rwkv6-7b and printed for
+     zamba2-1.2b. Then GADGET with a serve job whose engine is on the card,
+     under the sanitizer: the burst takes workers from the training ring
+     and gives them back, and the event log equals the CPU run's;
+ 10. the ``kernels`` JSON line, the card line, and last the result line.
 """
 
 from __future__ import annotations
@@ -112,6 +130,8 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -136,7 +156,7 @@ from repro_torch.kernels import quant_ring as qr  # noqa: E402
 from repro_torch.kernels import rwkv6_wkv as W  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.models.module import _unflatten, n_params, tree_map  # noqa: E402
+from repro_torch.models.module import _flatten, _unflatten, n_params, tree_map  # noqa: E402
 from repro_torch.training.elastic import ElasticTrainer, SlotPlan  # noqa: E402
 from repro_torch.training.optimizer import make_optimizer  # noqa: E402
 from repro_torch.training.train_step import (  # noqa: E402
@@ -300,6 +320,35 @@ ZAMBA_ARCH = "zamba2-1.2b"
 # reference; the second loss, after an AdamW step of this chaotic model, is
 # recorded
 SMALL_FIRST_TOL, SMALL_GRAD_TOL = 1e-4, 2e-2
+
+# Serving (phase 9). The reference's own gap between its training forward
+# and its decode, max |decode - forward| over max |forward| at every
+# position, at reduced size with f32 weights and its bf16 KV cache (2
+# sequences of 64 tokens; tests/test_torch_serving.py measures it, in
+# [recorded / 2, recorded]). The card holds the port's decode to the
+# forward that runs the ported kernels, and the engine to the token-by-token
+# oracle, within SERVE_GAP_FACTOR times it; zamba2-1.2b's is printed beside
+# its gap on the card and not held (chaotic at random init).
+SERVE_REF_GAP = {"qwen3-0.6b": 2.7e-3, "rwkv6-7b": 4.1e-6, "zamba2-1.2b": 0.26}
+SERVE_GAP_FACTOR = 10.0
+# qwen3-0.6b at full width and depth: SERVE_REQUESTS requests, prompts
+# SERVE_PROMPT tokens (inclusive, from seed 0), SERVE_NEW tokens each,
+# request i arriving at engine clock SERVE_STAGGER * i, through
+# ServingEngine(max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+# prefill_chunk=SERVE_CHUNK); the SERVE_HELD shortest prompts held against
+# the forward and the oracle; the decode step timed with every lane
+# admitted a fresh SERVE_FULL_PROMPT-token prompt
+SERVE_ARCH, SERVE_BATCH, SERVE_MAX_SEQ, SERVE_CHUNK = "qwen3-0.6b", 8, 1024, 8
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_STAGGER = 16, (32, 512), 64, 4
+SERVE_HELD, SERVE_FULL_PROMPT = 2, 64
+# zamba2-1.2b at full width and depth, rwkv6-7b at full width cut to 4
+# layers: RECURRENT_REQUESTS requests through RECURRENT_BATCH lanes
+RECURRENT_SERVE = {"zamba2-1.2b": None, "rwkv6-7b": 4}
+HELD_RECURRENT = ("rwkv6-7b",)
+RECURRENT_BATCH, RECURRENT_REQUESTS = 2, 4
+RECURRENT_PROMPT, RECURRENT_NEW = (64, 256), 32
+# GADGET with a serve job: its burst from slot CO_BURST of CO_HORIZON
+CO_BURST, CO_HORIZON = 6, 16
 
 
 def log(msg: str) -> None:
@@ -1533,6 +1582,15 @@ def slot_evals(trainer) -> tuple:
     return tuple(out)
 
 
+def all_launches() -> dict:
+    return {**qr.LAUNCHES, **fa.LAUNCHES, **W.LAUNCHES, **SSD.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    for module in (qr, fa, W, SSD):
+        module.reset_launches()
+
+
 def ring_slot(model, data):
     """``PLAN`` in the f32 ``ring`` mode from ``model.init(0)``; returns
     ``(trainer, run_slot's result, {"heldout", "first_batch"}: each loss
@@ -1544,13 +1602,12 @@ def ring_slot(model, data):
     before = slot_evals(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for module in (qr, fa, W, SSD):
-        module.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     res = trainer.run_slot(PLAN)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {**qr.LAUNCHES, **fa.LAUNCHES, **W.LAUNCHES, **SSD.LAUNCHES}
+    launches = all_launches()
     peak = torch.cuda.max_memory_allocated()
     after = slot_evals(trainer)
     evals = {"heldout": (before[0], after[0]), "first_batch": (before[1], after[1])}
@@ -1856,6 +1913,405 @@ def gadget_loop() -> dict:
         "solve_slot": pdhg_against_highs()}}
 
 
+# -- phase 9: serving ----------------------------------------------------------
+
+def timed_engine(engine) -> dict:
+    """Wrap ``engine.admit`` and ``engine.step`` to add up their host
+    seconds (each ends in a read of its result, so on the device's pace)
+    and the tokens each handles, and to record the lane each request is
+    admitted onto."""
+    acc = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
+           "decode_tokens": 0, "lane_of": {}}
+    admit, step = engine.admit, engine.step
+
+    def timed_admit(limit=None):
+        t0 = time.perf_counter()
+        done = admit(limit)
+        acc["prefill_s"] += time.perf_counter() - t0
+        acc["prefill_tokens"] += sum(len(r.prompt) for r in done)
+        for lane, req in enumerate(engine.lane_req):
+            if req is not None:
+                acc["lane_of"].setdefault(req.id, lane)
+        return done
+
+    def timed_step():
+        n = int(engine.active.sum())
+        t0 = time.perf_counter()
+        done = step()
+        acc["decode_s"] += time.perf_counter() - t0
+        acc["decode_tokens"] += n
+        return done
+
+    engine.admit, engine.step = timed_admit, timed_step
+    return acc
+
+
+def check_engine(engine, n_requests: int, what: str) -> None:
+    from repro_torch.launch.serve import audit_serving_engine
+
+    problems = audit_serving_engine(engine)
+    counts = (engine.compile_count, engine.prefill_compile_count,
+              engine.aux_compile_count)
+    if problems or counts != (1, 1, 1) or len(engine.finished) != n_requests:
+        raise AssertionError(f"{what}: audit {problems}, captures {counts}, "
+                             f"{len(engine.finished)} of {n_requests} served")
+
+
+def held_against_forward(model, params, prompt, engine_logits, limit,
+                         what: str, hold: bool = True) -> dict:
+    """The engine's logits at a prompt's last token against the port's
+    training forward over the prompt (the ported kernels on the card), the
+    forward's kernel launches counted."""
+    reset_all_launches()
+    tokens = torch.as_tensor(prompt, device=DEVICE).long()[None]
+    fwd = model.forward(params, {"tokens": tokens})[0][0, -1]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    gap = rel_max(engine_logits, fwd)
+    if not math.isfinite(gap) or (hold and gap > limit):
+        raise AssertionError(f"{what}: decode against the forward {gap:.4g} "
+                             f"over its limit {limit:.4g}")
+    return {"gap": gap, "launches": launches}
+
+
+def held_against_oracle(model, params, req, kept, limit) -> dict:
+    """Every generated step's logits of a request served by the engine
+    against ``greedy_generate_reference`` (batch 1, token by token) on the
+    card, while their tokens agree; the tokens must agree wherever the
+    oracle's top-2 margin (over its largest |logit|) is above ``limit``."""
+    from repro_torch.launch.serve import greedy_generate_reference
+
+    oracle = []
+    out = greedy_generate_reference(model, params, req.prompt[None, :],
+                                    req.max_new, SERVE_MAX_SEQ, logits=oracle)
+    ref_tokens = out[0, len(req.prompt):].tolist()
+    gaps, diverged = [], None
+    for j, (got, want) in enumerate(zip(kept, oracle)):
+        want = want[0]
+        gaps.append(rel_max(got, want))
+        if req.tokens[j] != ref_tokens[j]:
+            top2 = torch.topk(want.float(), 2).values
+            margin = float((top2[0] - top2[1]) / want.float().abs().max())
+            diverged = {"step": j, "margin": margin}
+            if margin > limit:
+                raise AssertionError(f"request {req.id}: token {j} "
+                                     f"{req.tokens[j]} != the oracle's "
+                                     f"{ref_tokens[j]} at margin {margin:.4g}")
+            break
+    if len(kept) != req.max_new or len(oracle) != req.max_new \
+            or not all(math.isfinite(g) and g <= limit for g in gaps):
+        raise AssertionError(f"request {req.id}: engine against the oracle "
+                             f"{gaps} (limit {limit:.4g}), {len(kept)} and "
+                             f"{len(oracle)} steps")
+    return {"steps_compared": len(gaps), "worst_gap": max(gaps),
+            "diverged_at_a_tie": diverged}
+
+
+def decode_device_ms(engine, model, params) -> dict:
+    """The decode step at full occupancy: every lane admitted with a fresh
+    request, one step run, then CUDA events over replays of its captured
+    graph (each rewrites the same K/V: the dense cache is unchanged); beside
+    its byte bound, the bytes the step must move: every weight but the
+    embedding table once (its B rows), each lane's K/V before its position
+    once, the new K/V, the logits and tokens written."""
+    from repro_torch.launch.serve import Request
+
+    cfg = model.cfg
+    rng = np.random.default_rng(2)
+    for i in range(engine.max_batch):
+        engine.submit(Request(id=1000 + i, prompt=rng.integers(
+            0, cfg.vocab, size=SERVE_FULL_PROMPT), max_new=SERVE_NEW))
+    engine.admit()
+    engine.step()
+    if not engine.active.all():
+        raise AssertionError("decode timing: not every lane is active")
+    graph = engine.graphs()["decode"]
+    ms = cuda_ms(graph.replay, samples=10, calls=10)
+    b = engine.max_batch
+    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2   # bf16 K and V
+    weights = sum(v.numel() * v.element_size()
+                  for path, v in _flatten(params) if path != "embed")
+    weights += b * cfg.d_model * 4
+    # the replayed step is at each lane's position before the host advanced
+    kv_read = int((engine.positions - 1).sum()) * kv_token
+    written = b * kv_token + b * cfg.padded_vocab * 4 + b * 8
+    nbytes = weights + kv_read + written
+    return {"device_ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": nbytes, "weight_bytes": weights, "kv_read_bytes": kv_read,
+            "positions": engine.positions.tolist()}
+
+
+def percentiles(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)), "p90": float(np.percentile(xs, 90))}
+
+
+@torch.no_grad()
+def serve_qwen3() -> dict:
+    """qwen3-0.6b at full width and depth answers SERVE_REQUESTS staggered
+    requests through ``ServingEngine``: every request served, a clean
+    audit, each graph captured once, no ported kernel launched by decode;
+    two requests held against the forward (F1) and the oracle."""
+    from repro_torch.launch.serve import Request, ServingEngine, serve_requests
+
+    cfg = get_arch(SERVE_ARCH)
+    model = build_model(cfg)
+    params = model.init(0, device=DEVICE, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, size=SERVE_REQUESTS)
+    reqs = [Request(id=i, prompt=rng.integers(0, cfg.vocab, size=int(n)),
+                    max_new=SERVE_NEW, arrival=SERVE_STAGGER * i)
+            for i, n in enumerate(lens)]
+    held = sorted(range(SERVE_REQUESTS), key=lambda i: (lens[i], i))[:SERVE_HELD]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(model, params, max_batch=SERVE_BATCH,
+                           max_seq=SERVE_MAX_SEQ, prefill_chunk=SERVE_CHUNK)
+    for i in held:
+        engine.keep_logits[i] = []
+    acc = timed_engine(engine)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    serve_requests(engine, reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    decode_launches = {k: v for k, v in all_launches().items() if v}
+    check_engine(engine, SERVE_REQUESTS, "qwen3 serving")
+    if decode_launches or any(len(r.tokens) != SERVE_NEW for r in reqs):
+        raise AssertionError(f"qwen3 serving: kernels {decode_launches}, "
+                             f"tokens {[len(r.tokens) for r in reqs]}")
+    peak = torch.cuda.max_memory_allocated()
+    rates = {"prefill_tokens_per_s": acc["prefill_tokens"] / acc["prefill_s"],
+             "decode_tokens_per_s": acc["decode_tokens"] / acc["decode_s"],
+             "prefill_tokens": acc["prefill_tokens"],
+             "decode_tokens": acc["decode_tokens"]}
+    limit = SERVE_REF_GAP[SERVE_ARCH] * SERVE_GAP_FACTOR
+    forward, oracle = {}, {}
+    launches: dict = {}
+    t1 = time.perf_counter()
+    for i in held:
+        res = held_against_forward(model, params, reqs[i].prompt,
+                                   engine.keep_logits[i][0], limit,
+                                   f"qwen3 request {i}")
+        forward[i] = res["gap"]
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        oracle[i] = held_against_oracle(model, params, reqs[i],
+                                        engine.keep_logits[i], limit)
+    if set(launches) != {FA_FWD} or launches[FA_FWD] != cfg.n_layers * SERVE_HELD:
+        raise AssertionError(f"qwen3 forward checks launched {launches}")
+    held_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    timing = decode_device_ms(engine, model, params)
+    timing["seconds"] = time.perf_counter() - t1
+    ticks = [r.ttft_clock for r in reqs]
+    secs = [r.first_token_time - r.submit_time for r in reqs]
+    out = {"arch": cfg.name, "params": n_params(model.param_specs()),
+           "requests": SERVE_REQUESTS, "prompt_lens": lens.tolist(),
+           "seconds": seconds, "held_checks_s": held_s, "clock": engine.clock,
+           "decode_steps": engine.decode_steps, **rates,
+           "ttft_ticks": percentiles(ticks), "ttft_s": percentiles(secs),
+           "peak_gib": peak / 2**30, "decode_step": timing,
+           "forward_gap": forward, "oracle": oracle, "limit": limit,
+           "forward_launches": launches}
+    log(f"serving qwen3-0.6b ({card_line()}): {SERVE_REQUESTS} requests in "
+        f"{seconds:.4f} s; prefill {out['prefill_tokens_per_s']:.1f} tokens/s, "
+        f"decode {out['decode_tokens_per_s']:.1f} tokens/s; TTFT ticks "
+        f"{out['ttft_ticks']}, s {out['ttft_s']}; peak {out['peak_gib']:.4f} GiB")
+    log(f"serving qwen3-0.6b decode step at {SERVE_BATCH} lanes: "
+        f"{timing['device_ms']:.4f} ms on the device against its byte bound "
+        f"{timing['bound_ms']:.4f} ms ({card_line()})")
+    log(f"serving qwen3-0.6b held: decode against the forward {forward}, "
+        f"against the oracle {oracle}, limit {limit:.4g} "
+        f"({SERVE_GAP_FACTOR} x the reference's {SERVE_REF_GAP[SERVE_ARCH]})")
+    del engine, params
+    free_cuda()
+    return {"launches": launches, "summary": out}
+
+
+@torch.no_grad()
+def serve_recurrent(arch: str, n_layers) -> dict:
+    """``arch`` (depth cut to ``n_layers`` if given) serves
+    RECURRENT_REQUESTS requests through RECURRENT_BATCH lanes, so that lanes
+    are evicted, zeroed and reused; the last request admitted, on a reused
+    lane, gives logits bit-identical to the same request on a fresh engine
+    in the same lane; decode against the forward (held for rwkv6-7b,
+    printed for zamba2-1.2b)."""
+    from repro_torch.launch.serve import Request, ServingEngine, serve_requests
+
+    cfg = get_arch(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg)
+    params = model.init(0, device=DEVICE, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(
+        RECURRENT_PROMPT[0], RECURRENT_PROMPT[1] + 1)))
+        for _ in range(RECURRENT_REQUESTS)]
+    reqs = [Request(id=i, prompt=p, max_new=RECURRENT_NEW)
+            for i, p in enumerate(prompts)]
+    last = reqs[-1].id
+    engine = ServingEngine(model, params, max_batch=RECURRENT_BATCH,
+                           max_seq=SERVE_MAX_SEQ, prefill_chunk=SERVE_CHUNK)
+    engine.keep_logits[0] = []
+    engine.keep_logits[last] = []
+    acc = timed_engine(engine)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    serve_requests(engine, reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    decode_launches = {k: v for k, v in all_launches().items() if v}
+    check_engine(engine, RECURRENT_REQUESTS, f"{arch} serving")
+    lane = acc["lane_of"][last]
+    reused = sum(1 for r in reqs if acc["lane_of"].get(r.id) == lane) > 1
+    if decode_launches or not reused:
+        raise AssertionError(f"{arch}: kernels {decode_launches}; lanes "
+                             f"{acc['lane_of']}: request {last} on no reused lane")
+    fresh = ServingEngine(model, params, max_batch=RECURRENT_BATCH,
+                          max_seq=SERVE_MAX_SEQ, prefill_chunk=SERVE_CHUNK)
+    again = Request(id=last, prompt=prompts[-1], max_new=RECURRENT_NEW)
+    # requests with lower ids take the lanes below (admission is by id)
+    fillers = [Request(id=-1 - i, prompt=prompts[0], max_new=RECURRENT_NEW)
+               for i in range(lane)]
+    fresh.keep_logits[last] = []
+    fresh_acc = timed_engine(fresh)
+    serve_requests(fresh, fillers + [again])
+    if fresh_acc["lane_of"][last] != lane:
+        raise AssertionError(f"{arch}: the fresh engine put request {last} on "
+                             f"lane {fresh_acc['lane_of'][last]}, not {lane}")
+    a, b = engine.keep_logits[last], fresh.keep_logits[last]
+    same = len(a) == len(b) == RECURRENT_NEW and all(
+        torch.equal(x, y) for x, y in zip(a, b))
+    if not same or again.tokens != reqs[-1].tokens:
+        raise AssertionError(f"{arch}: request {last} on reused lane {lane} "
+                             "differs from the same request on a fresh engine")
+    ref_gap = SERVE_REF_GAP[arch]
+    hold = arch in HELD_RECURRENT
+    limit = ref_gap * SERVE_GAP_FACTOR
+    fwd = held_against_forward(model, params, prompts[0],
+                               engine.keep_logits[0][0], limit, arch, hold=hold)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "params": n_params(model.param_specs()),
+           "prompt_lens": [len(p) for p in prompts], "seconds": seconds,
+           "lanes": acc["lane_of"], "reused_lane": lane,
+           "bit_identical_on_reused_lane": same,
+           "prefill_tokens_per_s": acc["prefill_tokens"] / acc["prefill_s"],
+           "decode_tokens_per_s": acc["decode_tokens"] / acc["decode_s"],
+           "forward_gap": fwd["gap"], "reference_gap": ref_gap,
+           "held": hold, "limit": limit if hold else None,
+           "forward_launches": fwd["launches"]}
+    note = (f"held to {limit:.4g}" if hold else
+            f"not held: at random init this model turns any f32 reordering "
+            f"into logit gaps of this size; the reference's own gap at "
+            f"reduced size is {ref_gap}")
+    log(f"serving {arch} ({cfg.n_layers} layers, {card_line()}): "
+        f"{RECURRENT_REQUESTS} requests on {RECURRENT_BATCH} lanes in "
+        f"{seconds:.4f} s, lanes {acc['lane_of']}; request {last} on reused "
+        f"lane {lane} bit-identical to a fresh engine's; decode against the "
+        f"forward {fwd['gap']:.4g} ({note}); forward launched {fwd['launches']}")
+    del engine, fresh, params
+    free_cuda()
+    return {"launches": fwd["launches"], "summary": out}
+
+
+def serve_job_instance(device: str):
+    """``tests/test_serving.py::_co_setup``: a training job and a serve job
+    whose requests burst from slot 6, horizon 16, on 2 servers of 2 GPUs;
+    the serve job's engine on ``device`` (reduced qwen3-0.6b, f32 weights
+    from seed 0) and the analytic inner backend."""
+    from repro_torch.cluster.topology import Link, Server, SubstrateGraph
+    from repro_torch.core.problem import DDLJSInstance, Job
+    from repro_torch.core.utility import sqrt_utility
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch import sched
+
+    model = build_model(get_arch(SERVE_ARCH).reduced())
+    params = model.init(0, device=device, dtype=torch.float32)
+    servers = [Server(i, 0, {"gpus": 2.0, "mem": 8.0}) for i in range(2)]
+    links = []
+    for s in servers:
+        links += [Link(s.node, "r0", 100.0), Link("r0", s.node, 100.0)]
+    graph = SubstrateGraph(servers, links, n_racks=1, n_core=0)
+    train = Job(id=0, arrival=0, max_workers=4,
+                demands={"gpus": 1.0, "mem": 1.0}, budgets={"gpus": 500.0},
+                bandwidth=5.0, zeta=1.0, utility=sqrt_utility(4.0))
+    slo = sched.ServeSLO(ttft_slots=2, tpot_slots=1.0, weight=80.0)
+    job = sched.make_serve_job(1, arrival=CO_BURST, offered_tokens=800.0,
+                               slo=slo, tokens_per_worker_slot=64.0,
+                               max_workers=3, bandwidth=5.0)
+    inst = DDLJSInstance(graph=graph, jobs=[train, job], horizon=CO_HORIZON)
+    engine = ServingEngine(model, params, max_batch=4, max_seq=32,
+                           prefill_chunk=4)
+    stream = sched.DiurnalRequestStream(sched.RequestStreamConfig(
+        job_id=1, start=CO_BURST, base_rate=2.0, burst_prob=0.6,
+        burst_size=4, prompt_len=(4, 8), max_new=(3, 6), seed=7))
+    backend = sched.ServingBackend({1: engine}, tokens_per_worker_slot=64.0)
+    return inst, stream, backend, engine, slo
+
+
+@torch.no_grad()
+def serve_in_gadget() -> dict:
+    """GADGET with a serve job whose engine is on the card, the sanitizer
+    checking SLO attainment against the event log every slot: the burst
+    takes workers from the training ring and hands them back, the engine's
+    decode step is captured once, and the event log equals the same run's
+    with the engine on the CPU."""
+    from repro_torch import sched
+
+    logs = {}
+    for device in (DEVICE, "cpu"):
+        inst, stream, backend, engine, slo = serve_job_instance(device)
+        t0 = time.perf_counter()
+        res = sched.OnlineDriver(inst, events=stream, backend=backend,
+                                 sanitize=True).run("gadget")
+        seconds = time.perf_counter() - t0
+        logs[device] = [dataclasses.astuple(e) + (type(e).__name__,)
+                        for e in res.events]
+        if device == DEVICE:
+            card_res, card_engine, card_s = res, engine, seconds
+            attainment = sched.slo_attainment_from_events(res.events, 1, slo)
+            reported = backend.reports[-1]["slo_attainment"]
+    per = {0: [0] * CO_HORIZON, 1: [0] * CO_HORIZON}
+    for e in card_res.events:
+        if isinstance(e, sched.EmbeddingCommitted):
+            per[e.job_id][e.t] += e.n_workers
+    burst = range(CO_BURST, CO_HORIZON)
+    ok = (all(per[0][t] == 4 and per[1][t] == 0 for t in range(CO_BURST))
+          and min(per[0][t] for t in burst) <= 2
+          and max(per[1][t] for t in burst) >= 2 and per[0][-1] == 4
+          and card_engine.compile_count == 1 and reported == attainment
+          and logs[DEVICE] == logs["cpu"])
+    if not ok:
+        raise AssertionError(f"GADGET with a serve job: workers {per}, decode "
+                             f"captures {card_engine.compile_count}, attainment "
+                             f"{reported} against the log's {attainment}, event "
+                             f"log equal to the CPU's: {logs[DEVICE] == logs['cpu']}")
+    log(f"serving in GADGET's loop ({card_line()}): training workers a slot "
+        f"{per[0]}, serve workers {per[1]}; SLO attainment {attainment} (the "
+        f"sanitizer re-derived it every slot); {len(card_res.events)} events, "
+        f"the CPU run's; {card_s:.4f} s; decode captured "
+        f"{card_engine.compile_count}x over {card_engine.decode_steps} steps")
+    return {"workers": per, "slo_attainment": attainment, "seconds": card_s,
+            "decode_steps": card_engine.decode_steps}
+
+
+def serving_path() -> dict:
+    """Phase 9: qwen3-0.6b, then zamba2-1.2b and rwkv6-7b, then GADGET."""
+    t0 = time.perf_counter()
+    qwen = serve_qwen3()
+    launches = dict(qwen["launches"])
+    summary = {"qwen3": qwen["summary"]}
+    for arch, layers in RECURRENT_SERVE.items():
+        res = serve_recurrent(arch, layers)
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        summary[arch] = res["summary"]
+    summary["gadget"] = serve_in_gadget()
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"serving: phase 9 took {summary['seconds']:.3f} s")
+    return {"launches": launches, "summary": summary}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -1929,9 +2385,13 @@ def main() -> int:
     free_cuda()
     gloop = gadget_loop()
     log("summary loop " + json.dumps(gloop["summary"]))
+    free_cuda()
+    serving = serving_path()
+    log("summary serving " + json.dumps(serving["summary"], default=str))
     for path, launches in (("rwkv ring", rwkv["launches"]),
                            ("zamba2 ring", zamba["launches"]),
-                           ("gadget loop", gloop["launches"])):
+                           ("gadget loop", gloop["launches"]),
+                           ("serving forward checks", serving["launches"])):
         for name, n in launches.items():
             if n:
                 rows[name]["launches"] += n

@@ -29,8 +29,7 @@ incrementally, and raises :class:`SanitizerError` on the first divergence:
     per distinct profile);
   * **serving accounting** — every ``slo_attainment`` a backend reports in
     ``outcome.measured`` must *exactly* equal the attainment re-derived from
-    the run's event log. Serve jobs are not ported yet: a reported
-    attainment raises ``NotImplementedError`` rather than pass unchecked.
+    the run's event log (``RequestCompletion`` events vs the job's SLO).
 
 The sanitizer only *reads* driver state — it never draws RNG, never mutates
 the caches it checks — so a sanitized run produces a bit-identical
@@ -270,10 +269,17 @@ class SlotSanitizer:
                                 f"{reported!r} but carries no SLO — only "
                                 "ServeJobs are scored against latency "
                                 "targets")
-            raise NotImplementedError(
-                f"job {job_id} reports slo_attainment: serve jobs and "
-                "sched.serving are not ported to repro_torch yet, so their "
-                "accounting cannot be checked")
+            from repro_torch.sched.serving import slo_attainment_from_events
+
+            derived = slo_attainment_from_events(events, job_id, slo)
+            if derived != reported:
+                self._fail(
+                    ctx, f"job {job_id} reported slo_attainment={reported!r}"
+                         f" but the event log re-derives {derived!r} — the "
+                         "backend's request accounting and the logged "
+                         "RequestFirstToken/RequestCompletion events have "
+                         "diverged (served requests that were never logged, "
+                         "or vice versa)")
 
     # -- helpers --------------------------------------------------------------
     def _fail(self, ctx, message: str) -> None:

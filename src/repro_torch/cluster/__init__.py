@@ -1,5 +1,5 @@
-"""Cluster substrate: fat-tree topology, synthetic job traces and Eq. (1)
-calibration (the ported part of ``repro.cluster``)."""
+"""Cluster substrate: fat-tree topology, traces, the time-slotted simulator
+shim and Eq. (1) calibration (the counterpart of ``repro.cluster``)."""
 
 from repro_torch.cluster.topology import (  # noqa: F401
     Embedding,
@@ -10,6 +10,19 @@ from repro_torch.cluster.topology import (  # noqa: F401
     make_fat_tree,
 )
 from repro_torch.cluster.trace import JobTraceConfig, generate_jobs  # noqa: F401
+from repro_torch.cluster.traces import (  # noqa: F401
+    TraceJobRecord,
+    jobs_from_trace,
+    load_trace,
+    save_trace,
+    synthesize_pai_like,
+)
+from repro_torch.cluster.simulator import (  # noqa: F401
+    ClusterSimulator,
+    ContentionConfig,
+    FaultConfig,
+    SimResult,
+)
 from repro_torch.cluster.calibrate import (  # noqa: F401
     RingTimingSample,
     calibrate_profile,

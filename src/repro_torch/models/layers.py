@@ -8,6 +8,10 @@ reference's ``preferred_element_type=float32`` gives for bf16 inputs. On a
 CUDA tensor attention goes through the hand-written flash attention kernels
 (``repro_torch.kernels.flash_attention``), forward and backward, and never
 through the plain forms.
+
+Decode (:func:`decode_attention`) is plain tensor code on every device, as
+it is XLA, not Pallas, in the reference: one query token a lane against
+the lane's KV cache.
 """
 
 from __future__ import annotations
@@ -35,16 +39,24 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)          # (D/2,)
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """The rotary angles' (cos, sin), each (..., S, 1, D/2), for positions
+    broadcastable to (..., S): computed once, they serve every layer."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device)  # (D/2,)
     angles = positions[..., None].float() * freqs          # (..., S, D/2)
-    cos = torch.cos(angles)[..., None, :]                  # (..., S, 1, D/2)
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D) rotated by :func:`rope_cos_sin`'s angles."""
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
 
 
 def _expand_kv(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
@@ -127,17 +139,56 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     """Dispatch. On the CPU as the reference: dense for short sequences,
     chunked-streaming for long. Any other device goes to the flash attention
     kernels, which raise for a device other than CUDA; they take no
-    ``q_offset`` (decode comes with serving)."""
+    ``q_offset``, which no caller passes (serving prefills through
+    ``decode_step``, as the reference does)."""
     if q.device.type != "cpu":
         if q_offset != 0:
             raise NotImplementedError(
-                "attention with q_offset != 0 on the card comes with serving")
+                "attention with q_offset != 0 has no kernel on the card; "
+                "serving prefills through decode_step and never passes one")
         return flash_attention(q, k, v, causal=causal, window=window)
     if k.shape[1] <= 2048:
         return attention_reference(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
     return attention_chunked(q, k, v, causal=causal, window=window,
                              chunk=chunk, q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, cur_index, *,
+                     window: Optional[int] = None):
+    """One-token attention over a (possibly ring-buffered) KV cache.
+
+    q: (B,1,Hq,D); caches: (B,S_cache,Hkv,D); ``cur_index``: the number of
+    valid tokens already in the cache (the new token's position), one for
+    the batch or a (B,) tensor, one a lane. GQA by a grouped product: the
+    kv repeat is never materialized. The reference multiplies q against the
+    cache in q's dtype with f32 products (an f32 q against a bf16 cache
+    promotes to f32); the cache slice is upcast here, and softmax and
+    ``p @ v`` are f32 as its ``preferred_element_type`` makes them.
+    """
+    b, sq, hq, d = q.shape
+    s_cache, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg = (q.float() * scale).reshape(b, sq, hkv, g, d).to(q.dtype).float()
+    qh = qg.permute(0, 2, 1, 3, 4).reshape(b, hkv, sq * g, d)
+    # each cache slice read once: transposed for the products and upcast
+    # to f32 in one copy
+    kt = k_cache.permute(0, 2, 3, 1).to(torch.float32,
+                                        memory_format=torch.contiguous_format)
+    s = torch.matmul(qh, kt)                          # (B, Hkv, Sq*G, S)
+    cur = torch.as_tensor(cur_index, device=q.device).reshape(-1, 1)
+    kpos = torch.arange(s_cache, device=q.device)[None, :]
+    mask = kpos <= cur
+    if window is not None:
+        mask &= kpos > cur - window
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = F.softmax(s, dim=-1)
+    vh = v_cache.permute(0, 2, 1, 3).to(torch.float32,
+                                        memory_format=torch.contiguous_format)
+    out = torch.matmul(p.to(q.dtype).float(), vh)     # (B, Hkv, Sq*G, D)
+    out = out.reshape(b, hkv, sq, g, d).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
 def swiglu(x, w_gate, w_up, w_down):

@@ -83,6 +83,15 @@ def init_from_specs(tree: SpecTree, generator: torch.Generator,
     return _unflatten({path: init_leaf(s) for path, s in _flatten(tree)})
 
 
+def abstract_from_specs(tree: SpecTree, dtype: Optional[torch.dtype] = None
+                        ) -> Dict[str, Any]:
+    """Tensors on the ``meta`` device with each spec's shape and dtype: the
+    shapes and dtypes of a tree without its storage."""
+    return _unflatten({
+        path: torch.empty(s.shape, dtype=dtype or s.dtype, device="meta")
+        for path, s in _flatten(tree)})
+
+
 def params_from_reference(np_tree: Dict[str, Any], device) -> Dict[str, Any]:
     """Carry a tree of numpy arrays (the JAX package's parameters, read with
     ``np.asarray``) onto ``device``. A ``uint16`` array is a bf16 leaf seen

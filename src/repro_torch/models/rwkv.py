@@ -1,6 +1,5 @@
 """RWKV6 ("Finch"): attention-free LM with data-dependent per-channel decay
-(the counterpart of ``repro.models.rwkv``, training forward only; decode
-comes with serving).
+(the counterpart of ``repro.models.rwkv``).
 
 Time-mix runs the chunked WKV recurrence: intra-chunk pairwise decay
 products in the rebased log-space factorization plus an inter-chunk
@@ -14,7 +13,10 @@ never through the plain form.
 Layers are stacked along a leading "layers" dim as in the reference; the
 forward unbinds each stacked leaf once and runs the layers in a loop, and
 ``cfg.remat`` recomputes each layer in backward through
-``torch.utils.checkpoint``.
+``torch.utils.checkpoint``. Decode (:func:`wkv6_decode_step` and the
+``decode=True`` branches) is one token a lane through the recurrence in
+plain torch on every device, as the reference's is in XLA: an f32 WKV
+state and two bf16 token-shift states a layer.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rwkv6_wkv import WKV_CHUNK, wkv6
 from repro_torch.models import layers as L
-from repro_torch.models.model import BaseModel, masked_lm_head
+from repro_torch.models.model import BaseModel, keep_state, masked_lm_head
 from repro_torch.models.module import ParamSpec
+from repro_torch.models.transformer import unstack
 
 DECAY_CLAMP = 2.5   # per-step |log w| bound
 LORA_RANK = 64
@@ -73,6 +76,16 @@ def wkv6_chunked(r, k, v, logw, u, initial_state: Optional[torch.Tensor] = None
     y_inter = torch.einsum("bclhp,bchpq->bclhq", r_dec, states_prev)
     y = (y_intra + y_inter).reshape(b, sp, h, p)[:, :s]
     return y, state
+
+
+def wkv6_decode_step(r, k, v, logw, u, state):
+    """One token. r/k/v/logw ``(B, 1, H, P)``, the state ``(B, H, P, P)``
+    f32; returns f32 y ``(B, 1, H, P)`` and the new state."""
+    rf, kf, vf, lw = (a.float()[:, 0] for a in (r, k, v, logw))
+    kv = torch.einsum("bhp,bhq->bhpq", kf, vf)
+    y = torch.einsum("bhp,bhpq->bhq", rf, state + u.float()[..., None] * kv)
+    state = state * torch.exp(lw)[..., None] + kv
+    return y[:, None], state
 
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
@@ -131,12 +144,18 @@ class Rwkv6LM(BaseModel):
             xw @ lp["decay_lora_a"]) @ lp["decay_lora_b"]
         return -torch.clamp(torch.exp(raw.float()), max=DECAY_CLAMP)
 
-    def _time_mix(self, lp, h):
+    def _time_mix(self, lp, h, *, shift_state=None, wkv_state=None,
+                  decode: bool = False):
+        """Returns (h_out, the shift state out, the WKV state out). In
+        decode the previous token's normed input is ``shift_state``; on
+        the card the training form goes through the kernels, which give no
+        final state (None)."""
         p = self.cfg.rwkv_head_dim
         b, s, d = h.shape
         nh = d // p
         x = L.rms_norm(h, lp["ln"])
-        x_prev = _shift(x)
+        x_prev = shift_state[:, None, :].to(x.dtype) if decode else _shift(x)
+        new_shift = x[:, -1, :]
 
         def mix(mu):
             return x + (x_prev - x) * mu
@@ -146,35 +165,35 @@ class Rwkv6LM(BaseModel):
         v = (mix(lp["mu_v"]) @ lp["w_v"]).reshape(b, s, nh, p)
         g = mix(lp["mu_g"]) @ lp["w_g"]
         logw = self._decay(lp, mix(lp["mu_w"])).reshape(b, s, nh, p)
-        if h.device.type == "cpu":
-            y, _ = wkv6_chunked(r, k, v, logw, lp["bonus_u"])
+        if decode:
+            y, new_state = wkv6_decode_step(r, k, v, logw, lp["bonus_u"],
+                                            wkv_state)
+        elif h.device.type == "cpu":
+            y, new_state = wkv6_chunked(r, k, v, logw, lp["bonus_u"])
         else:
-            y = wkv6(r, k, v, logw, lp["bonus_u"])
+            y, new_state = wkv6(r, k, v, logw, lp["bonus_u"]), None
         y = y.reshape(b, s, d).to(h.dtype)
         y = L.rms_norm(y, lp["gn"]) * F.silu(g)
-        return h + y @ lp["w_o"]
+        return h + y @ lp["w_o"], new_shift, new_state
 
-    def _chan_mix(self, lp, h):
+    def _chan_mix(self, lp, h, *, shift_state=None, decode: bool = False):
+        """Returns (h_out, the shift state out)."""
         x = L.rms_norm(h, lp["ln"])
-        x_prev = _shift(x)
+        x_prev = shift_state[:, None, :].to(x.dtype) if decode else _shift(x)
         xk = x + (x_prev - x) * lp["mu_k"]
         xr = x + (x_prev - x) * lp["mu_r"]
         kk = torch.square(torch.relu(xk @ lp["w_k"]))
         out = torch.sigmoid(xr @ lp["w_r"]) * (kk @ lp["w_v"])
-        return h + out
+        return h + out, x[:, -1, :]
 
     def _block(self, tm, cm, h):
-        return self._chan_mix(cm, self._time_mix(tm, h))
+        return self._chan_mix(cm, self._time_mix(tm, h)[0])[0]
 
     def forward(self, params, batch):
         cfg = self.cfg
         h = params["embed"][batch["tokens"].long()]
-        layers = []
-        for group in ("time_mix", "chan_mix"):
-            names = list(params[group])
-            layers.append([dict(zip(names, leaves)) for leaves in zip(
-                *(torch.unbind(params[group][n], 0) for n in names))])
-        for tm, cm in zip(*layers):
+        for tm, cm in zip(unstack(params["time_mix"]),
+                          unstack(params["chan_mix"])):
             if cfg.remat:
                 h = checkpoint(self._block, tm, cm, h, use_reentrant=False)
             else:
@@ -182,3 +201,47 @@ class Rwkv6LM(BaseModel):
         h = L.rms_norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
         return logits, {}
+
+    def cache_specs(self, batch_size: int, max_seq: int,
+                    dtype=torch.bfloat16):
+        cfg = self.cfg
+        d = cfg.d_model
+        p = cfg.rwkv_head_dim
+        nh = d // p
+        nl = cfg.n_layers
+        return {
+            "wkv": ParamSpec((nl, batch_size, nh, p, p),
+                             ("layers", "batch", "ssm_heads", None, None),
+                             dtype=torch.float32, init="zeros"),
+            "shift_tm": ParamSpec((nl, batch_size, d),
+                                  ("layers", "batch", None),
+                                  dtype=dtype, init="zeros"),
+            "shift_cm": ParamSpec((nl, batch_size, d),
+                                  ("layers", "batch", None),
+                                  dtype=dtype, init="zeros"),
+        }
+
+    def decode_step(self, params, cache, tokens, cur_index, active=None):
+        """One token a lane through every layer's time-mix and channel-mix
+        from their states; the shift states come back bf16, as the
+        reference casts them."""
+        cfg = self.cfg
+        h = params["embed"][tokens.long()]
+        new_wkv, new_tm, new_cm = [], [], []
+        for li, (tm, cm) in enumerate(zip(unstack(params["time_mix"]),
+                                          unstack(params["chan_mix"]))):
+            h, sh_tm, wkv_s = self._time_mix(
+                tm, h, shift_state=cache["shift_tm"][li],
+                wkv_state=cache["wkv"][li], decode=True)
+            h, sh_cm = self._chan_mix(cm, h, shift_state=cache["shift_cm"][li],
+                                      decode=True)
+            new_wkv.append(wkv_s)
+            new_tm.append(sh_tm)
+            new_cm.append(sh_cm)
+        h = L.rms_norm(h, params["ln_f"])
+        logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        stacked = {"wkv": torch.stack(new_wkv),
+                   "shift_tm": torch.stack(new_tm).to(torch.bfloat16),
+                   "shift_cm": torch.stack(new_cm).to(torch.bfloat16)}
+        return logits, {k: keep_state(v, cache[k], active)
+                        for k, v in stacked.items()}

@@ -1,7 +1,6 @@
 """Mamba2 (SSD) blocks and the Zamba2 hybrid, a Mamba2 backbone with one
 *shared* attention block applied every ``attn_every`` layers (the
-counterpart of ``repro.models.ssm``, training forward only; decode comes
-with serving).
+counterpart of ``repro.models.ssm``).
 
 The SSD runs the chunked algorithm (Dao & Gu, 2024): a dense intra-chunk
 term with per-head scalar decay plus an inter-chunk ``(N, P)`` state, every
@@ -17,11 +16,17 @@ the forward unbinds each stacked leaf once and runs the layers in a loop,
 and ``cfg.remat`` recomputes each Mamba layer in backward through
 ``torch.utils.checkpoint``. As in the reference, the shared attention
 block is not rematerialized.
+
+Decode (:func:`ssd_decode_step`, ``mamba2_block(decode=True)``, the
+families' ``decode_step``) is one token a lane through the recurrence in
+plain torch on every device, as the reference's is in XLA: an f32 SSM state
+and the conv window a layer, and, in Zamba2, one KV slot per application of
+the shared attention block.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,9 +35,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
-from repro_torch.models.model import BaseModel, masked_lm_head
+from repro_torch.models.model import (
+    BaseModel,
+    decode_positions,
+    keep_state,
+    kv_slots,
+    masked_lm_head,
+    write_kv,
+)
 from repro_torch.models.module import ParamSpec
-from repro_torch.models.transformer import _attn_specs, _mlp_specs
+from repro_torch.models.transformer import _attn_specs, _mlp_specs, unstack
 
 CONV_K = 4  # mamba2 depthwise conv kernel width
 
@@ -93,6 +105,18 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
     return y, state
 
 
+def ssd_decode_step(x, dt, A, Bm, Cm, state):
+    """One token of the SSD recurrence. x ``(B, 1, H, P)``, dt ``(B, 1,
+    H)``, A ``(H,)``, Bm and Cm ``(B, 1, N)``, the state ``(B, H, N, P)``
+    f32; returns f32 y ``(B, 1, H, P)`` and the new state."""
+    xf = (x * dt[..., None]).float()[:, 0]                 # (B,H,P)
+    dec = torch.exp(dt.float()[:, 0] * A)                  # (B,H)
+    state = state * dec[..., None, None] + torch.einsum(
+        "bn,bhp->bhnp", Bm.float()[:, 0], xf)
+    y = torch.einsum("bn,bhnp->bhp", Cm.float()[:, 0], state)
+    return y[:, None], state
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 block
 # ---------------------------------------------------------------------------
@@ -145,10 +169,13 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def mamba2_block(cfg: ArchConfig, lp, h_in: torch.Tensor, *,
                  ssm_state: Optional[torch.Tensor] = None,
-                 conv_state: Optional[torch.Tensor] = None):
-    """Returns (h_out, new_ssm_state, new_conv_state). On the card the SSD
-    goes through the kernels, which start from a zero state and give no
-    final state (None): a state in or out comes with serving."""
+                 conv_state: Optional[torch.Tensor] = None,
+                 decode: bool = False):
+    """Returns (h_out, new_ssm_state, new_conv_state). ``decode``: one token
+    through :func:`ssd_decode_step` from ``ssm_state``. Otherwise, on the
+    card, the SSD goes through the kernels, which start from a zero state
+    and give no final state (None); nothing passes them a state (serving
+    prefills through ``decode_step``, as the reference does)."""
     din, n, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     p = cfg.ssm_head_dim
     x = L.rms_norm(h_in, lp["ln"])
@@ -161,25 +188,21 @@ def mamba2_block(cfg: ArchConfig, lp, h_in: torch.Tensor, *,
     A = -torch.exp(lp["A_log"].float())
     b, s, _ = xs.shape
     xh = xs.reshape(b, s, nh, p)
-    if xh.device.type == "cpu":
+    if decode:
+        y, new_state = ssd_decode_step(xh, dt, A, Bm, Cm, ssm_state)
+    elif xh.device.type == "cpu":
         y, new_state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
                                    initial_state=ssm_state)
     elif ssm_state is not None:
         raise NotImplementedError(
-            "the SSD from an initial state on the card comes with serving")
+            "the SSD from an initial state has no kernel on the card; "
+            "serving prefills through decode_step and never passes one")
     else:
         y, new_state = ssd_scan(xh, dt, A, Bm, Cm), None
     y = y.float() + lp["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, s, din).to(h_in.dtype)
     y = L.rms_norm(y * F.silu(z), lp["gate_ln"])
     return h_in + y @ lp["out_proj"], new_state, new_conv
-
-
-def _unstack(stacked: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
-    """One dict of leaves per layer, each stacked leaf unbound once."""
-    names = list(stacked)
-    return [dict(zip(names, leaves)) for leaves in zip(
-        *(torch.unbind(stacked[k], 0) for k in names))]
 
 
 def _mamba_layer(cfg: ArchConfig, lp, h):
@@ -215,10 +238,42 @@ class Mamba2LM(BaseModel):
     def forward(self, params, batch):
         cfg = self.cfg
         h = params["embed"][batch["tokens"].long()]
-        h = _mamba_layers(cfg, _unstack(params["mamba"]), h)
+        h = _mamba_layers(cfg, unstack(params["mamba"]), h)
         h = L.rms_norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
         return logits, {}
+
+    def cache_specs(self, batch_size: int, max_seq: int,
+                    dtype=torch.bfloat16):
+        return _mamba_cache_specs(self.cfg, batch_size, dtype)
+
+    def decode_step(self, params, cache, tokens, cur_index, active=None):
+        cfg = self.cfg
+        h = params["embed"][tokens.long()]
+        new_ssm, new_conv = [], []
+        for li, lp in enumerate(unstack(params["mamba"])):
+            h, s2, c2 = mamba2_block(cfg, lp, h, ssm_state=cache["ssm"][li],
+                                     conv_state=cache["conv"][li], decode=True)
+            new_ssm.append(s2)
+            new_conv.append(c2)
+        h = L.rms_norm(h, params["ln_f"])
+        logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        return logits, {
+            "ssm": keep_state(torch.stack(new_ssm), cache["ssm"], active),
+            "conv": keep_state(torch.stack(new_conv), cache["conv"], active)}
+
+
+def _mamba_cache_specs(cfg: ArchConfig, batch_size: int, dtype):
+    n, p, nh = cfg.ssm_state, cfg.ssm_head_dim, cfg.n_ssm_heads
+    conv_dim = cfg.d_inner + 2 * n
+    return {
+        "ssm": ParamSpec((cfg.n_layers, batch_size, nh, n, p),
+                         ("layers", "batch", "ssm_heads", None, None),
+                         dtype=torch.float32, init="zeros"),
+        "conv": ParamSpec((cfg.n_layers, batch_size, CONV_K - 1, conv_dim),
+                          ("layers", "batch", None, "ssm_heads"),
+                          dtype=dtype, init="zeros"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +329,7 @@ class Zamba2LM(BaseModel):
         g, rem = self._layout()
         h = params["embed"][batch["tokens"].long()]
         positions = torch.arange(h.shape[1], device=h.device)
-        layers = _unstack(params["mamba"])
+        layers = unstack(params["mamba"])
         for gi in range(g):
             h = self._mamba_span(layers, h, gi * cfg.attn_every,
                                  (gi + 1) * cfg.attn_every)
@@ -284,3 +339,59 @@ class Zamba2LM(BaseModel):
         h = L.rms_norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
         return logits, {}
+
+    def cache_specs(self, batch_size: int, max_seq: int,
+                    dtype=torch.bfloat16):
+        cfg = self.cfg
+        g, _ = self._layout()
+        shape = (g, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        axes = ("groups", "batch", "seq", "kv_heads", "head_dim")
+        return {**_mamba_cache_specs(cfg, batch_size, dtype),
+                "k": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+                "v": ParamSpec(shape, axes, dtype=dtype, init="zeros")}
+
+    def decode_step(self, params, cache, tokens, cur_index, active=None):
+        """One token a lane: the Mamba2 layers from their states, and the
+        shared attention block with this application's KV slot (written in
+        place at the lane's position)."""
+        cfg = self.cfg
+        g, _ = self._layout()
+        h = params["embed"][tokens.long()]
+        cur = decode_positions(cur_index, h.shape[0], h.device)
+        slots = kv_slots(cur, cache["k"].shape[2])
+        cos, sin = L.rope_cos_sin(cur[:, None], cfg.head_dim, cfg.rope_theta)
+        layers = unstack(params["mamba"])
+        sp = params["shared_attn"]
+        new_ssm, new_conv = [], []
+
+        def mamba(h, li):
+            h, s2, c2 = mamba2_block(cfg, layers[li], h,
+                                     ssm_state=cache["ssm"][li],
+                                     conv_state=cache["conv"][li], decode=True)
+            new_ssm.append(s2)
+            new_conv.append(c2)
+            return h
+
+        for gi in range(g):
+            for li in range(gi * cfg.attn_every, (gi + 1) * cfg.attn_every):
+                h = mamba(h, li)
+            x = L.rms_norm(h, sp["ln1"])
+            q = torch.einsum("bsd,dhk->bshk", x, sp["wq"])
+            k = torch.einsum("bsd,dhk->bshk", x, sp["wk"])
+            v = torch.einsum("bsd,dhk->bshk", x, sp["wv"])
+            q, k = L.rotate(q, cos, sin), L.rotate(k, cos, sin)
+            k_cache, v_cache = cache["k"][gi], cache["v"][gi]
+            write_kv(k_cache, slots, k, active)
+            write_kv(v_cache, slots, v, active)
+            o = L.decode_attention(q, k_cache, v_cache, cur)
+            h = h + torch.einsum("bshk,hkd->bsd", o, sp["wo"])
+            x = L.rms_norm(h, sp["ln2"])
+            h = h + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
+        for li in range(g * cfg.attn_every, cfg.n_layers):
+            h = mamba(h, li)
+        h = L.rms_norm(h, params["ln_f"])
+        logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        return logits, {
+            "ssm": keep_state(torch.stack(new_ssm), cache["ssm"], active),
+            "conv": keep_state(torch.stack(new_conv), cache["conv"], active),
+            "k": cache["k"], "v": cache["v"]}

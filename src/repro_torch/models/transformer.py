@@ -6,6 +6,9 @@ parameter tree has the same 14 leaves in both packages. The forward pass
 unbinds each stacked leaf once (its backward is one stack, not one
 full-size scatter per layer) and runs the layers in a loop; ``cfg.remat``
 recomputes each layer in backward through ``torch.utils.checkpoint``.
+Decode keeps a bf16 KV cache a layer (a ring buffer of the window's length
+for sliding-window configs) and runs in plain torch on every device, as the
+reference's does in XLA.
 """
 
 from __future__ import annotations
@@ -17,7 +20,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.model import BaseModel, masked_lm_head
+from repro_torch.models.model import (
+    BaseModel,
+    decode_positions,
+    kv_slots,
+    masked_lm_head,
+    write_kv,
+)
 from repro_torch.models.module import ParamSpec
 
 
@@ -37,6 +46,13 @@ def _attn_specs(cfg: ArchConfig, n_layers: int,
         out["q_norm"] = ParamSpec(lead + (hd,), lax + ("head_dim",), init="ones")
         out["k_norm"] = ParamSpec(lead + (hd,), lax + ("head_dim",), init="ones")
     return out
+
+
+def unstack(stacked: Dict[str, torch.Tensor]):
+    """One dict of leaves per layer, each stacked leaf unbound once."""
+    names = list(stacked)
+    return [dict(zip(names, leaves)) for leaves in zip(
+        *(torch.unbind(stacked[k], 0) for k in names))]
 
 
 def _mlp_specs(cfg: ArchConfig, n_layers: int,
@@ -93,10 +109,7 @@ class DenseLM(BaseModel):
         cfg = self.cfg
         h = params["embed"][batch["tokens"].long()]
         positions = torch.arange(h.shape[1], device=h.device)
-        names = list(params["blocks"])
-        per_layer = zip(*(torch.unbind(params["blocks"][n], 0) for n in names))
-        for leaves in per_layer:
-            lp = dict(zip(names, leaves))
+        for lp in unstack(params["blocks"]):
             if cfg.remat:
                 h = checkpoint(self._block_train, lp, h, positions,
                                use_reentrant=False)
@@ -105,3 +118,59 @@ class DenseLM(BaseModel):
         h = L.rms_norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
         return logits, {}
+
+    # -- decode ----------------------------------------------------------------
+    def cache_len(self, max_seq: int) -> int:
+        cfg = self.cfg
+        if cfg.sliding_window is not None:
+            return min(max_seq, cfg.sliding_window)
+        return max_seq
+
+    def cache_specs(self, batch_size: int, max_seq: int,
+                    dtype=torch.bfloat16):
+        cfg = self.cfg
+        sc = self.cache_len(max_seq)
+        shape = (cfg.n_layers, batch_size, sc, cfg.n_kv_heads, cfg.head_dim)
+        axes = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        return {
+            "k": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+            "v": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+        }
+
+    def decode_step(self, params, cache, tokens, cur_index, active=None):
+        """One token a lane: write each layer's K/V at the lane's position
+        (in place), attend, return the logits.
+
+        Sliding-window configs keep a ring buffer of window length: the
+        token is written at ``cur % sc`` and, once the buffer is full,
+        every slot is valid (the attention index is ``min(cur, sc - 1)``).
+        """
+        cfg = self.cfg
+        h = params["embed"][tokens.long()]  # (B, 1, D)
+        cur = decode_positions(cur_index, h.shape[0], h.device)
+        sc = cache["k"].shape[2]
+        if cfg.sliding_window is not None:
+            write_at, attend_to = cur % sc, torch.clamp(cur, max=sc - 1)
+        else:
+            write_at, attend_to = cur, cur
+        slots = kv_slots(write_at, sc)
+        cos, sin = L.rope_cos_sin(cur[:, None], cfg.head_dim, cfg.rope_theta)
+        for li, lp in enumerate(unstack(params["blocks"])):
+            x = L.rms_norm(h, lp["ln1"])
+            q = torch.einsum("bsd,dhk->bshk", x, lp["wq"])
+            k = torch.einsum("bsd,dhk->bshk", x, lp["wk"])
+            v = torch.einsum("bsd,dhk->bshk", x, lp["wv"])
+            if cfg.qk_norm:
+                q = L.rms_norm(q, lp["q_norm"])
+                k = L.rms_norm(k, lp["k_norm"])
+            q, k = L.rotate(q, cos, sin), L.rotate(k, cos, sin)
+            k_cache, v_cache = cache["k"][li], cache["v"][li]
+            write_kv(k_cache, slots, k, active)
+            write_kv(v_cache, slots, v, active)
+            o = L.decode_attention(q, k_cache, v_cache, attend_to)
+            h = h + torch.einsum("bshk,hkd->bsd", o, lp["wo"])
+            x = L.rms_norm(h, lp["ln2"])
+            h = h + L.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+        h = L.rms_norm(h, params["ln_f"])
+        logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        return logits, {"k": cache["k"], "v": cache["v"]}

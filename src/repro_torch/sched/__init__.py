@@ -3,8 +3,10 @@
 (:mod:`.events`), the scheduler protocol and slot context (:mod:`.api`), the
 execution backends (:mod:`.backend`: ``AnalyticBackend``, and
 ``LiveBackend`` over the port's elastic trainers), the one slot loop
-(:mod:`.driver`) and schedulers resolved by name (:mod:`.registry`).
-Serving (``repro.sched.serving``) is not ported yet.
+(:mod:`.driver`), inference as a job class (:mod:`.serving`: serve jobs
+with latency-SLO utilities, and ``ServingBackend`` over the port's
+continuous-batching engines) and schedulers resolved by name
+(:mod:`.registry`).
 """
 
 from repro_torch.sched.events import (  # noqa: F401
@@ -48,6 +50,13 @@ from repro_torch.sched.backend import (  # noqa: F401
     LiveBackend,
     SlotExecution,
     SlotOutcome,
+)
+from repro_torch.sched.serving import (  # noqa: F401
+    ServeJob,
+    ServeSLO,
+    ServingBackend,
+    make_serve_job,
+    slo_attainment_from_events,
 )
 from repro_torch.sched.driver import OnlineDriver  # noqa: F401
 from repro_torch.sched import registry  # noqa: F401

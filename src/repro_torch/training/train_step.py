@@ -1,5 +1,6 @@
 """The explicit data-parallel ring train step (the counterpart of
-``repro.training.train_step.make_ring_train_step``).
+``repro.training.train_step.make_ring_train_step``) and the serve step
+(:func:`make_serve_step`).
 
 The reference runs one ``shard_map`` program over w devices. Here one
 process drives the w ranks of a :class:`~repro_torch.dist.collectives.LocalRing`:
@@ -198,5 +199,14 @@ def make_ring_train_step(model, optimizer: Optimizer, ring: LocalRing, *,
         if ef_state is not None:
             return new_params, new_opt, metrics, new_ef
         return new_params, new_opt, metrics
+
+    return step
+
+
+def make_serve_step(model) -> Callable:
+    """(params, cache, tokens, cur_index) -> (next_token_logits, cache)."""
+
+    def step(params, cache, tokens, cur_index):
+        return model.decode_step(params, cache, tokens, cur_index)
 
     return step

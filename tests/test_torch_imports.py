@@ -33,7 +33,9 @@ def test_port_modules_import_without_jax_or_reference():
                  "models.rwkv", "configs.rwkv6_7b", "core.gvne", "core.lp",
                  "sched.driver", "sched.backend", "analysis.sanitize",
                  "cluster.calibrate", "launch.schedule_and_train",
-                 "kernels.ssd_scan", "models.ssm", "configs.zamba2_1p2b"):
+                 "kernels.ssd_scan", "models.ssm", "configs.zamba2_1p2b",
+                 "cluster.traces", "cluster.metrics", "cluster.simulator",
+                 "launch.serve", "sched.serving"):
         assert f"repro_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

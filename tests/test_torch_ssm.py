@@ -279,8 +279,8 @@ def test_model_trains_through_the_ssd_function(setup, jax_sequential_ssd,
 
 def test_mamba2_block_off_the_cpu():
     """Off the CPU the SSD goes to the kernels' wrapper, which raises for a
-    device other than CUDA; an initial state there raises first (it comes
-    with serving)."""
+    device other than CUDA; an initial state there raises first (nothing
+    passes one: serving prefills through decode_step)."""
     cfg = get_arch(ARCH).reduced()
     specs = ssm.mamba2_specs(cfg, 1)
     lp = {k: torch.zeros(s.shape[1:], device="meta") for k, s in specs.items()}
