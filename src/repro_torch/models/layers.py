@@ -1,4 +1,4 @@
-"""Shared building blocks of the dense LM (the counterpart of
+"""Shared building blocks of the model zoo (the counterpart of
 ``repro.models.layers``), in the reference's ``(B, S, H, D)`` layout.
 
 On the CPU attention is plain tensor code, as it is XLA in the reference:
@@ -11,7 +11,8 @@ through the plain forms.
 
 Decode (:func:`decode_attention`) is plain tensor code on every device, as
 it is XLA, not Pallas, in the reference: one query token a lane against
-the lane's KV cache.
+the lane's KV cache. So are the norms, the MLPs and the routed MoE FFN
+(:func:`moe_ffn`), which are XLA in the reference too.
 """
 
 from __future__ import annotations
@@ -32,6 +33,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * w.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -194,3 +205,85 @@ def decode_attention(q, k_cache, v_cache, cur_index, *,
 def swiglu(x, w_gate, w_up, w_down):
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with sort-based capacity dispatch (no S x E x C tensor)
+# ---------------------------------------------------------------------------
+
+def moe_capacity(tokens: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Slots an expert has for ``tokens`` tokens: beyond them its tokens are
+    dropped. At ``capacity_factor >= n_experts / top_k`` none is."""
+    return max(int(math.ceil(tokens * top_k / n_experts * capacity_factor)),
+               top_k)
+
+
+def moe_ffn(x, router, w_gate, w_up, w_down, *, top_k: int,
+            capacity_factor: float = 1.25):
+    """Sparse MoE via a stable sort and a fixed-capacity grouped product;
+    returns ``(y, aux_loss)``.
+
+    x ``(B, S, D)``, router ``(D, E)``, w_gate and w_up ``(E, D, F)``,
+    w_down ``(E, F, D)``. Router logits in f32, softmax, top-k and
+    renormalised gates; the Switch load-balancing loss ``E * sum(me * ce)``.
+    Tokens sorted by expert (stably: the order inside an expert decides
+    which overflow its capacity, :func:`moe_capacity`), an ``(E, C, D)``
+    buffer through SwiGLU experts, then each token's gated outputs summed
+    back; overflowing tokens go to a dump slot and get nothing. Counts are
+    a scatter-add, not ``bincount``, which reads its largest value back to
+    the host and so cannot run inside a captured CUDA graph.
+    """
+    b, s, d = x.shape
+    e = router.shape[-1]
+    t = b * s
+    dev = x.device
+    xf = x.reshape(t, d)
+    logits = xf.float() @ router.float()                            # (T, E)
+    probs = F.softmax(logits, dim=-1)
+    gate_w, gate_ids = torch.topk(probs, top_k, dim=-1)             # (T, k)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e
+    expert_flat = gate_ids.reshape(-1)                              # (T*k,)
+    me = probs.mean(dim=0)
+    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, expert_flat, torch.ones(t * top_k, dtype=torch.float32,
+                                   device=dev)) / (t * top_k)
+    aux = e * torch.sum(me * ce)
+
+    capacity = moe_capacity(t, e, top_k, capacity_factor)
+    token_flat = torch.arange(t, device=dev)[:, None].expand(t, top_k).reshape(-1)
+    weight_flat = gate_w.reshape(-1)
+    order = torch.argsort(expert_flat, stable=True)
+    sorted_experts = expert_flat[order]
+    sorted_tokens = token_flat[order]
+    sorted_weights = weight_flat[order]
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, sorted_experts, torch.ones_like(sorted_experts))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(t * top_k, device=dev) - starts[sorted_experts]
+    slot = torch.where(rank < capacity, sorted_experts * capacity + rank,
+                       e * capacity)
+
+    buf = x.new_zeros((e * capacity + 1, d)).index_put((slot,), xf[sorted_tokens])
+    xe = buf[:e * capacity].reshape(e, capacity, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, w_gate)) * torch.einsum(
+        "ecd,edf->ecf", xe, w_up)
+    ye = torch.einsum("ecf,efd->ecd", h, w_down)
+
+    # combine: each slot's output, weighted by its gate, added to its token
+    # (the dump slot's token is the extra row t)
+    token_for_slot = torch.full((e * capacity + 1,), t, dtype=torch.long,
+                                device=dev).index_put((slot,), sorted_tokens)
+    weight_for_slot = torch.zeros(e * capacity + 1, dtype=torch.float32,
+                                  device=dev).index_put(
+        (slot,), sorted_weights.float())
+    contrib = ye.reshape(e * capacity, d) * weight_for_slot[:e * capacity, None].to(x.dtype)
+    y = x.new_zeros((t + 1, d)).index_add(0, token_for_slot[:e * capacity], contrib)
+    return y[:t].reshape(b, s, d), aux

@@ -7,8 +7,10 @@ Every family implements:
   cache_specs(batch, max_seq)         -> SpecTree for the decode cache
   decode_step(params, cache, tokens, cur_index, active=None)
                                       -> (logits (B, 1, V), cache)
+  extra_input_specs(batch)            -> the modality stub's inputs
 
-``init`` and ``loss`` are shared. Params and caches are plain nested dicts.
+``init``, ``loss`` and ``input_specs`` are shared. Params and caches are
+plain nested dicts.
 
 Decode differs from the reference's in one way, for the card's sake: a
 KV cache leaf is written **in place** (a scatter at each lane's position),
@@ -23,11 +25,11 @@ K/V slot is rewritten with its old value and their state is the old one.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.module import (
     SpecTree,
     abstract_from_specs,
@@ -67,6 +69,10 @@ class BaseModel:
         return init_from_specs(self.cache_specs(batch_size, max_seq), None,
                                device)
 
+    def abstract_params(self, dtype=None):
+        """The parameters' shapes and dtypes, as ``meta`` tensors."""
+        return abstract_from_specs(self.param_specs(), dtype=dtype)
+
     def abstract_cache(self, batch_size: int, max_seq: int):
         """The cache's shapes and dtypes, as ``meta`` tensors."""
         return abstract_from_specs(self.cache_specs(batch_size, max_seq))
@@ -75,6 +81,26 @@ class BaseModel:
         logits, aux = self.forward(params, batch)
         ce = cross_entropy(logits, batch["labels"])
         return ce + 0.01 * aux.get("moe_aux", 0.0)
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """``meta`` stand-ins for every model input of ``shape``."""
+        b, s = shape.global_batch, shape.seq_len
+
+        def ints(*dims):
+            return torch.empty(dims, dtype=torch.int32, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            out = {"tokens": ints(b, s)}
+            if shape.kind == "train":
+                out["labels"] = ints(b, s)
+            out.update(self.extra_input_specs(b))
+            return out
+        # decode: one new token against a max_seq cache
+        return {"tokens": ints(b, 1)}
+
+    def extra_input_specs(self, batch_size: int) -> Dict[str, Any]:
+        """Modality-frontend stub inputs (patch/frame embeddings)."""
+        return {}
 
     def steady_decode_cache(self, params, cache):
         """Cast cache leaves to the dtypes one ``decode_step`` application
@@ -116,8 +142,9 @@ class BaseModel:
 
 
 # Every family lays its decode cache out as (layers, batch, ...): the batch
-# ("lane") axis is axis 1 of every leaf (dense KV, SSM/conv state and the
-# hybrid's KV, wkv/shift state). The lane helpers below key off it.
+# ("lane") axis is axis 1 of every leaf (dense, MoE and VLM KV, SSM/conv
+# state and the hybrid's KV, wkv/shift state, the encoder-decoder's self
+# and cross K/V). The lane helpers below key off it.
 CACHE_BATCH_AXIS = 1
 
 
@@ -213,15 +240,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:
-    from repro_torch.models import rwkv, ssm, transformer
+    from repro_torch.models import encdec, moe_model, rwkv, ssm, transformer
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return transformer.DenseLM(cfg)
+    if cfg.family == "moe":
+        return moe_model.MoeLM(cfg)
     if cfg.family == "hybrid":
         return ssm.Zamba2LM(cfg)
     if cfg.family == "ssm":
         return ssm.Mamba2LM(cfg)
     if cfg.family == "rwkv":
         return rwkv.Rwkv6LM(cfg)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet")
+    if cfg.family == "encdec":
+        return encdec.WhisperLM(cfg)
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,5 +1,7 @@
 """Dense decoder-only transformer (GQA / RoPE / SwiGLU / qk-norm / SWA), the
-counterpart of ``repro.models.transformer.DenseLM``.
+counterpart of ``repro.models.transformer.DenseLM``; with family ``"vlm"``
+it takes precomputed patch embeddings ahead of the tokens (internvl2-26b's
+vision tower is a stub, as in the reference).
 
 Layers are stacked along a leading "layers" dim as in the reference, so a
 parameter tree has the same 14 leaves in both packages. The forward pass
@@ -27,7 +29,7 @@ from repro_torch.models.model import (
     masked_lm_head,
     write_kv,
 )
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, _flatten, _unflatten
 
 
 def _attn_specs(cfg: ArchConfig, n_layers: int,
@@ -49,10 +51,11 @@ def _attn_specs(cfg: ArchConfig, n_layers: int,
 
 
 def unstack(stacked: Dict[str, torch.Tensor]):
-    """One dict of leaves per layer, each stacked leaf unbound once."""
-    names = list(stacked)
-    return [dict(zip(names, leaves)) for leaves in zip(
-        *(torch.unbind(stacked[k], 0) for k in names))]
+    """One (nested) dict of leaves per layer, each stacked leaf unbound
+    once."""
+    paths, leaves = zip(*_flatten(stacked))
+    return [_unflatten(dict(zip(paths, layer)))
+            for layer in zip(*(torch.unbind(v, 0) for v in leaves))]
 
 
 def _mlp_specs(cfg: ArchConfig, n_layers: int,
@@ -105,9 +108,16 @@ class DenseLM(BaseModel):
         x = L.rms_norm(h, lp["ln2"])
         return h + L.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
 
+    def _embed_inputs(self, params, batch):
+        """Token embeddings, with a VLM's patch embeddings prepended."""
+        h = params["embed"][batch["tokens"].long()]
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+        return h
+
     def forward(self, params, batch):
         cfg = self.cfg
-        h = params["embed"][batch["tokens"].long()]
+        h = self._embed_inputs(params, batch)
         positions = torch.arange(h.shape[1], device=h.device)
         for lp in unstack(params["blocks"]):
             if cfg.remat:
@@ -116,8 +126,17 @@ class DenseLM(BaseModel):
             else:
                 h = self._block_train(lp, h, positions)
         h = L.rms_norm(h, params["ln_f"])
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            h = h[:, batch["patch_embeds"].shape[1]:]  # logits for text positions
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
         return logits, {}
+
+    def extra_input_specs(self, batch_size: int):
+        if self.cfg.family == "vlm":
+            return {"patch_embeds": torch.empty(
+                (batch_size, self.cfg.n_patches, self.cfg.d_model),
+                dtype=torch.bfloat16, device="meta")}
+        return {}
 
     # -- decode ----------------------------------------------------------------
     def cache_len(self, max_seq: int) -> int:
@@ -170,7 +189,11 @@ class DenseLM(BaseModel):
             o = L.decode_attention(q, k_cache, v_cache, attend_to)
             h = h + torch.einsum("bshk,hkd->bsd", o, lp["wo"])
             x = L.rms_norm(h, lp["ln2"])
-            h = h + L.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+            h = h + self._decode_ffn(lp, x)
         h = L.rms_norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
         return logits, {"k": cache["k"], "v": cache["v"]}
+
+    def _decode_ffn(self, lp, x):
+        """The FFN of one decode token a lane."""
+        return L.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])

@@ -35,7 +35,10 @@ def test_port_modules_import_without_jax_or_reference():
                  "cluster.calibrate", "launch.schedule_and_train",
                  "kernels.ssd_scan", "models.ssm", "configs.zamba2_1p2b",
                  "cluster.traces", "cluster.metrics", "cluster.simulator",
-                 "launch.serve", "sched.serving"):
+                 "launch.serve", "sched.serving", "models.moe_model",
+                 "models.encdec", "configs.phi3p5_moe_42b",
+                 "configs.arctic_480b", "configs.whisper_large_v3",
+                 "configs.internvl2_26b", "configs.phi3_medium_14b"):
         assert f"repro_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -74,19 +74,20 @@ FORMS = {
         ("  if (!kExactA) mma(c, a[0].lo,", "  if (false) mma(c, a[0].lo,"),
         ("  if (!kExactB) mma(c, a[0].hi,", "  if (false) mma(c, a[0].hi,")],
 }
-LONG = ("h2o-danube-1.8b", (1, 5120, 32, 8, 80), True, 4096, torch.float32)
+LONG = ("h2o-danube-1.8b", (1, 5120, 5120, 32, 8, 80), True, 4096, torch.float32)
 
 
 class Inputs:
     """One shape's inputs, plain gradients and output buffers on the card."""
 
     def __init__(self, dims, causal, window, dtype):
-        b, s, hq, hkv, d = dims
+        b, sq, skv, hq, hkv, d = dims
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1)
         self.q, self.k, self.v, self.do = (
             torch.randn(sh, generator=gen, device="cuda").to(dtype)
-            for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+            for sh in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                       (b, sq, hq, d)))
         opts = dict(causal=causal, window=window)
         o, lse = fa.flash_attention_plain(self.q, self.k, self.v, **opts)
         delta = fa.bwd_preprocess_plain(o, self.do)
