@@ -114,16 +114,45 @@ non-zero and prints no result. Phases, each raising on failure:
      the forward (S1 and F1, W1) is held for rwkv6-7b and printed for
      zamba2-1.2b. Then GADGET with a serve job whose engine is on the card,
      under the sanitizer: the burst takes workers from the training ring
-     and gives them back, and the event log equals the CPU run's;
- 10. the ``kernels`` JSON line, the card line, and last the result line.
+     and gives them back, and the event log equals the CPU run's. Mamba2LM
+     (zamba2-1.2b's config as family "ssm") at full width and depth serves
+     as zamba2-1.2b does (its decode against the forward printed). Each
+     decode step of one request of zamba2-1.2b and of Mamba2LM, reduced and
+     at full width, runs again on the CPU from the card engine's cache and
+     weights, in f32 and in f64: the card's logits and cache held to the
+     CPU f32 step at reduced size, and no further from the f64 step than the
+     CPU's f32 step at full width, zamba2's layer by layer from the card's
+     inputs to each layer (``STEP_*``); reduced Mamba2LM's decode held
+     against its forward (S1 on the card);
+ 10. the MoE path: phi3.5-moe-42b at full width, 1 of 32 layers, in
+     ``compressed-fused`` (``moe_path``);
+ 11. the encoder-decoder and VLM ranks: whisper-large-v3, internvl2-26b and
+     phi3-medium-14b, every B4 call against the exact function
+     (``encdec_path``);
+ 12. fault tolerance, calibration and the CLIs: ``FaultTolerantRunner`` on
+     qwen3-0.6b at full width cut to 2 layers, ``compressed-fused``, the
+     reference test's plans with 2 of 4 workers left in slot 1 and the
+     in-memory state set to NaN at the failure: one recovery, step 8, the
+     restored state bit-identical to the checkpoint's, every loss
+     bit-identical to a plain trainer over the slots it ran, the kernels'
+     launches equal to their schedule, the checkpoint's bytes and write and
+     read seconds, heartbeats from each rank's step time; then
+     ``python -m repro_torch.launch.serve`` (qwen3-0.6b, zamba2-1.2b) and
+     ``python -m repro_torch.launch.serve_batched`` side by side, and
+     ``python -m repro_torch.cluster.calibrate`` alone (the fitted bandwidth
+     is a copy within the card's memory: every rank is ``cuda:0``);
+ 13. the ``kernels`` JSON line, the card line, and last the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -346,8 +375,12 @@ SMALL_FIRST_TOL, SMALL_GRAD_TOL = 1e-4, 2e-2
 # [recorded / 2, recorded]). The card holds the port's decode to the
 # forward that runs the ported kernels, and the engine to the token-by-token
 # oracle, within SERVE_GAP_FACTOR times it; zamba2-1.2b's is printed beside
-# its gap on the card and not held (chaotic at random init).
-SERVE_REF_GAP = {"qwen3-0.6b": 2.7e-3, "rwkv6-7b": 4.1e-6, "zamba2-1.2b": 0.26}
+# its gap on the card and not held (chaotic at random init). MAMBA2 is
+# Mamba2LM: zamba2-1.2b's config with family="ssm" (no KV cache; measured
+# 3.515e-6)
+MAMBA2 = "zamba2-1.2b/ssm"
+SERVE_REF_GAP = {"qwen3-0.6b": 2.7e-3, "rwkv6-7b": 4.1e-6, "zamba2-1.2b": 0.26,
+                 MAMBA2: 3.6e-6}
 # phi3.5-moe-42b's and whisper-large-v3's gaps are taken with an f32 KV
 # cache on both sides (the MoE's forward dropping no token, whisper's cache
 # holding its encoder's cross K/V): at random init these models amplify
@@ -370,10 +403,34 @@ SERVE_GAP_FACTOR = 10.0
 SERVE_ARCH, SERVE_BATCH, SERVE_MAX_SEQ, SERVE_CHUNK = "qwen3-0.6b", 8, 1024, 8
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_STAGGER = 16, (32, 512), 64, 4
 SERVE_HELD, SERVE_FULL_PROMPT = 2, 64
-# zamba2-1.2b at full width and depth, rwkv6-7b at full width cut to 4
-# layers: RECURRENT_REQUESTS requests through RECURRENT_BATCH lanes
-RECURRENT_SERVE = {"zamba2-1.2b": None, "rwkv6-7b": 4}
+# zamba2-1.2b and Mamba2LM at full width and depth, rwkv6-7b at full width
+# cut to 4 layers: RECURRENT_REQUESTS requests through RECURRENT_BATCH lanes
+RECURRENT_SERVE = {"zamba2-1.2b": None, "rwkv6-7b": 4, MAMBA2: None}
 HELD_RECURRENT = ("rwkv6-7b",)
+# Each decode step of request 0 (the first of those requests, alone on a
+# fresh engine with the served engine's bf16 K/V cache) of zamba2-1.2b and
+# Mamba2LM, full and reduced, also runs on the CPU from the card engine's
+# cache and weights, in f32 and in f64. At reduced size the card's logits
+# are held within STEP_LOGITS_REL of the CPU f32 step's largest, every
+# cache leaf of the lane within STEP_CACHE_REL of its largest value plus,
+# for bf16 leaves, one bf16 rounding (2^-7 of each value): the limits
+# tests/test_torch_serving.py holds one step of reduced zamba2 (bf16 K/V)
+# to against the reference. At full width the card's step (logits and every
+# cache leaf) is no further from the f64 step than the CPU's f32 step is,
+# plus STEP_F64_REL of the f64 step's largest value. For zamba2 there the
+# CPU steps are teacher-forced (``forced_from_card``): each Mamba2 layer
+# starts from the card's input to it (from an eager rerun of the card's
+# step, held bit-identical to the captured one), and the shared attention
+# stores the card's bf16 K and V; each layer's input ``h`` and the new K
+# and V (within one bf16 rounding more) are held too. Without forcing,
+# full-width zamba2 fails that limit at 4.03 (PERF.md §6): its first
+# Mamba2 layers match the CPU's error, the first shared attention
+# application leaves the card's f32 error 2-4x the CPU's, and each of the
+# six applications multiplies both by 4-5 (at step 24 the card's logits
+# 0.048 from f64, the CPU's 0.0078, largest 4.06).
+STEP_CHECKED = ("zamba2-1.2b", MAMBA2)
+STEP_LOGITS_REL, STEP_CACHE_REL, STEP_F64_REL = 1e-3, 1e-4, 1e-3
+BF16_ROUNDING = 2.0**-7
 RECURRENT_BATCH, RECURRENT_REQUESTS = 2, 4
 RECURRENT_PROMPT, RECURRENT_NEW = (64, 256), 32
 # phi3.5-moe-42b at full width cut to 4 layers (21.8 GB of f32 weights) and
@@ -406,6 +463,24 @@ MOE_ARCH, MOE_LAYERS, MOE_MODE, MOE_LEAVES = "phi3.5-moe-42b", 1, "compressed-fu
 ENC_ARCH, ENC_TOKENS, ENC_BATCH = "whisper-large-v3", 448, 2
 VLM_ARCHS, VLM_LAYERS = ("internvl2-26b", "phi3-medium-14b"), 2
 ENC_LOSS_TOL = 1e-5
+
+# Phase 12: fault tolerance at full width, qwen3-0.6b cut to FT_LAYERS
+# layers, FT_MODE with AdamW at LR, seq SEQ, global batch GLOBAL_BATCH,
+# over tests/test_training.py::test_fault_tolerant_recovery's plans, FT_PLANS,
+# with FT_SURVIVORS left in slot FT_FAIL_SLOT: the runner reruns that slot at
+# the survivors' ring (FT_RAN). FT_TIMEOUT and FT_STRAGGLER are the
+# HeartbeatMonitor's defaults, fed each rank's measured step time
+FT_LAYERS, FT_MODE = 2, "compressed-fused"
+FT_PLANS = [(4, 3), (4, 3), (4, 2)]
+FT_FAIL_SLOT, FT_SURVIVORS = 1, 2
+FT_RAN = [(4, 3), (2, 3), (4, 2)]
+FT_TIMEOUT, FT_STRAGGLER = 10.0, 2.5
+# the reference's calibration grid: worlds 2/4/8, sizes 2^14/2^16/2^18
+CALIBRATION_SAMPLES = 9
+# the serving CLI's arches (its default batch of SERVE_CLI_BATCH requests)
+SERVE_CLI_ARCHS, SERVE_CLI_BATCH = ("qwen3-0.6b", "zamba2-1.2b"), 4
+# each CLI run's time limit, seconds
+CLI_TIMEOUT = 600
 
 
 def log(msg: str) -> None:
@@ -1394,14 +1469,15 @@ def ring_units(mode: str, sizes: list) -> list:
     return plan_bucket_sizes(sizes, n_buckets, reverse=True)
 
 
-def expected_launches(mode: str, sizes: list) -> dict:
-    """Launches of each kernel the mode's schedule makes over PLAN: per step
-    and ring call, each rank quantizes (or casts) twice, requantizes w-2
-    times, accumulates once and dequantizes (or upcasts) once."""
+def expected_launches(mode: str, sizes: list, rings=MAIN_RINGS) -> dict:
+    """Launches of each kernel the mode's schedule makes over steps at the
+    ring sizes ``rings`` (PLAN's by default): per step and ring call, each
+    rank quantizes (or casts) twice, requantizes w-2 times, accumulates once
+    and dequantizes (or upcasts) once."""
     send, hop, last, unpack = MODE_KERNELS[mode]
     n = len(ring_units(mode, sizes))
     out = dict.fromkeys(qr.LAUNCHES, 0)
-    for w in MAIN_RINGS:
+    for w in rings:
         out[send] += n * 2 * w
         out[hop] += n * w * (w - 2)
         out[last] += n * w
@@ -2265,6 +2341,29 @@ def serve_qwen3() -> dict:
     return {"launches": launches, "summary": out}
 
 
+def serve_config(arch: str, n_layers=None, reduced: bool = False):
+    """The config of ``arch`` (``MAMBA2``: zamba2-1.2b's with
+    family="ssm"), reduced if asked, its depth cut to ``n_layers`` if
+    given."""
+    name, _, family = arch.partition("/")
+    cfg = get_arch(name)
+    if reduced:
+        cfg = cfg.reduced()
+    if family:
+        cfg = dataclasses.replace(cfg, family=family)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg
+
+
+def recurrent_prompts(vocab: int) -> list:
+    """The prompts of ``serve_recurrent``'s requests (from seed 1)."""
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, vocab, size=int(rng.integers(
+        RECURRENT_PROMPT[0], RECURRENT_PROMPT[1] + 1)))
+        for _ in range(RECURRENT_REQUESTS)]
+
+
 @torch.no_grad()
 def serve_recurrent(arch: str, n_layers) -> dict:
     """``arch`` (depth cut to ``n_layers`` if given) serves
@@ -2272,18 +2371,13 @@ def serve_recurrent(arch: str, n_layers) -> dict:
     are evicted, zeroed and reused; the last request admitted, on a reused
     lane, gives logits bit-identical to the same request on a fresh engine
     in the same lane; decode against the forward (held for rwkv6-7b,
-    printed for zamba2-1.2b)."""
+    printed for zamba2-1.2b and Mamba2LM)."""
     from repro_torch.launch.serve import Request, ServingEngine, serve_requests
 
-    cfg = get_arch(arch)
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = serve_config(arch, n_layers)
     model = build_model(cfg)
     params = model.init(0, device=DEVICE, dtype=torch.float32)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(
-        RECURRENT_PROMPT[0], RECURRENT_PROMPT[1] + 1)))
-        for _ in range(RECURRENT_REQUESTS)]
+    prompts = recurrent_prompts(cfg.vocab)
     reqs = [Request(id=i, prompt=p, max_new=RECURRENT_NEW)
             for i, p in enumerate(prompts)]
     last = reqs[-1].id
@@ -2311,7 +2405,7 @@ def serve_recurrent(arch: str, n_layers) -> dict:
     limit = ref_gap * SERVE_GAP_FACTOR
     fwd = held_against_forward(model, params, prompts[0], limit, arch,
                                logits=engine.keep_logits[0][0], hold=hold)
-    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+    out = {"arch": arch, "n_layers": cfg.n_layers,
            "params": n_params(model.param_specs()),
            "prompt_lens": [len(p) for p in prompts], "seconds": seconds,
            "lanes": acc["lane_of"], "reused_lane": lane,
@@ -2321,10 +2415,16 @@ def serve_recurrent(arch: str, n_layers) -> dict:
            "forward_gap": fwd["gap"], "reference_gap": ref_gap,
            "held": hold, "limit": limit if hold else None,
            "forward_launches": fwd["launches"]}
-    note = (f"held to {limit:.4g}" if hold else
-            f"not held: at random init this model turns any f32 reordering "
-            f"into logit gaps of this size; the reference's own gap at "
-            f"reduced size is {ref_gap}")
+    if hold:
+        note = f"held to {limit:.4g}"
+    elif arch == MAMBA2:
+        note = (f"printed; the reference's own gap at reduced size is "
+                f"{ref_gap}, and reduced Mamba2LM is held to {limit:.4g} "
+                f"(decode_steps_on_cpu)")
+    else:
+        note = (f"not held: at random init this model turns any f32 "
+                f"reordering into logit gaps of this size; the reference's "
+                f"own gap at reduced size is {ref_gap}")
     log(f"serving {arch} ({cfg.n_layers} layers, {card_line()}): "
         f"{RECURRENT_REQUESTS} requests on {RECURRENT_BATCH} lanes in "
         f"{seconds:.4f} s, lanes {acc['lane_of']}; request {last} on reused "
@@ -2333,6 +2433,249 @@ def serve_recurrent(arch: str, n_layers) -> dict:
     del engine, params
     free_cuda()
     return {"launches": fwd["launches"], "summary": out}
+
+
+def step_against_cpu(card: dict, cpu32: dict, cpu64: dict, reduced: bool) -> dict:
+    """One decode step's logits and cache leaves (``"logits"``, the cache's
+    keys and at full width the new K and V, each on the CPU) from the card
+    against the CPU's f32 and f64 steps from the same cache. Returns per key
+    its largest share of its limit (``share``, over 1 fails) and the gaps
+    behind it: max |card - f64|, |CPU f32 - f64|, |card - CPU f32|, the
+    largest |f64|, and for a leaf stacked over layers each layer's max
+    |card - f64| and |CPU f32 - f64|."""
+    out = {}
+    for k, got in card.items():
+        if all(w.dtype == got.dtype and torch.equal(w, got)
+               for w in (cpu32[k], cpu64[k])):
+            # all three the same bits (a bf16 cache leaf at full width,
+            # where the CPU steps store the card's new K and V)
+            out[k] = {"share": 0.0, "dtype": str(got.dtype).replace("torch.", ""),
+                      "card_f64": 0.0, "cpu_f64": 0.0, "card_cpu": 0.0,
+                      "max_f64": float(got.abs().max())}
+            continue
+        bf16 = got.dtype == torch.bfloat16
+        got, want32, want64 = (t.double() for t in (got, cpu32[k], cpu64[k]))
+        card_f64, cpu_f64 = (got - want64).abs(), (want32 - want64).abs()
+        gaps = {"dtype": str(card[k].dtype).replace("torch.", ""),
+                "card_f64": float(card_f64.max()),
+                "cpu_f64": float(cpu_f64.max()),
+                "card_cpu": float((got - want32).abs().max()),
+                "max_f64": float(want64.abs().max())}
+        if k != "logits":
+            gaps["by_layer"] = list(zip(card_f64.flatten(1).amax(1).tolist(),
+                                        cpu_f64.flatten(1).amax(1).tolist()))
+        if reduced:
+            scale, gap, ref = float(want32.abs().max()), (got - want32).abs(), want32
+            base = (STEP_LOGITS_REL if k == "logits" else STEP_CACHE_REL) * scale
+        else:
+            scale, gap, ref = gaps["max_f64"], card_f64, want64
+            base = gaps["cpu_f64"] + STEP_F64_REL * scale
+        allowed = base + (BF16_ROUNDING * ref.abs() if bf16 else 0.0)
+        if not bool(torch.isfinite(got).all()):
+            share = math.inf
+        elif scale == 0:
+            share = 0.0 if float(gap.max()) == 0 else math.inf
+        else:
+            share = float((gap / allowed).max())
+        out[k] = {"share": share, **gaps}
+    return out
+
+
+@contextlib.contextmanager
+def mamba_inputs(seen: list):
+    """While active, every Mamba2 layer of the hybrid's decode step
+    (``mamba2_block`` in ``models/ssm.py``) appends its input ``h`` to
+    ``seen``."""
+    from repro_torch.models import ssm
+
+    block = ssm.mamba2_block
+
+    def recorded(cfg, lp, h, **kw):
+        seen.append(h.clone())
+        return block(cfg, lp, h, **kw)
+
+    ssm.mamba2_block = recorded
+    try:
+        yield
+    finally:
+        ssm.mamba2_block = block
+
+
+@contextlib.contextmanager
+def forced_from_card(card: dict, own: dict):
+    """While active, the hybrid's decode step (``models/ssm.py``) runs from
+    the card's values: each Mamba2 layer takes the card's input
+    (``card["h"]``, one a layer, in order) in place of the one it computed,
+    and the shared attention's ``write_kv`` stores at the lane's slot what
+    the card stored there (``card["k"]``, ``card["v"]``: the lane's cache
+    after the card's step, one entry an application, K before V). ``own``
+    collects what the step computed itself: ``"h"``, each layer's input
+    before it was replaced, and ``"k_new"``/``"v_new"``, each new K and V
+    before rounding."""
+    from repro_torch.models import ssm
+
+    block, write = ssm.mamba2_block, ssm.write_kv
+    own.update(h=[], k_new=[], v_new=[])
+
+    def forced(cfg, lp, h, **kw):
+        own["h"].append(h)
+        return block(cfg, lp, card["h"][len(own["h"]) - 1].to(h.dtype), **kw)
+
+    def shared(cache_l, slots, new, active):
+        gi, leaf = divmod(len(own["k_new"]) + len(own["v_new"]), 2)
+        key = ("k", "v")[leaf]
+        write(cache_l, slots, new, active)
+        cache_l[slots] = card[key][gi][slots]
+        own[key + "_new"].append(new[:, 0])
+
+    ssm.mamba2_block, ssm.write_kv = forced, shared
+    try:
+        yield
+    finally:
+        ssm.mamba2_block, ssm.write_kv = block, write
+
+
+@contextlib.contextmanager
+def f32_casts_in_f64():
+    """While active, ``Tensor.float()`` gives f64 and ``Tensor.to`` with
+    float32 gives f64: the model's decode casts to f32 where it computes in
+    f32, and under this it computes there in f64 (its constants built in
+    f32, such as the RoPE frequencies, keep their f32 values)."""
+    float_, to_ = torch.Tensor.float, torch.Tensor.to
+
+    def to_f64(t, *args, **kw):
+        args = tuple(torch.float64 if a is torch.float32 else a for a in args)
+        if kw.get("dtype") is torch.float32:
+            kw["dtype"] = torch.float64
+        return to_(t, *args, **kw)
+
+    torch.Tensor.float, torch.Tensor.to = torch.Tensor.double, to_f64
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.Tensor.to = float_, to_
+
+
+@torch.no_grad()
+def decode_steps_on_cpu(arch: str, reduced: bool) -> dict:
+    """Request 0 of ``serve_recurrent`` (its prompt modulo a reduced vocab)
+    alone on a fresh engine of RECURRENT_BATCH lanes on the card; at each
+    of its decode steps the lane's cache before the step and the weights go
+    to the CPU, where the same ``decode_step_lanes`` runs in f32 and in
+    f64, and the card's logits and lane cache after the step are held
+    against them (``step_against_cpu``). Full-width zamba2's CPU steps are
+    teacher-forced (``forced_from_card``) from an eager rerun of the card's
+    step, and each Mamba2 layer's input and the new K and V are held too.
+    Reduced Mamba2LM's decode against its forward (S1 on the card) is held
+    within SERVE_GAP_FACTOR times the reference's gap."""
+    from repro_torch.launch.serve import Request, ServingEngine, serve_requests
+    from repro_torch.models.model import cache_lane
+
+    cfg = serve_config(arch, reduced=reduced)
+    model = build_model(cfg)
+    params = model.init(0, device=DEVICE, dtype=torch.float32)
+    prompt = recurrent_prompts(serve_config(arch).vocab)[0] % cfg.vocab
+    engine = ServingEngine(model, params, max_batch=RECURRENT_BATCH,
+                           max_seq=SERVE_MAX_SEQ, prefill_chunk=SERVE_CHUNK)
+    engine.keep_logits[0] = []
+    t0 = time.perf_counter()
+    cpu32 = tree_map(lambda t: t.to("cpu", copy=True), params)
+    cpu64 = tree_map(lambda t: t.double() if t.is_floating_point() else t, cpu32)
+    copy_s = time.perf_counter() - t0
+    decode = engine._decode
+    steps, cpu_s = [], [0.0]
+
+    def checked(tokens, positions, active):
+        lane = next(i for i, r in enumerate(engine.lane_req)
+                    if r is not None and r.id == 0)
+        before = {k: v.to("cpu") for k, v in cache_lane(engine.cache, lane).items()}
+        forced = not reduced and "k" in before
+        if forced:
+            eager_cache = {k: v.clone() for k, v in engine.cache.items()}
+        nxt, logits = decode(tokens, positions, active)
+        card = {k: v.to("cpu") for k, v in cache_lane(engine.cache, lane).items()}
+        card["logits"] = logits[lane].to("cpu")
+        one = [x[lane:lane + 1].to("cpu") for x in (tokens, positions, active)]
+        if forced:
+            # the same step again, eagerly, for each Mamba2 layer's input
+            seen = []
+            with mamba_inputs(seen):
+                out, new = model.decode_step_lanes(params, eager_cache, tokens,
+                                                   positions, active)
+            if not (same_bits(out[:, -1], logits) and all(
+                    same_bits(new[k], engine.cache[k]) for k in new)):
+                raise AssertionError(f"{arch}: the eager decode step is not "
+                                     f"the engine's captured one")
+            card["h"] = torch.stack([h[lane:lane + 1] for h in seen]).to("cpu")
+            slot = min(int(one[1]), engine.max_seq - 1)
+            card["k_new"], card["v_new"] = card["k"][:, :, slot], card["v"][:, :, slot]
+            del eager_cache, out, new, seen
+
+        def step(params, cache):
+            own = {}
+            with forced_from_card(card, own) if forced else contextlib.nullcontext():
+                out, new = model.decode_step_lanes(params, cache, *one)
+            run = {"logits": out[0, -1], **new}
+            run.update({k: torch.stack(v) for k, v in own.items()})
+            return run
+
+        t1 = time.perf_counter()
+        run32 = step(cpu32, {k: v.clone() for k, v in before.items()})
+        with f32_casts_in_f64():
+            # the same step in f64: f32 leaves in f64, bf16 leaves (the K/V
+            # cache) stored in bf16 as the step stores them
+            run64 = step(cpu64, {
+                k: v.double() if v.dtype == torch.float32 else v.clone()
+                for k, v in before.items()})
+        if run64["logits"].dtype != torch.float64:
+            raise AssertionError(f"{arch}: the f64 step gave "
+                                 f"{run64['logits'].dtype} logits")
+        cpu_s[0] += time.perf_counter() - t1
+        steps.append(step_against_cpu(card, run32, run64, reduced))
+        return nxt, logits
+
+    engine._decode = checked
+    t0 = time.perf_counter()
+    serve_requests(engine, [Request(id=0, prompt=prompt, max_new=RECURRENT_NEW)])
+    seconds = time.perf_counter() - t0
+    # per key, the step where it comes nearest its limit
+    at_worst = {k: max(((i, st[k]) for i, st in enumerate(steps)),
+                       key=lambda x: x[1]["share"]) for k in steps[0]}
+    worst = {k: v["share"] for k, (_, v) in at_worst.items()}
+    what = f"{arch}{' reduced' if reduced else ''}"
+    out = {"arch": arch, "reduced": reduced, "steps": len(steps),
+           "worst_share_of_limit": worst, "seconds": seconds,
+           "cpu_steps_s": cpu_s[0], "weights_to_cpu_s": copy_s,
+           "at_worst": {k: {"step": i, **{g: v for g, v in d.items()
+                                          if g != "by_layer"}}
+                        for k, (i, d) in at_worst.items()}}
+    log(f"serving {what}: gaps at each key's worst step {json.dumps(out['at_worst'])}")
+    for k, (i, d) in at_worst.items():
+        if "by_layer" in d:
+            log(f"serving {what}: {k} at step {i}, each layer's max |card - "
+                f"f64| and |CPU f32 - f64|: {d['by_layer']}")
+    if len(steps) != RECURRENT_NEW - 1 or not all(
+            math.isfinite(v) and v <= 1.0 for v in worst.values()):
+        raise AssertionError(f"{what}: {len(steps)} decode steps against the "
+                             f"CPU, worst share of each limit {worst}")
+    if reduced and arch == MAMBA2:
+        limit = SERVE_GAP_FACTOR * SERVE_REF_GAP[MAMBA2]
+        fwd = held_against_forward(model, params, prompt, limit, what,
+                                   logits=engine.keep_logits[0][0])
+        out["forward_gap"], out["forward_limit"] = fwd["gap"], limit
+        out["forward_launches"] = fwd["launches"]
+    log(f"serving {what} ({card_line()}): each of request 0's {len(steps)} "
+        f"decode steps on the card against the same step on the CPU (f32, "
+        f"f64) from the card's cache"
+        + ("" if reduced or arch == MAMBA2 else ", each Mamba2 layer from the "
+           "card's input and the card's new K and V stored")
+        + f": worst share of its limit {worst}; {seconds:.4f} s "
+        f"({cpu_s[0]:.4f} s of CPU steps)"
+        + (f"; decode against the forward {out['forward_gap']:.4g} (limit "
+           f"{out['forward_limit']:.4g})" if "forward_gap" in out else ""))
+    del engine, params, cpu32, cpu64
+    free_cuda()
+    return out
 
 
 def serve_job_instance(device: str):
@@ -2629,6 +2972,13 @@ def serving_path() -> dict:
         for k, v in res["launches"].items():
             launches[k] = launches.get(k, 0) + v
         summary[arch] = res["summary"]
+    summary["per_step_on_cpu"] = []
+    for arch in STEP_CHECKED:
+        for reduced in (True, False):
+            res = decode_steps_on_cpu(arch, reduced)
+            for k, v in res.pop("forward_launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+            summary["per_step_on_cpu"].append(res)
     summary["gadget"] = serve_in_gadget()
     summary["seconds"] = time.perf_counter() - t0
     log(f"serving: phase 9 took {summary['seconds']:.3f} s")
@@ -3040,6 +3390,303 @@ def encdec_path() -> dict:
     return {"launches": launches, "summary": summary}
 
 
+# -- phase 12: fault tolerance, calibration, the CLIs -------------------------
+
+def state_copy(trainer) -> dict:
+    """A copy, on the card, of the trainer's first replica's parameters and
+    optimizer state, flat."""
+    return {k: v.clone() for k, v in _flatten(
+        {"params": next(iter(trainer.params.values())),
+         "opt": next(iter(trainer.opt_state.values()))})}
+
+
+def poison(trainer) -> None:
+    """Every floating leaf of every replica of the trainer's parameters and
+    moments to NaN: from here on only a restore that reads the checkpoint
+    gives finite losses."""
+    for tree in list(trainer.params.values()) + list(trainer.opt_state.values()):
+        for _, v in _flatten(tree):
+            if v.is_floating_point():
+                v.fill_(float("nan"))
+
+
+def ft_rings() -> list:
+    """The ring size of each step the runner runs (FT_RAN)."""
+    return [w for w, steps in FT_RAN for _ in range(steps)]
+
+
+def reduced_bits_identical(model, trainer, data, mode: str, w: int) -> int:
+    """One step's gradients at the trainer's state reduced by ``mode`` over
+    a ring of ``w``: every rank's reduced leaf bit-identical (phase 4's
+    check). Returns the number of leaves."""
+    batch = {k: torch.as_tensor(v) for k, v in data.batch(trainer.step).items()}
+    devices = trainer.group.devices[:w]
+    _, grads = rank_grads(model, trainer.params, shard_batch(batch, devices), devices)
+    reduced = reduce_grads(grads, LocalRing(devices), mode)
+    for path in reduced[0]:
+        if not all(same_bits(reduced[0][path], r[path]) for r in reduced[1:]):
+            raise AssertionError(f"{mode} {path}: ranks disagree")
+    return len(reduced[0])
+
+
+def rank_step_ms(model, trainer, data, w: int) -> list:
+    """Each rank's forward and backward on its shard of a w-ring step, CUDA
+    events around it, warm."""
+    batch = {k: torch.as_tensor(v) for k, v in data.batch(trainer.step).items()}
+    devices = trainer.group.devices[:w]
+    shards = shard_batch(batch, devices)
+    out = []
+    for r in range(w):
+        one, dev = shards[r:r + 1], devices[r:r + 1]
+        rank_grads(model, trainer.params, one, dev)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        rank_grads(model, trainer.params, one, dev)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def ft_path() -> dict:
+    """``FaultTolerantRunner`` over ``ElasticTrainer`` on qwen3-0.6b at full
+    width cut to FT_LAYERS layers, FT_MODE, FT_PLANS with FT_SURVIVORS left
+    in slot FT_FAIL_SLOT; at the failure the injector fills the trainer's
+    params and moments with NaN. Held: one recovery, step 8, one restore; the
+    restored state bit-identical to the state at the end of slot 0; every
+    loss bit-identical to a plain trainer's over FT_RAN from the same
+    weights; B1-B3 (int8) and B4's launches equal to FT_RAN's schedule in
+    both runs; the reduced gradients bit-identical across ranks; each
+    rank's heartbeat alive when read at once and dead when read past the
+    timeout."""
+    from repro_torch.training import FaultTolerantRunner, Heartbeat, HeartbeatMonitor
+    from repro_torch.training.checkpoint import latest_step
+
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=FT_LAYERS)
+    model = build_model(cfg)
+    data = SyntheticTokens(cfg.vocab, SEQ, GLOBAL_BATCH, seed=0)
+    init = model.init(0, device=DEVICE, dtype=torch.float32)
+    sizes = leaf_sizes(init)
+    want = {**expected_launches(FT_MODE, sizes, ft_rings()),
+            **fa_expected(cfg.n_layers, ft_rings(), cfg.remat)}
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    try:
+        trainer = ElasticTrainer(model, make_optimizer("adamw"), data,
+                                 global_batch=GLOBAL_BATCH, base_lr=LR,
+                                 mode=FT_MODE, device=DEVICE,
+                                 checkpoint_dir=ckpt_dir,
+                                 params=tree_map(lambda t: t.clone(), init))
+        slot_ends, slot_res, io_s = [], [], {"write": [], "read": []}
+        run_slot, restore, save = trainer.run_slot, trainer.restore, trainer._save
+
+        def recording_run_slot(plan):
+            res = run_slot(plan)
+            slot_res.append(res)
+            if not slot_ends:
+                slot_ends.append(state_copy(trainer))
+            return res
+
+        def timed_save():
+            t0 = time.perf_counter()
+            save()
+            io_s["write"].append(time.perf_counter() - t0)
+
+        def timed_restore():
+            t0 = time.perf_counter()
+            ok = restore()
+            torch.cuda.synchronize()
+            io_s["read"].append(time.perf_counter() - t0)
+            slot_ends.append(state_copy(trainer))
+            return ok
+
+        trainer.run_slot, trainer.restore, trainer._save = (
+            recording_run_slot, timed_restore, timed_save)
+
+        def injector(slot):
+            if slot == FT_FAIL_SLOT:
+                poison(trainer)
+                return FT_SURVIVORS
+            return None
+
+        runner = FaultTolerantRunner(trainer, fail_injector=injector)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = runner.run([SlotPlan(w, n) for w, n in FT_PLANS])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in all_launches().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        files = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".npz"))
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, files[-1]))
+        saved, restored = slot_ends
+        same_state = sorted(saved) == sorted(restored) and all(
+            same_bits(saved[k], restored[k]) for k in saved)
+        ft_losses = list(trainer.losses)
+        if not (res["recoveries"] == 1 and res["final_step"] == 8
+                and trainer.restores == 1 and latest_step(ckpt_dir) == 8
+                and same_state and launches == {k: v for k, v in want.items() if v}):
+            raise AssertionError(
+                f"fault tolerance: {res}, restores {trainer.restores}, restored "
+                f"state bit-identical {same_state}, launches {launches} against "
+                f"the schedule {want}")
+        n_leaves = reduced_bits_identical(model, trainer, data, FT_MODE, 4)
+        ms = rank_step_ms(model, trainer, data, 4)
+        monitor = HeartbeatMonitor(timeout=FT_TIMEOUT, straggler_factor=FT_STRAGGLER)
+        for rank, t in enumerate(ms):
+            monitor.beat(Heartbeat(worker=rank, step=trainer.step,
+                                   t=time.monotonic(), step_time=t / 1e3))
+        # read now, every rank has just beaten; read past the timeout with
+        # no beat since, every rank is dead
+        now = time.monotonic()
+        dead = (monitor.dead(now), monitor.dead(now + 2 * FT_TIMEOUT))
+        if dead != ([], list(range(len(ms)))):
+            raise AssertionError(f"heartbeats: dead now and past the timeout {dead}")
+        warm = {}
+        for r in slot_res:
+            for w, t in r["timings"].items():
+                warm[w] = min(warm.get(w, math.inf), t)
+        del trainer, runner, saved, restored, slot_ends
+        free_cuda()
+        plain = ElasticTrainer(model, make_optimizer("adamw"), data,
+                               global_batch=GLOBAL_BATCH, base_lr=LR,
+                               mode=FT_MODE, device=DEVICE, params=init)
+        reset_all_launches()
+        for w, n in FT_RAN:
+            plain.run_slot(SlotPlan(w, n))
+        torch.cuda.synchronize()
+        plain_launches = {k: v for k, v in all_launches().items() if v}
+        if plain.losses != ft_losses or plain_launches != launches:
+            raise AssertionError(f"fault tolerance: losses {ft_losses} against "
+                                 f"the plain trainer's {plain.losses}, launches "
+                                 f"{plain_launches}")
+        del plain
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = {"arch": ARCH, "n_layers": FT_LAYERS, "params": n_params(model.param_specs()),
+           "mode": FT_MODE, "plans": FT_PLANS, "ran": FT_RAN, **res,
+           "losses": ft_losses, "launches": launches, "seconds": seconds,
+           "peak_gib": peak / 2**30, "checkpoint_bytes": ckpt_bytes,
+           "checkpoints": len(files), "checkpoint_write_s": io_s["write"],
+           "checkpoint_read_s": io_s["read"],
+           "warm_step_s": {str(w): t for w, t in warm.items()},
+           "rank_step_ms": ms, "stragglers": monitor.stragglers(),
+           "reduced_leaves_bit_identical": n_leaves}
+    log(f"fault tolerance ({card_line()}): {ARCH} at {FT_LAYERS} layers, "
+        f"{out['params']} params, {FT_MODE}: recovered {res['recoveries']}x, "
+        f"step {res['final_step']}, restored state bit-identical to slot 0's "
+        f"end after the in-memory state was set to NaN; losses {ft_losses} "
+        f"bit-identical to the plain trainer over {FT_RAN}; launches {launches} "
+        f"equal the schedule; checkpoint {ckpt_bytes} B, written in "
+        f"{io_s['write']} s, read in {io_s['read']} s ({len(files)} files); "
+        f"warm step s {out['warm_step_s']}; rank ms {ms}, stragglers "
+        f"{out['stragglers']}; none dead now, all {len(ms)} dead "
+        f"{2 * FT_TIMEOUT} s on with no beat")
+    return {"launches": launches, "summary": out}
+
+
+def module_run(module: str, *args: str) -> subprocess.Popen:
+    """``python -m module args`` from the checkout's ``src``, started."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finished(proc: subprocess.Popen, what: str) -> list:
+    """The lines of a started run's stdout; raises unless it exits 0 within
+    CLI_TIMEOUT seconds."""
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}: {err[-3000:]}")
+    return out.strip().splitlines()
+
+
+def check_serve_cli(lines: list, arch: str) -> dict:
+    res = json.loads(lines[-1])
+    if not (res["device"].startswith("cuda") and res["requests"] == SERVE_CLI_BATCH
+            and res["decode_compiles"] == 1):
+        raise AssertionError(f"serving CLI {arch}: {res}")
+    return res
+
+
+def check_serve_batched(lines: list) -> dict:
+    """``serve_batched`` raises unless its own checks hold (each family
+    served 6/6 with a clean audit and each step captured once, the burst
+    taking training workers and handing them back, the reported SLO
+    attainment the log's); here only that every engine was on the card."""
+    res = json.loads(lines[-1])
+    engines, co = res["engines"], res["coschedule"]
+    devices = [e["device"] for e in engines.values()] + [co["device"]]
+    if not all(d.startswith("cuda") for d in devices):
+        raise AssertionError(f"serve_batched: devices {devices}")
+    for e in engines.values():
+        e.pop("tokens")
+    return res
+
+
+def calibration_cli() -> dict:
+    """``python -m repro_torch.cluster.calibrate`` at the reference's grid;
+    its samples read back and fitted; the fit moves a profile's bandwidth."""
+    from repro_torch.cluster.calibrate import (
+        calibrate_profile, fit_comm_model, load_timings)
+    from repro_torch.core.rar_model import profile_from_arch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_calibrate_")
+    try:
+        path = os.path.join(tmp, "ring_timings.json")
+        t0 = time.perf_counter()
+        lines = finished(module_run("repro_torch.cluster.calibrate", "--out", path),
+                         "calibrate")
+        seconds = time.perf_counter() - t0
+        samples = load_timings(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fit = fit_comm_model(samples)
+    prof = profile_from_arch(n_params=1.2e9, tokens_per_batch=4096 * 8)
+    moved = calibrate_profile(prof, samples)
+    if not (len(samples) == CALIBRATION_SAMPLES == fit.n_samples
+            and fit.bandwidth > 0 and moved.bandwidth != prof.bandwidth):
+        raise AssertionError(f"calibration: {len(samples)} samples, {fit}")
+    out = {"samples": [dataclasses.asdict(x) for x in samples],
+           "bandwidth_elems_per_s": fit.bandwidth, "overhead_s": fit.overhead,
+           "rms_s": fit.residual, "n_samples": fit.n_samples,
+           "profile_bandwidth": [prof.bandwidth, moved.bandwidth],
+           "seconds": seconds, "printed": lines[-1]}
+    log(f"calibration ({card_line()}): every rank on cuda:0, so b is a "
+        f"device-to-device copy's bandwidth, not a wire's: b "
+        f"{fit.bandwidth:.6g} elements/s ({fit.bandwidth * 4 / 1e9:.6g} GB/s "
+        f"of f32), gamma {fit.overhead * 1e6:.6g} us, rms {fit.residual:.6g} s "
+        f"over {fit.n_samples} samples; {seconds:.4f} s")
+    return out
+
+
+def clis_path() -> dict:
+    """Phase 12's subprocesses: the serving CLI for SERVE_CLI_ARCHS and
+    ``serve_batched``, side by side, then the calibration alone."""
+    t0 = time.perf_counter()
+    runs = {arch: module_run("repro_torch.launch.serve", "--arch", arch)
+            for arch in SERVE_CLI_ARCHS}
+    runs["serve_batched"] = module_run("repro_torch.launch.serve_batched")
+    out = {arch: check_serve_cli(finished(runs[arch], f"serving CLI {arch}"), arch)
+           for arch in SERVE_CLI_ARCHS}
+    out["serve_batched"] = check_serve_batched(
+        finished(runs["serve_batched"], "serve_batched"))
+    out["serving_seconds"] = time.perf_counter() - t0
+    log(f"CLIs on the card ({card_line()}): the serving CLI "
+        f"{ {a: out[a] for a in SERVE_CLI_ARCHS} }; serve_batched "
+        f"{json.dumps(out['serve_batched'])}; {out['serving_seconds']:.4f} s "
+        f"side by side")
+    out["calibration"] = calibration_cli()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -3142,12 +3789,19 @@ def main() -> int:
     log("summary encdec " + json.dumps(encdec["summary"]))
     free_cuda()
     done("phase 11 (encoder-decoder and VLM)")
+    ft = ft_path()
+    log("summary ft " + json.dumps(ft["summary"]))
+    free_cuda()
+    clis = clis_path()
+    log("summary clis " + json.dumps(clis))
+    done("phase 12 (fault tolerance, calibration, CLIs)")
     for path, launches in (("rwkv ring", rwkv["launches"]),
                            ("zamba2 ring", zamba["launches"]),
                            ("gadget loop", gloop["launches"]),
                            ("serving forward checks", serving["launches"]),
                            ("phi3.5-moe compressed-fused", moe["launches"]),
-                           ("encoder-decoder and VLM ranks", encdec["launches"])):
+                           ("encoder-decoder and VLM ranks", encdec["launches"]),
+                           ("fault-tolerant qwen3", ft["launches"])):
         for name, n in launches.items():
             if n:
                 rows[name]["launches"] += n

@@ -1,6 +1,5 @@
 """Calibrate Eq. (1) bandwidth from measured ring-all-reduce timings (the
-numpy half of ``repro.cluster.calibrate``, copied; the measurement CLI that
-times rings on devices is not ported yet).
+counterpart of ``repro.cluster.calibrate``).
 
 Timings of ring all-reduces (or of whole train steps, as
 ``sched.backend.LiveBackend`` feeds them) are fitted to the Eq. (1)
@@ -11,17 +10,27 @@ communication model:
 A linear least-squares over (x, t) yields ``slope`` and ``overhead``; given a
 reduction throughput G (or attributing everything to the wire with G -> inf)
 the calibrated per-hop bandwidth is ``b = 2 / (slope - 1/G)``.
+
+:func:`measure_ring_timings` (and ``python -m repro_torch.cluster.calibrate``)
+times the port's f32 ``dist.collectives.ring_all_reduce`` over a
+``LocalRing`` whose ranks all live on one device, in this process, as the
+reference times its ring over one process's devices. Each hop is then a
+copy within that device, so on one card the fitted ``b`` is the bandwidth
+of a device-to-device copy, not of a wire between cards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Iterable, List, Sequence
+import time
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.rar_model import RarJobProfile
+from repro_torch.dist.collectives import LocalRing, ring_all_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,3 +137,71 @@ def load_timings(path: str) -> List[RingTimingSample]:
 def dump_timings(samples: Iterable[RingTimingSample], path: str) -> None:
     with open(path, "w") as f:
         json.dump([dataclasses.asdict(s) for s in samples], f, indent=1)
+
+
+# ---------------------------------------------------------------------------
+# Measurement: a LocalRing of w ranks on one device
+# ---------------------------------------------------------------------------
+
+def measure_ring_timings(
+    worlds: Sequence[int] = (2, 4, 8),
+    n_elements: Sequence[int] = (1 << 14, 1 << 16, 1 << 18),
+    repeats: int = 5,
+    device="cuda",
+) -> List[RingTimingSample]:
+    """Time the f32 ``ring_all_reduce`` over a ``LocalRing`` of w ranks, all
+    on ``device``, for every (world, size) of the grid (worlds below 2 are
+    skipped, as in the reference; every other world runs, since one device
+    holds any number of ranks). One warm call, then the best of
+    ``repeats`` wall times, each ended by a device sync on a card."""
+    dev = torch.device(device)
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out: List[RingTimingSample] = []
+    for w in worlds:
+        if w < 2:
+            continue
+        ring = LocalRing([dev] * w)
+        for d in n_elements:
+            xs = [torch.ones(d, dtype=torch.float32, device=dev)
+                  for _ in range(w)]
+            ring_all_reduce(xs, ring)  # warm up
+            sync()
+            best = float("inf")
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                ring_all_reduce(xs, ring)
+                sync()
+                best = min(best, time.perf_counter() - t0)
+            out.append(RingTimingSample(world=w, n_elements=d, seconds=best))
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    """Record ring timings to JSON and print the fit (in this process)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="python -m repro_torch.cluster.calibrate",
+        description="Time the f32 ring all-reduce over a LocalRing of 2, 4 "
+                    "and 8 ranks on one device and fit Eq. (1) to it.")
+    parser.add_argument("--out", default="ring_timings.json")
+    parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+
+    samples = measure_ring_timings(repeats=args.repeats, device=args.device)
+    dump_timings(samples, args.out)
+    fit = fit_comm_model(samples)
+    print(f"recorded {len(samples)} samples -> {args.out}; "
+          f"fitted b={fit.bandwidth:.3e} elems/s, "
+          f"gamma={fit.overhead * 1e6:.1f} us, rms={fit.residual:.2e}s "
+          f"(every rank on {args.device}: b is a copy within that device, "
+          f"not a wire between devices)")
+
+
+if __name__ == "__main__":
+    main()

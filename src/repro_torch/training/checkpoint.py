@@ -43,6 +43,16 @@ def save_checkpoint(directory: str, *, params, opt_state=None, step: int = 0,
     return path
 
 
+def latest_step(directory: str) -> Optional[int]:
+    """The step of the newest checkpoint in ``directory`` (None without a
+    manifest)."""
+    mpath = os.path.join(directory, "manifest.json")
+    if not os.path.exists(mpath):
+        return None
+    with open(mpath) as f:
+        return int(json.load(f)["step"])
+
+
 def load_checkpoint(directory: str) -> Tuple[Any, Any, int, Dict]:
     """Returns (params, opt_state, step, extra) as numpy trees; carry them
     onto a device with ``models.module.params_from_reference``."""

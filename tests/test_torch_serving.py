@@ -84,6 +84,9 @@ FAMILIES = ("qwen3-0.6b", "h2o-danube-1.8b", "rwkv6-7b", "zamba2-1.2b")
 # the window of h2o-danube-1.8b's reduced config is 4096: cut to 8 so that a
 # 24-slot cache is a ring buffer that wraps
 WINDOW = {"h2o-danube-1.8b": 8}
+# Mamba2LM: zamba2-1.2b's config with family="ssm", as tests/test_torch_ssm.py
+# builds it
+MAMBA2 = "zamba2-1.2b/ssm"
 REL = 1e-4
 ZAMBA_BF16_STEP = 1e-3
 B, S, MAX_SEQ = 2, 20, 24
@@ -109,7 +112,12 @@ def one_torch_thread():
 
 
 def configs(arch):
-    jcfg, cfg = jax_get_arch(arch).reduced(), get_arch(arch).reduced()
+    """Both sides' reduced configs of ``arch``; ``MAMBA2`` is Mamba2LM."""
+    name, _, family = arch.partition("/")
+    jcfg, cfg = jax_get_arch(name).reduced(), get_arch(name).reduced()
+    if family:
+        jcfg = dataclasses.replace(jcfg, family=family)
+        cfg = dataclasses.replace(cfg, family=family)
     if arch in WINDOW:
         jcfg = dataclasses.replace(jcfg, sliding_window=WINDOW[arch])
         cfg = dataclasses.replace(cfg, sliding_window=WINDOW[arch])
@@ -706,7 +714,8 @@ def test_serve_job_utility_identical(utility_case):
 # the source of the card's limits
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b", "zamba2-1.2b",
+                                  MAMBA2])
 def test_reference_forward_decode_gap_is_the_cards_source(arch):
     """The reference's own gap between its training forward and its decode
     (bf16 cache; 2 sequences of 64 tokens; every position) at reduced
