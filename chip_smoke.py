@@ -141,7 +141,18 @@ non-zero and prints no result. Phases, each raising on failure:
      ``python -m repro_torch.launch.serve_batched`` side by side, and
      ``python -m repro_torch.cluster.calibrate`` alone (the fitted bandwidth
      is a copy within the card's memory: every rank is ``cuda:0``);
- 13. the ``kernels`` JSON line, the card line, and last the result line.
+ 13. the analyses on the card: the collective verifier
+     (``repro_torch.analysis.collectives``) records every registered ring
+     variant and step mode over a ``RecordingRing`` on the card, the fused
+     variants through the ring kernels, each fused variant's launches held to
+     its ring schedule, with no finding and no silent fixture of the mutation
+     suite; every kernel instantiation's registers, shared and local memory
+     and blocks per SM read on the card (``repro_torch.analysis.kernels``),
+     the predicted blocks per SM equal to the occupancy API's; then both
+     CLIs, ``python -m repro_torch.analysis.collectives`` and ``python -m
+     repro_torch.analysis.kernels --execute``, side by side;
+ 14. the ``launch_configs`` JSON line, the ``kernels`` JSON line, the card
+     line, and last the result line.
 """
 
 from __future__ import annotations
@@ -167,6 +178,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.analysis import collectives as AC  # noqa: E402
+from repro_torch.analysis import kernels as AK  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.dist.collectives import LocalRing, ring_all_reduce  # noqa: E402
@@ -481,6 +494,11 @@ CALIBRATION_SAMPLES = 9
 SERVE_CLI_ARCHS, SERVE_CLI_BATCH = ("qwen3-0.6b", "zamba2-1.2b"), 4
 # each CLI run's time limit, seconds
 CLI_TIMEOUT = 600
+# Phase 13: the fused ring variants the collective verifier records through
+# the ring kernels, and the mode whose ring schedule each call follows
+# (error feedback's compression adds one dequantize a rank)
+VERIFIER_FUSED = {"int8-fused": "compressed-fused", "bf16-fused": "bf16-fused",
+                  "fp8-fused": "fp8-fused", "ef-int8-fused": "compressed-fused"}
 
 
 def log(msg: str) -> None:
@@ -3687,6 +3705,102 @@ def clis_path() -> dict:
     return out
 
 
+# -- phase 13: the analyses on the card ---------------------------------------
+
+def verifier_launches(name: str, worlds, ds) -> dict:
+    """The ring kernels' launches of recording the fused variant ``name``
+    over ``worlds`` x ``ds`` on each input family: one call a record, on
+    its mode's ring schedule (``expected_launches`` of one unit at ring
+    size w)."""
+    out = dict.fromkeys(qr.LAUNCHES, 0)
+    for w in worlds:
+        for d in ds:
+            want = expected_launches(VERIFIER_FUSED[name], [d], rings=[w])
+            if name.startswith("ef-"):
+                want["dequant"] += w
+            for kernel, n in want.items():
+                out[kernel] += n * len(AC.FAMILIES)
+    return out
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def analysis_path() -> dict:
+    """Phase 13: the collective verifier in this process on the card (each
+    fused variant's kernel launches held to its ring schedule, then the
+    whole sweep and the mutation suite with the counters set to 0 just
+    before), every kernel instantiation's resources and blocks per SM, and
+    both analysis CLIs as processes of their own."""
+    from repro_torch.dist.registry import RING_VARIANTS
+
+    t0 = time.perf_counter()
+    per_variant = {}
+    for variant in RING_VARIANTS:
+        if variant.name not in VERIFIER_FUSED:
+            continue
+        reset_all_launches()
+        found = AC.verify_ring_variant(variant, AC.DEFAULT_WORLDS,
+                                       AC.DEFAULT_DS, device=DEVICE)
+        torch.cuda.synchronize()
+        got = nonzero(all_launches())
+        want = nonzero(verifier_launches(variant.name, AC.DEFAULT_WORLDS,
+                                         AC.DEFAULT_DS))
+        if found or got != want:
+            raise AssertionError(
+                f"verifier on {variant.name}: findings "
+                f"{[str(f) for f in found]}; launches {got}, schedule {want}")
+        per_variant[variant.name] = got
+    reset_all_launches()
+    findings, stats = AC.run_verifier(device=DEVICE)
+    silent = AC.run_self_test(device=DEVICE)
+    torch.cuda.synchronize()
+    launches = dict(all_launches())
+    if findings or silent:
+        raise AssertionError(f"verifier on the card: findings "
+                             f"{[str(f) for f in findings]}; silent {silent}")
+    missing = [k for k in qr.LAUNCHES if not launches[k]]
+    if missing:
+        raise AssertionError(f"the verifier's sweep launched no {missing}")
+    verifier_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    configs = AK.card_launch_configs()
+    bad = [r for r in configs if r["verdict"].startswith("reject")
+           or r["dynamic_smem"] > AK.SMEM_PER_BLOCK
+           or r["predicted_blocks_per_sm"] != r["reported_blocks_per_sm"]]
+    if bad:
+        raise AssertionError(f"launch configs rejected: {bad}")
+    configs_s = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    runs = {"collectives": module_run("repro_torch.analysis.collectives"),
+            "kernels": module_run("repro_torch.analysis.kernels", "--execute")}
+    printed = {what: finished(proc, what)[-1] for what, proc in runs.items()}
+    if not (f" on {DEVICE}" in printed["collectives"]
+            and " 0 finding(s)" in printed["collectives"]
+            and "0 silent -> OK" in printed["collectives"]
+            and printed["kernels"].endswith("-> OK")):
+        raise AssertionError(f"analysis CLIs: {printed}")
+    clis_s = time.perf_counter() - t2
+    summary = {
+        "verifier": dataclasses.asdict(stats), "findings": len(findings),
+        "silent_fixtures": len(silent), "fused_variant_launches": per_variant,
+        "spills": {r["kernel"]: r["local_bytes"] for r in configs
+                   if r["local_bytes"]},
+        "clis": printed, "verifier_s": verifier_s,
+        "launch_configs_s": configs_s, "clis_s": clis_s}
+    log(f"analysis on the card ({card_line()}): verifier {stats.records} "
+        f"records, {stats.hops} hops, {len(findings)} findings, "
+        f"{len(silent)} silent fixtures in {verifier_s:.4f} s; "
+        f"{len(configs)} kernel instantiations, predicted blocks per SM "
+        f"equal to the occupancy API's, in {configs_s:.4f} s; both CLIs "
+        f"exit 0 in {clis_s:.4f} s side by side")
+    return {"launches": launches, "launch_configs": configs,
+            "summary": summary}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -3795,6 +3909,9 @@ def main() -> int:
     clis = clis_path()
     log("summary clis " + json.dumps(clis))
     done("phase 12 (fault tolerance, calibration, CLIs)")
+    analysis = analysis_path()
+    log("summary analysis " + json.dumps(analysis["summary"]))
+    done("phase 13 (analysis on the card)")
     for path, launches in (("rwkv ring", rwkv["launches"]),
                            ("zamba2 ring", zamba["launches"]),
                            ("gadget loop", gloop["launches"]),
@@ -3806,11 +3923,19 @@ def main() -> int:
             if n:
                 rows[name]["launches"] += n
                 rows[name]["launches_by_mode"][path] = n
+    # held before the verifier's launches join the rows: its 96- and
+    # 777-element records alone must not stand for a path
     missing = [name for name, row in rows.items() if not row["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")
+    for name, n in analysis["launches"].items():
+        if n:
+            rows[name]["launches"] += n
+            rows[name]["launches_by_mode"]["collective verifier"] = n
     log("phase seconds " + json.dumps(phase_s))
 
+    print(json.dumps({"launch_configs": analysis["launch_configs"]}),
+          flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

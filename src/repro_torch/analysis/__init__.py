@@ -7,12 +7,24 @@
   * :mod:`repro_torch.analysis.sanitize` — the opt-in runtime sanitizer
     (``OnlineDriver(sanitize=True)`` / ``REPRO_SANITIZE=1``): per-slot
     domain-invariant assertions.
+  * :mod:`repro_torch.analysis.collectives` — the collective verifier:
+    every registered ring variant and train-step mode recorded over a
+    ``RecordingRing`` and checked on four axes (ring topology, differential
+    deadlock order, Eq. (1) pricing, recompile hazards)
+    (``python -m repro_torch.analysis.collectives``).
+  * :mod:`repro_torch.analysis.fixtures` — the verifier's seeded mutation
+    suite: one deliberately broken ring for each axis, which must fire.
+  * :mod:`repro_torch.analysis.kernels` — the launch-config checker of the
+    CUDA kernels: threads, shared memory, grid and instantiated shapes
+    against Hopper's limits, the hop message's trailer, and on the card each
+    kernel's resources and blocks per SM
+    (``python -m repro_torch.analysis.kernels``).
   * :mod:`repro_torch.analysis.baseline` — the suppression ledger the lint
-    gates on.
+    and the verifier gate on.
 
-The package exports the sanitizer and the baseline API; the lint is reached
-as ``repro_torch.analysis.lint`` (imported here, ``python -m`` would load it
-twice).
+The package exports the sanitizer and the baseline API; the lint, the
+verifier and the checker are reached as ``repro_torch.analysis.<name>``
+(imported here, ``python -m`` would load them twice).
 """
 
 from repro_torch.analysis.baseline import (  # noqa: F401

@@ -57,9 +57,10 @@ class LocalRing:
     """The ranks of one ring, all driven by this process.
 
     Rank r lives on ``devices[r]``; on one card every rank is the same
-    device. :meth:`hop` is one ppermute along the forward (or reversed)
-    ring: rank r receives a copy of what its ring neighbour sent, in a
-    buffer of its own on its own device. ``messages[r]`` and ``bytes[r]``
+    device. :meth:`permute` is one ppermute with any permutation, and
+    :meth:`hop` one along the forward (or reversed) ring: a rank receives
+    a copy of what its sender sent, in a buffer of its own on its own
+    device. ``messages[r]`` and ``bytes[r]``
     count what rank r sent on the ring, ``directions`` the ring
     permutations the hops used, and ``psums[r]`` the psum collectives rank
     r joined, which are no ring hops.
@@ -73,18 +74,31 @@ class LocalRing:
         self.psums = [0] * self.size
         self.directions: set = set()
 
-    def hop(self, sends: Sequence[torch.Tensor], *, reverse: bool = False
-            ) -> List[torch.Tensor]:
+    def permute(self, sends: Sequence[torch.Tensor],
+                perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+        """One ppermute with any permutation (the counterpart of
+        ``lax.ppermute``): for each ``(src, dst)`` pair, rank ``dst``
+        receives a copy of ``sends[src]`` on its own device. Checks only
+        that there is one message and one pair per rank."""
         w = self.size
         if len(sends) != w:
-            raise ValueError(f"hop needs one message per rank ({w}), "
+            raise ValueError(f"permute needs one message per rank ({w}), "
                              f"got {len(sends)}")
+        if len(perm) != w:
+            raise ValueError(f"permute needs one (src, dst) pair per rank "
+                             f"({w}), got {len(perm)}")
         recvs: List[torch.Tensor] = [None] * w
-        for src, dst in _ring_perm(w, reverse):
+        for src, dst in perm:
             msg = sends[src]
             recvs[dst] = msg.to(self.devices[dst], copy=True)
             self.messages[src] += 1
             self.bytes[src] += msg.numel() * msg.element_size()
+        return recvs
+
+    def hop(self, sends: Sequence[torch.Tensor], *, reverse: bool = False
+            ) -> List[torch.Tensor]:
+        """One ppermute along the forward (or reversed) ring."""
+        recvs = self.permute(sends, _ring_perm(self.size, reverse))
         self.directions.add("reverse" if reverse else "forward")
         return recvs
 

@@ -2,12 +2,12 @@
 
 Each ``csrc/*.cu`` file is one shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` (H100) and loaded with ``ctypes``. A
-library's file name carries a hash of its source and of the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. There is
-no fallback: a missing ``nvcc`` or a failed compile raises. Beside the
-build, what the wrappers of the chunked scans share: their inputs on 16
-bytes (:func:`on_16_bytes`) and their scratch in one allocation a call
-(:func:`scratch`).
+library's file name carries a hash of its source, of the ``csrc/*.cuh``
+headers and of the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. There is no fallback: a missing ``nvcc``
+or a failed compile raises. Beside the build, what the wrappers of the
+chunked scans share: their inputs on 16 bytes (:func:`on_16_bytes`) and
+their scratch in one allocation a call (:func:`scratch`).
 """
 
 from __future__ import annotations
@@ -47,10 +47,12 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built for its current
-    source and flags."""
+    source, the headers beside it and the flags."""
     digest = hashlib.sha256()
     digest.update(" ".join(NVCC_FLAGS).encode())
     digest.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -93,6 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_config.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // B4's NEG_INF, not -inf
@@ -814,23 +816,17 @@ int dq(const void* q, const void* k, const void* v, const void* dout, const void
                 static_cast<T*>(dqp), d);
 }
 
-// Blocks of F1 (which 0), F3 (1) or F4 (2) that fit on one SM, as
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor reports.
-template <typename Kernel>
-int occupancy(Kernel kernel, int threads, size_t smem, int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem));
-}
+// The resources of F1 (which 0), F2 (1), F3 (2) or F4 (3) at head_dim D and
+// type T (see launch_resources()).
 template <int D, typename T>
-int blocks_per_sm(int which, int* blocks) {
+int launch_config(int which, int* out) {
   switch (which) {
-    case 0: return occupancy(fwd_kernel<D, T>, kMmaThreads, fwd_smem<D>(), blocks);
-    case 1:
-      return occupancy(bwd_dkdv_kernel<D, T>, kDkdvGroups * kMmaThreads, dkdv_smem<D>(), blocks);
-    case 2: return occupancy(bwd_dq_kernel<D, T>, kMmaThreads, dq_smem<D>(), blocks);
+    case 0: return launch_resources(fwd_kernel<D, T>, kMmaThreads, fwd_smem<D>(), out);
+    case 1: return launch_resources(bwd_preprocess_kernel<D, T>, kThreads, 0, out);
+    case 2:
+      return launch_resources(bwd_dkdv_kernel<D, T>, kDkdvGroups * kMmaThreads,
+                              dkdv_smem<D>(), out);
+    case 3: return launch_resources(bwd_dq_kernel<D, T>, kMmaThreads, dq_smem<D>(), out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -894,8 +890,10 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
   DISPATCH(head_dim, bf16, dq, q, k, v, dout, lse, delta, dqp, d, stream);
 }
 
-int flash_attention_blocks_per_sm(int which, int head_dim, int bf16, void* blocks) {
-  DISPATCH(head_dim, bf16, blocks_per_sm, which, static_cast<int*>(blocks));
+// The resources of F1 (which 0), F2 (1), F3 (2) or F4 (3) at head_dim and
+// dtype (see launch_resources()).
+int flash_attention_launch_config(int which, int head_dim, int bf16, void* out) {
+  DISPATCH(head_dim, bf16, launch_config, which, static_cast<int*>(out));
 }
 
 }  // extern "C"

@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_config.cuh"
+
 namespace {
 
 constexpr int kRowThreads = 256;
@@ -383,6 +385,30 @@ int quant_ring_bf16_upcast(const void* recv, void* out, int64_t n, void* stream)
   bf16_upcast_kernel<<<flat_blocks(n), kFlatThreads, 0, as_stream(stream)>>>(
       static_cast<const __nv_bfloat16*>(recv), static_cast<float*>(out), n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The resources of kernel `which` (see launch_resources()), in the order of
+// the entry points above: the int8 then the fp8 instantiations of
+// quantize_pack, dequant_add_quantize, dequant_accumulate and dequant; then
+// cast_pack_bf16, bf16_add_cast, bf16_accumulate and bf16_upcast. None takes
+// dynamic shared memory.
+int quant_ring_launch_config(int which, void* out) {
+  int* o = static_cast<int*>(out);
+  switch (which) {
+    case 0: return launch_resources(quantize_pack_kernel<Int8Wire>, kRowThreads, 0, o);
+    case 1: return launch_resources(dequant_add_quantize_kernel<Int8Wire>, kRowThreads, 0, o);
+    case 2: return launch_resources(dequant_accumulate_kernel<Int8Wire>, kRowThreads, 0, o);
+    case 3: return launch_resources(dequant_kernel<Int8Wire>, kRowThreads, 0, o);
+    case 4: return launch_resources(quantize_pack_kernel<Fp8Wire>, kRowThreads, 0, o);
+    case 5: return launch_resources(dequant_add_quantize_kernel<Fp8Wire>, kRowThreads, 0, o);
+    case 6: return launch_resources(dequant_accumulate_kernel<Fp8Wire>, kRowThreads, 0, o);
+    case 7: return launch_resources(dequant_kernel<Fp8Wire>, kRowThreads, 0, o);
+    case 8: return launch_resources(cast_pack_bf16_kernel, kCastThreads, 0, o);
+    case 9: return launch_resources(bf16_add_cast_kernel, kFlatThreads, 0, o);
+    case 10: return launch_resources(bf16_accumulate_kernel, kFlatThreads, 0, o);
+    case 11: return launch_resources(bf16_upcast_kernel, kFlatThreads, 0, o);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -98,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_config.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // 8 warps
@@ -950,6 +952,24 @@ int bwd(const void* x, const void* dt, const void* A, const void* bm, const void
     return static_cast<int>(cudaErrorInvalidValue);                                      \
   } while (0)
 
+template <int N, int P, typename T>
+int launch_config(int which, int* out) {
+  switch (which) {
+    case 0: return launch_resources(chunk_sum_kernel<N, P, T, false>, kThreads,
+                                    sizeof(float) * sum_floats<N, P>(), out);
+    case 1: return launch_resources(pass_kernel<false>, kThreads, 0, out);
+    case 2: return launch_resources(fwd_out_kernel<N, P, T>, kThreads,
+                                    sizeof(float) * fwd_floats<N, P>(), out);
+    case 3: return launch_resources(chunk_sum_kernel<N, P, T, true>, kThreads,
+                                    sizeof(float) * sum_floats<N, P>(), out);
+    case 4: return launch_resources(pass_kernel<true>, kThreads, 0, out);
+    case 5: return launch_resources(bwd_chunk_kernel<N, P, T>, kThreads,
+                                    sizeof(float) * bwd_floats<N, P>(), out);
+    case 6: return launch_resources(finish_kernel, kThreads, 0, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -976,6 +996,13 @@ int ssd_bwd(const void* x, const void* dt, const void* A, const void* bm, const 
   if (!dims(batch, seq, heads, chunk, &d)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(state, head_dim, bf16, bwd, x, dt, A, bm, cm, states, dy, dx, ddt, dA, dB, dC, cb, el,
            ds, da_part, db_part, dc_part, heads_per_block, d, stream);
+}
+
+// The resources of S1's kernels (which 0-2: chunk sums, pass, outputs) and
+// S2's (3-6: chunk sums, pass, chunk-local terms, sums) at the state size,
+// head_dim and dtype (see launch_resources()).
+int ssd_scan_launch_config(int which, int state, int head_dim, int bf16, void* out) {
+  DISPATCH(state, head_dim, bf16, launch_config, which, static_cast<int*>(out));
 }
 
 }  // extern "C"

@@ -105,6 +105,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_config.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
@@ -850,6 +852,22 @@ int bwd(const void* r, const void* k, const void* v, const void* lw, const void*
     }                                                                                       \
   } while (0)
 
+template <int P, typename T>
+int launch_config(int which, int* out) {
+  switch (which) {
+    case 0: return launch_resources(chunk_sum_kernel<P, T, false>, kThreads, 0, out);
+    case 1: return launch_resources(pass_kernel<P, false>, kThreads, 0, out);
+    case 2: return launch_resources(fwd_out_kernel<P, T>, kThreads,
+                                    sizeof(float) * fwd_floats<P>(), out);
+    case 3: return launch_resources(chunk_sum_kernel<P, T, true>, kThreads, 0, out);
+    case 4: return launch_resources(pass_kernel<P, true>, kThreads, 0, out);
+    case 5: return launch_resources(bwd_chunk_kernel<P, T>, kThreads,
+                                    sizeof(float) * bwd_floats<P>(), out);
+    case 6: return launch_resources(du_finish_kernel<P>, kThreads, 0, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -873,6 +891,13 @@ int wkv6_bwd(const void* r, const void* k, const void* v, const void* lw, const 
   if (!dims(batch, seq, heads, chunk, &d)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(head_dim, bf16, bwd, r, k, v, lw, u, states, dy, dr, dk, dv, dlw, du, ds, el,
            du_part, d, stream);
+}
+
+// The resources of W1's kernels (which 0-2: chunk sums, pass, outputs) and
+// W2's (3-6: chunk sums, pass, chunk-local terms, du) at head_dim and dtype
+// (see launch_resources()).
+int wkv6_launch_config(int which, int head_dim, int bf16, void* out) {
+  DISPATCH(head_dim, bf16, launch_config, which, static_cast<int*>(out));
 }
 
 }  // extern "C"

@@ -27,8 +27,8 @@ measurements. F2 uses f32 FMAs.
 
 Their wrappers are :func:`flash_attention_fwd`, :func:`bwd_preprocess`,
 :func:`bwd_dkdv` and :func:`bwd_dq`; :func:`flash_attention_bwd` runs the
-last three in turn. :func:`blocks_per_sm` reports the occupancy of F1, F3
-and F4 on the card.
+last three in turn. :func:`blocks_per_sm` reports the occupancy of each on
+the card.
 
 Each has a plain PyTorch version beside it (``*_plain``): the same blocked
 arithmetic in torch ops, B4's padding and masking included. A tensor on the
@@ -246,23 +246,23 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes + [_PTR]   # then the stream
         fn.restype = ctypes.c_int
-    lib.flash_attention_blocks_per_sm.argtypes = [_INT, _INT, _INT, _PTR]
-    lib.flash_attention_blocks_per_sm.restype = ctypes.c_int
+    lib.flash_attention_launch_config.argtypes = [_INT, _INT, _INT, _PTR]
+    lib.flash_attention_launch_config.restype = ctypes.c_int
     return lib
 
 
 def blocks_per_sm(kernel: str, head_dim: int, dtype: torch.dtype) -> int:
-    """Blocks of F1, F3 or F4 (by kernel name) that fit on one SM of the
-    current card at ``head_dim`` and ``dtype``, as
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports."""
-    which = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
-             "flash_attention_bwd_dq").index(kernel)
-    out = ctypes.c_int(0)
-    err = _lib().flash_attention_blocks_per_sm(
+    """Blocks of F1, F2, F3 or F4 (by kernel name) that fit on one SM of
+    the current card at ``head_dim`` and ``dtype``, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports: the last of
+    the seven ints of the ``flash_attention_launch_config`` query."""
+    which = list(_SIGNATURES).index(kernel)   # the query's F1-F4 order
+    out = (ctypes.c_int * 7)()
+    err = _lib().flash_attention_launch_config(
         which, head_dim, int(dtype == torch.bfloat16), ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"occupancy of {kernel} failed: cudaError {err}")
-    return out.value
+    return out[6]
 
 
 def _route(*tensors: torch.Tensor) -> bool:

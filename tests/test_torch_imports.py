@@ -40,7 +40,9 @@ def test_port_modules_import_without_jax_or_reference():
                  "configs.arctic_480b", "configs.whisper_large_v3",
                  "configs.internvl2_26b", "configs.phi3_medium_14b",
                  "training.ft", "training.checkpoint", "analysis.baseline",
-                 "analysis.lint", "launch.quickstart", "launch.serve_batched"):
+                 "analysis.lint", "launch.quickstart", "launch.serve_batched",
+                 "analysis.collectives", "analysis.fixtures",
+                 "analysis.kernels"):
         assert f"repro_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
