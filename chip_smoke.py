@@ -151,7 +151,21 @@ non-zero and prints no result. Phases, each raising on failure:
      the predicted blocks per SM equal to the occupancy API's; then both
      CLIs, ``python -m repro_torch.analysis.collectives`` and ``python -m
      repro_torch.analysis.kernels --execute``, side by side;
- 14. the ``launch_configs`` JSON line, the ``kernels`` JSON line, the card
+ 14. the GSPMD path (``gspmd_path``): ``make_train_step`` on qwen3-0.6b at
+     full width and depth (28 layers, seq 1024, global batch 8, f32 AdamW),
+     one step on plain tensors and the same step on DTensors over a
+     one-rank (1, 1) ``DeviceMesh`` (``nccl``) under ``activate(rules)``:
+     its loss, gradient norm, parameters and optimizer state bit-identical
+     to the plain step's, B4's launches at the schedule (2*L forwards and L
+     of each backward kernel, with remat); then that step in 4 microbatches
+     (B4 4 times as often; loss, gradient norm and AdamW's first moment
+     within 1e-4 of the one-microbatch step's); meanwhile, as processes of
+     their own, the dry run of that cell on a fake (1, 1) mesh (its
+     argument bytes held equal to the real tensors', its temporary bytes
+     printed beside the step's measured peak), and ``python -m
+     repro_torch.launch.dryrun`` and ``profile_cell --metric flops`` for
+     qwen3-0.6b train_4k on the 16x16 fake mesh (``summary gspmd`` line);
+ 15. the ``launch_configs`` JSON line, the ``kernels`` JSON line, the card
      line, and last the result line.
 """
 
@@ -497,6 +511,17 @@ CLI_TIMEOUT = 600
 # Phase 13: the fused ring variants the collective verifier records through
 # the ring kernels, and the mode whose ring schedule each call follows
 # (error feedback's compression adds one dequantize a rank)
+# Phase 14: the GSPMD step of make_train_step on a one-rank (1, 1) DeviceMesh,
+# qwen3-0.6b at full width and depth (ARCH, SEQ, GLOBAL_BATCH, LR, f32
+# AdamW). Four microbatches against one: the loss and the gradient norm
+# within the reference's rel=1e-4 on the loss (tests/test_training.py:91),
+# and every leaf of AdamW's first moment, (1 - b1) times the gradient after
+# one step, within 1e-4 of its largest value (f32 sums over the batch taken
+# in four parts; the parameters themselves can move by up to 2 LR where a
+# gradient near 0 changes sign, so they are printed, not held)
+GSPMD_MICROBATCHES, GSPMD_TOL = 4, 1e-4
+# the dry run's cells run on the card's host: 16x16, as the reference's
+GSPMD_DRYRUN = ("qwen3-0.6b", "train_4k")
 VERIFIER_FUSED = {"int8-fused": "compressed-fused", "bf16-fused": "bf16-fused",
                   "fp8-fused": "fp8-fused", "ef-int8-fused": "compressed-fused"}
 
@@ -3705,6 +3730,204 @@ def clis_path() -> dict:
     return out
 
 
+# -- phase 14: the GSPMD path -------------------------------------------------
+
+def on_one_rank(mesh, tree, placements):
+    """Each leaf of ``tree`` as a DTensor on a one-rank mesh: its local
+    shard is the tensor itself, so no copy is made."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: on_one_rank(mesh, v, placements[k]) for k, v in tree.items()}
+    return DTensor.from_local(tree, mesh, list(placements), run_check=False)
+
+
+def local_leaves(tree) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    return {p: v.to_local() if isinstance(v, DTensor) else v
+            for p, v in _flatten(tree)}
+
+
+def start_dryruns(cfg) -> dict:
+    """Phase 14's dry runs, each a process of its own (the fake world is
+    process-global), started together so that they run on the host while
+    the steps run on the card: the phase's cell on a fake (1, 1) mesh with
+    f32 parameters (it prints its record), and ``python -m
+    repro_torch.launch.dryrun`` and ``profile_cell --metric flops --top 5``
+    on the 16x16 fake mesh."""
+    code = (
+        "import json, torch\n"
+        "from repro_torch.configs.base import ArchConfig, ShapeConfig\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.launch.mesh import mesh_of, start_fake_world\n"
+        "start_fake_world(1)\n"
+        f"cfg = ArchConfig(**json.loads({json.dumps(dataclasses.asdict(cfg))!r}))\n"
+        f"rec = dryrun.run_cell(cfg, ShapeConfig('chip', {SEQ}, "
+        f"{GLOBAL_BATCH}, 'train'), multi_pod=False, out_dir=None, verbose=False, "
+        "mesh=mesh_of((1, 1), ('data', 'model')), param_dtype=torch.float32)\n"
+        "print(json.dumps(rec))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    arch, shape = GSPMD_DRYRUN
+    return {"t0": time.perf_counter(),
+            "cell": subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True),
+            "dryrun": module_run("repro_torch.launch.dryrun", "--arch", arch,
+                                 "--shape", shape),
+            "profile": module_run("repro_torch.launch.profile_cell", "--arch",
+                                  arch, "--shape", shape, "--metric", "flops",
+                                  "--top", "5")}
+
+
+def finish_dryruns(runs: dict, arg_bytes: int) -> dict:
+    """The dry runs' records and their seconds since they started; the
+    (1, 1) cell's argument bytes held to the real tensors'."""
+    lines = {k: finished(runs[k], k) for k in ("cell", "dryrun", "profile")}
+    seconds = time.perf_counter() - runs["t0"]
+    pred = json.loads(lines["cell"][-1])
+    if pred["memory"]["argument_size_in_bytes"] != arg_bytes:
+        raise AssertionError(f"dry run's argument bytes {pred['memory']} != the "
+                             f"real tensors' {arg_bytes}")
+    if lines["dryrun"][-1] != "[dryrun] all cells OK":
+        raise AssertionError(f"dry run CLI: {lines['dryrun'][-3:]}")
+    arch, shape = GSPMD_DRYRUN
+    with open(ROOT / "results" / "dryrun_torch" / "16x16"
+              / f"{arch}__{shape}.json") as f:
+        record = json.load(f)
+    return {"seconds_since_start": seconds, "cell": pred, "record": record,
+            "profile": lines["profile"][-6:]}
+
+
+def gspmd_path() -> dict:
+    """Phase 14: one step of ``make_train_step`` on qwen3-0.6b at full width
+    and depth, on plain tensors and on DTensors over a one-rank (1, 1)
+    ``DeviceMesh`` (``nccl``) under ``activate(rules)``, held bit for bit;
+    then the same step in GSPMD_MICROBATCHES microbatches against it; B4's
+    launches against the schedule of each; the dry run's prediction of the
+    cell; and the dry run and the profile on the 16x16 fake mesh."""
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_arch(ARCH)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw")
+    data = SyntheticTokens(cfg.vocab, SEQ, GLOBAL_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
+    params = model.init(0, device=DEVICE, dtype=torch.float32)
+    step = make_train_step(model, opt, lr=LR)
+    want_fa = fa_expected(cfg.n_layers, [1], cfg.remat)
+    launches = {}
+    runs = start_dryruns(cfg)
+    try:
+        return gspmd_steps(cfg, model, opt, batch, params, step, want_fa,
+                           launches, runs)
+    finally:
+        for proc in runs.values():
+            if isinstance(proc, subprocess.Popen) and proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def gspmd_steps(cfg, model, opt, batch, params, step, want_fa, launches,
+                runs) -> dict:
+    """:func:`gspmd_path`'s steps and checks, while its dry runs run."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import activate, make_rules, param_shardings
+    from repro_torch.launch.dryrun import opt_state_shardings
+    from repro_torch.launch.mesh import mesh_of
+    from repro_torch.training.train_step import make_train_step
+
+    fa.reset_launches()
+    plain_s, plain_issued, (p_plain, o_plain, m_plain) = synced_s(
+        lambda: step(params, opt.init(params), batch))
+    launches["plain"] = check_fa_launches("plain step", want_fa)
+
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = mesh_of((1, 1), ("data", "model"))
+        rules = make_rules(mesh)
+        specs = model.param_specs()
+        pd = on_one_rank(mesh, params, param_shardings(rules, specs))
+        od = on_one_rank(mesh, opt.init(params),
+                         opt_state_shardings("adamw", rules, specs))
+        bd = {k: on_one_rank(mesh, v, rules.placements_for(("batch", None)))
+              for k, v in batch.items()}
+        arg_bytes = sum(t.nbytes for t in local_leaves({"p": pd, "o": od, "b": bd}).values())
+        free_cuda()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        with activate(rules):
+            mesh_s, mesh_issued, (p1, o1, m1) = synced_s(lambda: step(pd, od, bd))
+        peak = torch.cuda.max_memory_allocated()
+        launches["mesh"] = check_fa_launches("(1, 1)-mesh step", want_fa)
+        got, want = local_leaves({"p": p1, "o": o1, "m": m1}), local_leaves(
+            {"p": p_plain, "o": o_plain, "m": m_plain})
+        differ = [k for k in want if not same_bits(got[k], want[k])]
+        if differ:
+            raise AssertionError(f"(1, 1)-mesh step differs from the plain step "
+                                 f"in {len(differ)} leaves: {differ[:5]}")
+        del p_plain, o_plain, got, want
+        free_cuda()
+
+        step_mb = make_train_step(model, opt, lr=LR, n_microbatches=GSPMD_MICROBATCHES)
+        fa.reset_launches()
+        with activate(rules):
+            mb_s, mb_issued, (p4, o4, m4) = synced_s(lambda: step_mb(pd, od, bd))
+        launches["microbatched"] = check_fa_launches(
+            f"{GSPMD_MICROBATCHES}-microbatch step",
+            fa_expected(cfg.n_layers, [1] * GSPMD_MICROBATCHES, cfg.remat))
+        l1, l4 = local_leaves(m1), local_leaves(m4)
+        metric_gap = {k: abs(float(l4[k]) - float(l1[k])) / abs(float(l1[k]))
+                      for k in ("loss", "grad_norm")}
+        m_gap = grads_gap(local_leaves(o4["m"]), local_leaves(o1["m"]))
+        pa, pb = local_leaves(p4), local_leaves(p1)
+        p_gap = max(float((pa[k] - pb[k]).abs().max()) for k in pb)
+        if max(metric_gap.values()) > GSPMD_TOL or m_gap[0] > GSPMD_TOL:
+            raise AssertionError(f"{GSPMD_MICROBATCHES} microbatches against one: "
+                                 f"{metric_gap}, first moment {m_gap}")
+        del pd, od, bd, p1, o1, p4, o4, pa, pb
+        free_cuda()
+    finally:
+        dist.destroy_process_group()
+
+    dry = finish_dryruns(runs, arg_bytes)
+    pred = dry["cell"]
+    summary = {
+        "arch": cfg.name, "layers": cfg.n_layers, "seq": SEQ,
+        "global_batch": GLOBAL_BATCH, "optimizer": "adamw f32",
+        "loss": float(m_plain["loss"]), "grad_norm": float(m_plain["grad_norm"]),
+        "mesh_step_bit_identical": True, "plain_step_s": plain_s,
+        "mesh_step_s": mesh_s, "microbatched_step_s": mb_s,
+        # each step's host seconds until it returned, before the closing sync
+        "plain_step_issue_s": plain_issued, "mesh_step_issue_s": mesh_issued,
+        "microbatched_step_issue_s": mb_issued,
+        "mesh_step_peak_gib": peak / 2**30,
+        "mesh_step_temp_gib": (peak - base) / 2**30,
+        "b4_launches": launches,
+        "microbatches": GSPMD_MICROBATCHES, "microbatch_metric_gap": metric_gap,
+        "microbatch_first_moment_gap": m_gap, "microbatch_param_max_abs_gap": p_gap,
+        "dryrun_argument_bytes": pred["memory"]["argument_size_in_bytes"],
+        "real_argument_bytes": arg_bytes,
+        "dryrun_temp_gib": pred["memory"]["temp_size_in_bytes"] / 2**30,
+        "dryrun_temp_over_measured_temp":
+            pred["memory"]["temp_size_in_bytes"] / (peak - base),
+        "dryruns_seconds_since_start": dry["seconds_since_start"],
+        "dryrun_1x1": {k: pred[k] for k in ("flops_per_device", "bytes_per_device",
+                                            "collective_wire_bytes", "bottleneck",
+                                            "compile_s")},
+        "dryrun_16x16": {"record": dry["record"], "profile": dry["profile"]},
+    }
+    log(f"GSPMD step ({card_line()}): {cfg.name} {cfg.n_layers} layers, seq "
+        f"{SEQ}, batch {GLOBAL_BATCH}: (1, 1) mesh bit-identical to the plain "
+        f"step; {GSPMD_MICROBATCHES} microbatches within {GSPMD_TOL} "
+        f"({metric_gap}, first moment {m_gap}); B4 {launches}; dry run's temp "
+        f"over the measured {summary['dryrun_temp_over_measured_temp']:.4f}")
+    return {"launches": launches, "summary": summary}
+
+
 # -- phase 13: the analyses on the card ---------------------------------------
 
 def verifier_launches(name: str, worlds, ds) -> dict:
@@ -3912,13 +4135,21 @@ def main() -> int:
     analysis = analysis_path()
     log("summary analysis " + json.dumps(analysis["summary"]))
     done("phase 13 (analysis on the card)")
+    free_cuda()
+    gspmd = gspmd_path()
+    log("summary gspmd " + json.dumps(gspmd["summary"]))
+    free_cuda()
+    done("phase 14 (the GSPMD path)")
     for path, launches in (("rwkv ring", rwkv["launches"]),
                            ("zamba2 ring", zamba["launches"]),
                            ("gadget loop", gloop["launches"]),
                            ("serving forward checks", serving["launches"]),
                            ("phi3.5-moe compressed-fused", moe["launches"]),
                            ("encoder-decoder and VLM ranks", encdec["launches"]),
-                           ("fault-tolerant qwen3", ft["launches"])):
+                           ("fault-tolerant qwen3", ft["launches"]),
+                           ("gspmd step on a (1, 1) mesh",
+                            {k: sum(v[k] for v in gspmd["launches"].values())
+                             for k in FA_PAIR_OPS})):
         for name, n in launches.items():
             if n:
                 rows[name]["launches"] += n

@@ -1,4 +1,8 @@
-"""Gradient bucketing (the counterpart of ``repro.dist.overlap``).
+"""Gradient accumulation and bucketing (the counterpart of
+``repro.dist.overlap``).
+
+``microbatch_grads`` trades activation memory for sequential microbatch
+passes of the GSPMD ``make_train_step``.
 
 ``bucketed_psum`` coalesces many small gradient tensors into a few large
 all-reduces — the ring's per-hop latency gamma is paid per collective, so
@@ -17,8 +21,6 @@ Here the buckets are reduced after the backward pass, in that order: with
 every rank in one process there is nothing to overlap them with. Issuing
 each bucket's ring from autograd hooks while the backward pass runs is
 work for the transport across cards, and is not done here.
-``microbatch_grads`` is not ported: it serves the GSPMD ``make_train_step``,
-which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -28,6 +30,78 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
 import torch
 
 from repro_torch.dist.collectives import LocalRing
+from repro_torch.models.module import _flatten, _unflatten
+
+
+def value_and_grad(loss_fn: Callable, params, batch) -> Tuple[torch.Tensor, Any]:
+    """``loss_fn(params, batch)`` (detached) and its gradient tree."""
+    leaves = {p: v.detach().requires_grad_(True) for p, v in _flatten(params)}
+    loss = loss_fn(_unflatten(leaves), batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), _unflatten(dict(zip(leaves, grads)))
+
+
+def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of a batch leaf: its i-th contiguous slice
+    of rows, as the reference's ``reshape((n, b // n) + ...)`` gives it. Of
+    a DTensor, each device's i-th slice of its own rows, so that every
+    microbatch spans every data shard (one device holding all its rows,
+    the same rows)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        local = x.to_local()
+        if local.shape[0] % n:
+            raise ValueError(
+                f"each device's {local.shape[0]} rows of the batch do not "
+                f"split into n_microbatches={n} equal slices")
+        per = local.shape[0] // n
+        return DTensor.from_local(local[i * per:(i + 1) * per], x.device_mesh,
+                                  x.placements, run_check=False)
+    per = x.shape[0] // n
+    return x[i * per:(i + 1) * per]
+
+
+def microbatch_grads(loss_fn: Callable, params, batch,
+                     n_microbatches: int = 1) -> Tuple[torch.Tensor, Any]:
+    """Mean loss and grads of ``loss_fn(params, batch)`` accumulated over
+    ``n_microbatches`` equal slices of the batch's leading dim.
+
+    The loss is accumulated in f32 and the grads in their own dtype, as the
+    reference's scan carries them; each is then scaled by
+    ``1 / n_microbatches``. Equals the full-batch value to float tolerance
+    when the loss is a batch mean. Raises ``ValueError`` for splits that
+    cannot be even: a leading dim smaller than ``n_microbatches`` or not
+    divisible by it.
+    """
+    if n_microbatches <= 1:
+        return value_and_grad(loss_fn, params, batch)
+    for x in batch.values():
+        b = x.shape[0]
+        if n_microbatches > b:
+            raise ValueError(
+                f"n_microbatches={n_microbatches} exceeds the batch's "
+                f"leading dim {b}: each microbatch needs at least one "
+                "sample")
+        if b % n_microbatches:
+            raise ValueError(
+                f"batch leading dim {b} is not divisible by "
+                f"n_microbatches={n_microbatches}: microbatches must be "
+                "equal-sized for the accumulated mean to equal the "
+                "full-batch mean")
+    acc_loss = acc = None
+    for i in range(n_microbatches):
+        mb = {k: _microbatch(x, i, n_microbatches) for k, x in batch.items()}
+        loss, grads = value_and_grad(loss_fn, params, mb)
+        loss = loss.float()
+        if acc is None:     # the reference's zeros + the first microbatch
+            acc_loss, acc = loss, dict(_flatten(grads))
+        else:
+            acc_loss = acc_loss + loss
+            acc = {p: acc[p] + g for p, g in _flatten(grads)}
+    inv = 1.0 / n_microbatches
+    return acc_loss * inv, _unflatten({p: (g * inv).to(g.dtype)
+                                       for p, g in acc.items()})
 
 
 def tree_leaves(tree: Dict[str, Any], prefix: str = ""

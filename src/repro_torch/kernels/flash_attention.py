@@ -416,26 +416,67 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd` as one operator: a dispatch mode sees the
+    call once (``OpCostModel`` prices it), and a fake tensor takes its
+    shapes alone."""
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, window):
+    b, sq, hq = q.shape[0], q.shape[1], q.shape[2]
+    return torch.empty_like(q), q.new_empty((b, hq, sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+            lse: torch.Tensor, do: torch.Tensor, causal: bool,
+            window: Optional[int]
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_bwd` as one operator (as :func:`_fwd_op`)."""
+    return flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Saves ``q, k, v, O`` and ``lse``, nothing larger."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        _route(q, k, v)     # raises for a device without a route (meta too)
+        o, lse = _fwd_op(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = dict(causal=causal, window=window)
+        ctx.opts = (causal, window)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.opts)
+        dq, dk, dv = _bwd_op(q, k, v, o, lse, do, *ctx.opts)
         return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    placements=None) -> torch.Tensor:
     """Attention of ``q (B, Sq, Hq, D)`` over ``k, v (B, Skv, Hkv, D)``, in
     ``q``'s dtype, differentiable in ``q``, ``k`` and ``v``. Replaces
-    ``flash_attention_pallas``, with a backward of its own."""
-    return _FlashAttention.apply(q, k, v, causal, window)
+    ``flash_attention_pallas``, with a backward of its own. DTensors run
+    shard by shard: q, k and v redistributed to ``placements`` (one a mesh
+    dim, which the caller chooses: the sequence whole on every device), then
+    each shard's local tensors through :class:`_FlashAttention`."""
+    if placements is None:
+        return _FlashAttention.apply(q, k, v, causal, window)
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(lambda q, k, v: _FlashAttention.apply(q, k, v, causal, window),
+                     out_placements=placements,
+                     in_placements=(placements, placements, placements),
+                     device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v)

@@ -22,10 +22,47 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
+from repro_torch.dist.sharding import (
+    attention_placements,
+    is_dtensor,
+    like,
+    on_shards,
+    product_grads,
+    shard_of,
+)
 from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. On a DTensor table it runs shard by shard: each
+    device looks its tokens up in its own block of vocab rows (a token
+    outside the block gives zeros) and the blocks' partial sums are reduced,
+    so the table is never gathered (Megatron's vocab-parallel embedding;
+    DTensor's own rule for it keeps a mask in the placement, which breaks
+    when the lookup repeats)."""
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    vocab = [p.is_shard(0) for p in table.placements]
+    tp = [Shard(0) if v else Replicate() for v in vocab]
+    rows = [Shard(0) if p.is_shard(0) and not v else Replicate()
+            for p, v in zip(tokens.placements, vocab)]
+    _, offset = shard_of(mesh, tp, table.shape)
+
+    def lookup(t, i):
+        idx = i.long() - offset[0]
+        inside = (idx >= 0) & (idx < t.shape[0])
+        return torch.where(inside[..., None],
+                           t[torch.clamp(idx, 0, t.shape[0] - 1)], 0.0)
+
+    out = on_shards(lookup, mesh, [Partial() if v else r for v, r in zip(vocab, rows)],
+                    (tp, rows), (product_grads(tp, rows)[0], rows))(table, tokens)
+    return out.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                   for p in out.placements])
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -45,6 +82,39 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y * w.float() + b.float()).to(dt)
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)``: activations onto heads. On
+    DTensors it runs shard by shard: the weight gathered on its input dim
+    (FSDP's all-gather) with its heads kept split, the activations gathered
+    on their feature dim and on every mesh dim that splits the heads (the
+    sequence, under sequence parallelism), so that each device's heads come
+    out whole, whatever their number against the mesh."""
+    if not is_dtensor(w):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    wp = [p if p.is_shard(1) else Replicate() for p in w.placements]
+    xp = [p if p.is_shard() and p.dim < 2 and not wp[i].is_shard() else Replicate()
+          for i, p in enumerate(x.placements)]
+    out = [Shard(2) if wp[i].is_shard() else xp[i] for i in range(len(wp))]
+    return on_shards(lambda x, w: torch.einsum("bsd,dhk->bshk", x, w),
+                     w.device_mesh, out, (xp, wp), product_grads(xp, wp))(x, w)
+
+
+def merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", o, w)``: heads back onto features. On
+    DTensors it runs shard by shard: the weight split over the heads as
+    ``o`` is and gathered on its output dim, ``o``'s batch, sequence and
+    head shards kept, and the result a partial sum over the head shards
+    (DTensor would otherwise split the flattened heads over ways they do not
+    divide in backward)."""
+    if not is_dtensor(w):
+        return torch.einsum("bshk,hkd->bsd", o, w)
+    op = [p if p.is_shard() and p.dim < 3 else Replicate() for p in o.placements]
+    wp = [Shard(0) if p.is_shard(2) else Replicate() for p in op]
+    out = [Partial() if p.is_shard(2) else p for p in op]
+    return on_shards(lambda o, w: torch.einsum("bshk,hkd->bsd", o, w),
+                     w.device_mesh, out, (op, wp), product_grads(op, wp))(o, w)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exps)
@@ -61,6 +131,7 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x: (..., S, H, D) rotated by :func:`rope_cos_sin`'s angles."""
     x1, x2 = x.float().chunk(2, dim=-1)
+    cos, sin = like(x, cos), like(x, sin)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -151,13 +222,25 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     chunked-streaming for long. Any other device goes to the flash attention
     kernels, which raise for a device other than CUDA; they take no
     ``q_offset``, which no caller passes (serving prefills through
-    ``decode_step``, as the reference does)."""
-    if q.device.type != "cpu":
+    ``decode_step``, as the reference does). DTensors go to the flash
+    attention of each shard on every device, laid out by
+    :func:`attention_placements`; where the kv heads do not split over the
+    ways the q heads do, k and v are first expanded to one head a q head,
+    as the reference's GSPMD attention expands them."""
+    if q.device.type != "cpu" or is_dtensor(q):
         if q_offset != 0:
             raise NotImplementedError(
                 "attention with q_offset != 0 has no kernel on the card; "
                 "serving prefills through decode_step and never passes one")
-        return flash_attention(q, k, v, causal=causal, window=window)
+        if not is_dtensor(q):
+            return flash_attention(q, k, v, causal=causal, window=window)
+        placements, kv_split = attention_placements(q, k.shape[2])
+        if not kv_split:
+            g = q.shape[2] // k.shape[2]
+            k = torch.repeat_interleave(k, g, dim=2)
+            v = torch.repeat_interleave(v, g, dim=2)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               placements=placements)
     if k.shape[1] <= 2048:
         return attention_reference(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
@@ -180,6 +263,12 @@ def decode_attention(q, k_cache, v_cache, cur_index, *,
     b, sq, hq, d = q.shape
     s_cache, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
+    if is_dtensor(q):
+        # q's heads stay split only where the kv heads split as they do
+        qp, kv_split = attention_placements(q, hkv)
+        if not kv_split:
+            qp = [Replicate() if p.is_shard(2) else p for p in qp]
+        q = q.redistribute(q.device_mesh, qp)
     scale = 1.0 / math.sqrt(d)
     qg = (q.float() * scale).reshape(b, sq, hkv, g, d).to(q.dtype).float()
     qh = qg.permute(0, 2, 1, 3, 4).reshape(b, hkv, sq * g, d)
@@ -193,7 +282,7 @@ def decode_attention(q, k_cache, v_cache, cur_index, *,
     mask = kpos <= cur
     if window is not None:
         mask &= kpos > cur - window
-    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    s = torch.where(like(s, mask[:, None, None, :]), s, NEG_INF)
     p = F.softmax(s, dim=-1)
     vh = v_cache.permute(0, 2, 1, 3).to(torch.float32,
                                         memory_format=torch.contiguous_format)

@@ -28,8 +28,17 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.dist.sharding import (
+    current_rules,
+    is_dtensor,
+    like,
+    on_shards,
+    product_grads,
+    shard_of,
+)
 from repro_torch.models.module import (
     SpecTree,
     abstract_from_specs,
@@ -204,10 +213,38 @@ def write_kv(cache_l, slots, new, active: Optional[torch.Tensor]):
     cache ``cache_l`` (B, S, Hkv, D) at :func:`kv_slots`, in place and in
     the cache's dtype; a lane where ``active`` is false keeps its old
     value."""
+    if is_dtensor(cache_l):
+        return _write_kv_sharded(cache_l, slots[1], new, active)
     val = new[:, 0].to(cache_l.dtype)
     if active is not None:
         val = torch.where(active[:, None, None], val, cache_l[slots])
     cache_l[slots] = val
+
+
+def _write_kv_sharded(cache_l, positions, new, active) -> None:
+    """:func:`write_kv` of a DTensor cache, shard by shard: each device
+    writes the lanes it holds whose position falls in its block of the
+    sequence, at the position less the block's offset, and rewrites its
+    other lanes' slot with their old value."""
+    mesh, placements = cache_l.device_mesh, cache_l.placements
+    _, offset = shard_of(mesh, placements, cache_l.shape)
+    lane_p = [Shard(0) if p == Shard(0) else Replicate() for p in placements]
+    new_p = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+             for p in placements]
+    if active is None:
+        active = torch.ones(positions.shape, dtype=torch.bool,
+                            device=positions.device)
+
+    def local(c, pos, val, act):
+        lanes = torch.arange(c.shape[0], device=c.device)
+        idx = pos - offset[1]
+        inside = act & (idx >= 0) & (idx < c.shape[1])
+        slot = (lanes, torch.clamp(idx, 0, c.shape[1] - 1))
+        c[slot] = torch.where(inside[:, None, None], val[:, 0].to(c.dtype),
+                              c[slot])
+
+    on_shards(local, mesh, None, (placements, lane_p, new_p, lane_p))(
+        cache_l, like(cache_l, positions), new, like(cache_l, active))
 
 
 def keep_state(new, old, active: Optional[torch.Tensor]):
@@ -220,23 +257,110 @@ def keep_state(new, old, active: Optional[torch.Tensor]):
     return torch.where(mask, new, old)
 
 
+# the logits' logical axes
+LOGITS = ("batch", "seq", "act_vocab")
+
+
 def masked_lm_head(h, w, vocab: int):
     """Logits over the padded vocab with pad slots masked to -inf (exact CE
-    under Megatron-style vocab padding)."""
-    logits = torch.einsum("bsd,dv->bsv", h, w)
+    under Megatron-style vocab padding). Under active rules, DTensor logits
+    are laid out as the rules lay out :data:`LOGITS` (:func:`_head_to`)."""
+    if is_dtensor(w) and current_rules() is not None:
+        logits = _head_to(h, w)
+    else:
+        logits = torch.einsum("bsd,dv->bsv", h, w)
     vp = w.shape[-1]
     if vp == vocab:
         return logits
     mask = torch.arange(vp, device=logits.device) < vocab
-    return torch.where(mask[None, None, :], logits, -1e30)
+    return torch.where(like(logits, mask[None, None, :]), logits, -1e30)
+
+
+def _head_to(h, w):
+    """``einsum("bsd,dv->bsv", h, w)`` on DTensors, shard by shard, straight
+    into the rules' layout of :data:`LOGITS`: ``h`` split as the logits' batch
+    and sequence, ``w`` gathered on its input dim and split as their vocab.
+    (The product does not see the hint that follows it; left to itself,
+    DTensor gathers the activations over a sequence split and makes every
+    device compute every logit.)"""
+    rules = current_rules()
+    shape = (h.shape[0], h.shape[1], w.shape[1])
+    # one token a lane (decode): a mesh axis that the sequence would claim
+    # but cannot split is left to the vocab
+    axes = LOGITS if shape[1] > 1 else (LOGITS[0], None, LOGITS[2])
+    out = list(rules.placements(rules.spec_for_shape(axes, shape)))
+    hp = [p if p.is_shard() and p.dim < 2 else Replicate() for p in out]
+    wp = [Shard(1) if p.is_shard(2) else Replicate() for p in out]
+    return on_shards(lambda h, w: torch.einsum("bsd,dv->bsv", h, w),
+                     w.device_mesh, out, (hp, wp), product_grads(hp, wp))(h, w)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy; labels are pre-shifted by the pipeline."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    """Mean next-token cross-entropy; labels are pre-shifted by the pipeline.
+    One row a token. DTensor logits whose vocab is split over more than one
+    device take :func:`_vocab_parallel_ce` (DTensor would gather the whole
+    vocab for the log-sum-exp and scatter the gather's gradient into it);
+    others have their vocab rows made whole first."""
+    logits = logits.float().reshape(-1, logits.shape[-1])
+    labels = labels.long().reshape(-1, 1)
+    if is_dtensor(logits):
+        if _split_dims(logits, 1):
+            return torch.mean(_vocab_parallel_ce(logits, labels))
+        # whole vocab rows on every device: no masked gather
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if p.is_shard(1) else p for p in logits.placements])
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = torch.gather(logits, -1, labels)
     return torch.mean(logz - gold)
+
+
+def _split_dims(x, dim: int) -> list:
+    """The mesh dims of more than one device that split ``x``'s ``dim``."""
+    return [i for i, p in enumerate(x.placements)
+            if p.is_shard(dim) and x.device_mesh.size(i) > 1]
+
+
+def _vocab_parallel_ce(logits, labels):
+    """Each row's ``logsumexp - gold`` of (N, V) DTensor logits, shard by
+    shard (Megatron's vocab-parallel cross-entropy): each device holds a
+    block of the vocab; the row maxima, the sums of exponentials and the
+    gold logits are reduced over the vocab's mesh dims, never the logits."""
+    mesh = logits.device_mesh
+    lp = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
+          for p in logits.placements]
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in lp]
+    _, offset = shard_of(mesh, lp, logits.shape)
+    groups = [mesh.get_group(i) for i in _split_dims(logits, 1)]
+    return on_shards(lambda l, y: _VocabCE.apply(l, y, offset[1], groups),
+                     mesh, rows, (lp, rows))(logits, labels)
+
+
+class _VocabCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, l, y, offset, groups):
+        from torch.distributed import _functional_collectives as funcol
+
+        def reduce(t, op):
+            for g in groups:
+                t = funcol.all_reduce(t, op, g)
+            return t
+
+        m = reduce(l.amax(dim=-1, keepdim=True), "max")
+        s = reduce(torch.exp(l - m).sum(dim=-1, keepdim=True), "sum")
+        idx = y - offset
+        inside = (idx >= 0) & (idx < l.shape[1])
+        idx = torch.clamp(idx, 0, l.shape[1] - 1)
+        gold = reduce(torch.where(inside, torch.gather(l, 1, idx), 0.0), "sum")
+        lse = torch.log(s) + m
+        ctx.save_for_backward(l, lse, idx, inside)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        l, lse, idx, inside = ctx.saved_tensors
+        grad = torch.exp(l - lse) * g
+        grad.scatter_add_(1, idx, -(g * inside))
+        return grad, None, None, None
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:

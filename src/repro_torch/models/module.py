@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +52,18 @@ def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return out
+
+
+def spec_tree_axes(tree: SpecTree) -> Dict[str, Axes]:
+    """Each leaf's logical axes, by path."""
+    return {path: s.axes for path, s in _flatten(tree)}
+
+
+def tree_map_with_specs(fn: Callable, params: Dict, specs: SpecTree):
+    """Map ``fn(param_leaf, spec_leaf)`` over parallel trees."""
+    spec_flat = dict(_flatten(specs))
+    param_flat = dict(_flatten(params))
+    return _unflatten({p: fn(param_flat[p], spec_flat[p]) for p in spec_flat})
 
 
 def tree_map(fn, tree: Dict[str, Any]) -> Dict[str, Any]:

@@ -21,8 +21,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
+    LOGITS,
     BaseModel,
     decode_positions,
     kv_slots,
@@ -30,6 +32,13 @@ from repro_torch.models.model import (
     write_kv,
 )
 from repro_torch.models.module import ParamSpec, _flatten, _unflatten
+
+
+# the residual stream's layout. The reference hints it at each block's output
+# and GSPMD infers the rest; DTensor places each operator on its own, so the
+# residual after attention (a partial sum over the heads' shards) is held to
+# it too
+ACT = ("batch", "seq", "act_embed")
 
 
 def _attn_specs(cfg: ArchConfig, n_layers: int,
@@ -91,26 +100,28 @@ class DenseLM(BaseModel):
 
     def _attn(self, lp, x, positions):
         cfg = self.cfg
-        q = torch.einsum("bsd,dhk->bshk", x, lp["wq"])
-        k = torch.einsum("bsd,dhk->bshk", x, lp["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, lp["wv"])
+        q = L.project_heads(x, lp["wq"])
+        k = L.project_heads(x, lp["wk"])
+        v = L.project_heads(x, lp["wv"])
         if cfg.qk_norm:
             q = L.rms_norm(q, lp["q_norm"])
             k = L.rms_norm(k, lp["k_norm"])
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+        q = constrain(q, ("batch", "seq", "act_heads", None))
         o = L.attention(q, k, v, causal=True, window=cfg.sliding_window)
-        return torch.einsum("bshk,hkd->bsd", o, lp["wo"])
+        return L.merge_heads(o, lp["wo"])
 
     def _block_train(self, lp, h, positions):
         x = L.rms_norm(h, lp["ln1"])
-        h = h + self._attn(lp, x, positions)
+        h = constrain(h + self._attn(lp, x, positions), ACT)
         x = L.rms_norm(h, lp["ln2"])
-        return h + L.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+        h = h + L.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+        return constrain(h, ACT)
 
     def _embed_inputs(self, params, batch):
         """Token embeddings, with a VLM's patch embeddings prepended."""
-        h = params["embed"][batch["tokens"].long()]
+        h = L.embed(params["embed"], batch["tokens"])
         if self.cfg.family == "vlm" and "patch_embeds" in batch:
             h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
         return h
@@ -118,6 +129,7 @@ class DenseLM(BaseModel):
     def forward(self, params, batch):
         cfg = self.cfg
         h = self._embed_inputs(params, batch)
+        h = constrain(h, ACT)
         positions = torch.arange(h.shape[1], device=h.device)
         for lp in unstack(params["blocks"]):
             if cfg.remat:
@@ -129,6 +141,7 @@ class DenseLM(BaseModel):
         if cfg.family == "vlm" and "patch_embeds" in batch:
             h = h[:, batch["patch_embeds"].shape[1]:]  # logits for text positions
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        logits = constrain(logits, LOGITS)
         return logits, {}
 
     def extra_input_specs(self, batch_size: int):
@@ -165,7 +178,7 @@ class DenseLM(BaseModel):
         every slot is valid (the attention index is ``min(cur, sc - 1)``).
         """
         cfg = self.cfg
-        h = params["embed"][tokens.long()]  # (B, 1, D)
+        h = L.embed(params["embed"], tokens)  # (B, 1, D)
         cur = decode_positions(cur_index, h.shape[0], h.device)
         sc = cache["k"].shape[2]
         if cfg.sliding_window is not None:
@@ -176,9 +189,9 @@ class DenseLM(BaseModel):
         cos, sin = L.rope_cos_sin(cur[:, None], cfg.head_dim, cfg.rope_theta)
         for li, lp in enumerate(unstack(params["blocks"])):
             x = L.rms_norm(h, lp["ln1"])
-            q = torch.einsum("bsd,dhk->bshk", x, lp["wq"])
-            k = torch.einsum("bsd,dhk->bshk", x, lp["wk"])
-            v = torch.einsum("bsd,dhk->bshk", x, lp["wv"])
+            q = L.project_heads(x, lp["wq"])
+            k = L.project_heads(x, lp["wk"])
+            v = L.project_heads(x, lp["wv"])
             if cfg.qk_norm:
                 q = L.rms_norm(q, lp["q_norm"])
                 k = L.rms_norm(k, lp["k_norm"])
@@ -187,7 +200,7 @@ class DenseLM(BaseModel):
             write_kv(k_cache, slots, k, active)
             write_kv(v_cache, slots, v, active)
             o = L.decode_attention(q, k_cache, v_cache, attend_to)
-            h = h + torch.einsum("bshk,hkd->bsd", o, lp["wo"])
+            h = h + L.merge_heads(o, lp["wo"])
             x = L.rms_norm(h, lp["ln2"])
             h = h + self._decode_ffn(lp, x)
         h = L.rms_norm(h, params["ln_f"])

@@ -1,8 +1,12 @@
-"""The explicit data-parallel ring train step (the counterpart of
-``repro.training.train_step.make_ring_train_step``) and the serve step
-(:func:`make_serve_step`).
+"""Train and serve step factories (the counterpart of
+``repro.training.train_step``), in the reference's two distribution
+flavours:
 
-The reference runs one ``shard_map`` program over w devices. Here one
+  * :func:`make_train_step`, the GSPMD path (the dry run's): the step runs
+    on DTensors over a ``DeviceMesh`` and ``constrain`` hints steer their
+    placements; gradients reduce through the collectives DTensor inserts;
+  * :func:`make_ring_train_step`, the explicit data-parallel path: the
+    reference runs one ``shard_map`` program over w devices. Here one
 process drives the w ranks of a :class:`~repro_torch.dist.collectives.LocalRing`:
 
   1. the global batch splits into w contiguous row blocks, as ``P("data")``
@@ -33,7 +37,12 @@ from repro_torch.dist.compression import (
     ef_compressed_all_reduce,
     fused_wire_all_reduce,
 )
-from repro_torch.dist.overlap import bucketed_ring_reduce
+from repro_torch.dist.overlap import (
+    bucketed_ring_reduce,
+    microbatch_grads,
+    tree_leaves,
+    value_and_grad,
+)
 from repro_torch.dist.registry import STEP_MODES
 from repro_torch.models.module import _flatten, _unflatten
 from repro_torch.training.optimizer import Optimizer
@@ -41,14 +50,19 @@ from repro_torch.training.optimizer import Optimizer
 Replicas = Dict[torch.device, dict]
 Grads = List[Dict[str, torch.Tensor]]     # one flat {path: tensor} per rank
 
+# the f32 collectives of the ring modes, by mode
+RING_MODES = {
+    "ring": collectives.ring_all_reduce,
+    "bidir": collectives.bidirectional_ring_all_reduce,
+    "psum": collectives.psum_all_reduce,
+}
+
 # every mode make_ring_train_step accepts, in registry order
 RING_STEP_MODES = tuple(STEP_MODES)
 
 # mode -> per-leaf collective of the modes that reduce leaf by leaf
 LEAF_COLLECTIVES: Dict[str, Callable] = {
-    "ring": collectives.ring_all_reduce,
-    "bidir": collectives.bidirectional_ring_all_reduce,
-    "psum": collectives.psum_all_reduce,
+    **RING_MODES,
     "compressed": partial(compressed_ring_all_reduce, fused=False),
     "compressed-fused": partial(compressed_ring_all_reduce, fused=True),
     "bf16-fused": partial(fused_wire_all_reduce, wire="bf16"),
@@ -85,17 +99,11 @@ def shard_batch(batch: Dict[str, torch.Tensor], devices: Sequence[torch.device]
 def rank_grads(model, params: Replicas, shards, devices
                ) -> Tuple[List[torch.Tensor], Grads]:
     """Each rank's loss and flat ``{path: grad}`` on its own batch shard."""
-    leaves = {}
-    for d in distinct_devices(devices):
-        leaves[d] = {p: v.detach().requires_grad_(True)
-                     for p, v in _flatten(params[d])}
     losses, grads = [], []
     for shard, d in zip(shards, devices):
-        tree = _unflatten(leaves[d])
-        loss = model.loss(tree, shard)
-        g = torch.autograd.grad(loss, list(leaves[d].values()))
-        losses.append(loss.detach())
-        grads.append(dict(zip(leaves[d], g)))
+        loss, g = value_and_grad(model.loss, params[d], shard)
+        losses.append(loss)
+        grads.append(dict(_flatten(g)))
     return losses, grads
 
 
@@ -143,6 +151,24 @@ def init_ef_state(params: dict, devices: Sequence[torch.device]) -> Grads:
     rank, on the rank's device."""
     return [{p: torch.zeros(v.shape, dtype=torch.float32, device=d)
              for p, v in _flatten(params)} for d in devices]
+
+
+def make_train_step(model, optimizer: Optimizer, *, lr: float = 3e-4,
+                    n_microbatches: int = 1) -> Callable:
+    """GSPMD train step: ``(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"})``, on plain tensors or on DTensors alike.
+    ``grad_norm`` is the f32 norm of all the gradients, summed leaf by leaf
+    in the reference's tree order."""
+
+    def step(params, opt_state, batch):
+        loss, grads = microbatch_grads(model.loss, params, batch,
+                                       n_microbatches)
+        new_params, new_opt = optimizer.update(grads, opt_state, params, lr=lr)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for _, g in tree_leaves(grads)))
+        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
+
+    return step
 
 
 def make_ring_train_step(model, optimizer: Optimizer, ring: LocalRing, *,

@@ -42,7 +42,9 @@ def test_port_modules_import_without_jax_or_reference():
                  "training.ft", "training.checkpoint", "analysis.baseline",
                  "analysis.lint", "launch.quickstart", "launch.serve_batched",
                  "analysis.collectives", "analysis.fixtures",
-                 "analysis.kernels"):
+                 "analysis.kernels", "dist.sharding", "launch.mesh",
+                 "launch.cost_analysis", "launch.dryrun",
+                 "launch.profile_cell"):
         assert f"repro_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
