@@ -164,7 +164,13 @@ non-zero and prints no result. Phases, each raising on failure:
      argument bytes held equal to the real tensors', its temporary bytes
      printed beside the step's measured peak), and ``python -m
      repro_torch.launch.dryrun`` and ``profile_cell --metric flops`` for
-     qwen3-0.6b train_4k on the 16x16 fake mesh (``summary gspmd`` line);
+     qwen3-0.6b train_4k on the 16x16 fake mesh; then one step of each
+     other family at full width, plain and on the (1, 1) mesh under the
+     config's layout (phi3.5-moe-42b at 1 layer, whisper-large-v3,
+     rwkv6-7b at 4 layers, zamba2-1.2b), every leaf bit-identical and B4's,
+     B8's and B9's launches equal between the two and to the step's
+     schedule, with their 16x16 train_4k dry runs on the host beside them
+     (``summary gspmd`` line);
  15. the ``launch_configs`` JSON line, the ``kernels`` JSON line, the card
      line, and last the result line.
 """
@@ -520,8 +526,23 @@ CLI_TIMEOUT = 600
 # in four parts; the parameters themselves can move by up to 2 LR where a
 # gradient near 0 changes sign, so they are printed, not held)
 GSPMD_MICROBATCHES, GSPMD_TOL = 4, 1e-4
-# the dry run's cells run on the card's host: 16x16, as the reference's
-GSPMD_DRYRUN = ("qwen3-0.6b", "train_4k")
+# the dry run's cells run on the card's host: 16x16, as the reference's;
+# the first is also profiled
+GSPMD_DRYRUNS = (("qwen3-0.6b", "train_4k"), (MOE_ARCH, "train_4k"),
+                 (ENC_ARCH, "train_4k"), (RWKV_ARCH, "train_4k"),
+                 (ZAMBA_ARCH, "train_4k"))
+# Phase 14's other families: one step of make_train_step of each at full
+# width, f32 AdamW at LR, on plain tensors and on the (1, 1) mesh under the
+# config's own layout (FSDP; whisper's sequence parallelism), held bit for
+# bit, B4's, B8's and B9's launches equal between the two and to the step's
+# schedule: arch -> (layers, None for all; seq; batch). phi3.5-moe-42b at
+# phase 10's depth (its capacity factor 1.25, so tokens drop), rwkv6-7b at
+# phase 6's, whisper-large-v3 at phase 11's decoder length and batch (two
+# of its 1500-frame inputs), zamba2-1.2b whole
+GSPMD_FAMILIES = {MOE_ARCH: (MOE_LAYERS, SEQ, GLOBAL_BATCH),
+                  ENC_ARCH: (None, ENC_TOKENS, ENC_BATCH),
+                  RWKV_ARCH: (RWKV_LAYERS, SEQ, GLOBAL_BATCH),
+                  ZAMBA_ARCH: (None, SEQ, GLOBAL_BATCH)}
 VERIFIER_FUSED = {"int8-fused": "compressed-fused", "bf16-fused": "bf16-fused",
                   "fp8-fused": "fp8-fused", "ef-int8-fused": "compressed-fused"}
 
@@ -645,7 +666,8 @@ def timings(kernel, library) -> dict:
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     """``t``'s raw bits as an integer tensor of its element size."""
-    return t.view({4: torch.int32, 2: torch.int16, 1: torch.uint8}[t.element_size()])
+    return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                   1: torch.uint8}[t.element_size()])
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -3753,9 +3775,10 @@ def start_dryruns(cfg) -> dict:
     """Phase 14's dry runs, each a process of its own (the fake world is
     process-global), started together so that they run on the host while
     the steps run on the card: the phase's cell on a fake (1, 1) mesh with
-    f32 parameters (it prints its record), and ``python -m
-    repro_torch.launch.dryrun`` and ``profile_cell --metric flops --top 5``
-    on the 16x16 fake mesh."""
+    f32 parameters (it prints its record), ``python -m
+    repro_torch.launch.dryrun`` on the 16x16 fake mesh for each cell of
+    GSPMD_DRYRUNS, and ``profile_cell --metric flops --top 5`` of the
+    first."""
     code = (
         "import json, torch\n"
         "from repro_torch.configs.base import ArchConfig, ShapeConfig\n"
@@ -3768,13 +3791,14 @@ def start_dryruns(cfg) -> dict:
         "mesh=mesh_of((1, 1), ('data', 'model')), param_dtype=torch.float32)\n"
         "print(json.dumps(rec))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    arch, shape = GSPMD_DRYRUN
+    arch, shape = GSPMD_DRYRUNS[0]
     return {"t0": time.perf_counter(),
             "cell": subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                      text=True),
-            "dryrun": module_run("repro_torch.launch.dryrun", "--arch", arch,
-                                 "--shape", shape),
+            **{f"dryrun {a} {sh}": module_run("repro_torch.launch.dryrun", "--arch",
+                                              a, "--shape", sh)
+               for a, sh in GSPMD_DRYRUNS},
             "profile": module_run("repro_torch.launch.profile_cell", "--arch",
                                   arch, "--shape", shape, "--metric", "flops",
                                   "--top", "5")}
@@ -3783,20 +3807,122 @@ def start_dryruns(cfg) -> dict:
 def finish_dryruns(runs: dict, arg_bytes: int) -> dict:
     """The dry runs' records and their seconds since they started; the
     (1, 1) cell's argument bytes held to the real tensors'."""
-    lines = {k: finished(runs[k], k) for k in ("cell", "dryrun", "profile")}
+    lines = {k: finished(p, k) for k, p in runs.items() if k != "t0"}
     seconds = time.perf_counter() - runs["t0"]
     pred = json.loads(lines["cell"][-1])
     if pred["memory"]["argument_size_in_bytes"] != arg_bytes:
         raise AssertionError(f"dry run's argument bytes {pred['memory']} != the "
                              f"real tensors' {arg_bytes}")
-    if lines["dryrun"][-1] != "[dryrun] all cells OK":
-        raise AssertionError(f"dry run CLI: {lines['dryrun'][-3:]}")
-    arch, shape = GSPMD_DRYRUN
-    with open(ROOT / "results" / "dryrun_torch" / "16x16"
-              / f"{arch}__{shape}.json") as f:
-        record = json.load(f)
-    return {"seconds_since_start": seconds, "cell": pred, "record": record,
-            "profile": lines["profile"][-6:]}
+    records = {}
+    for arch, shape in GSPMD_DRYRUNS:
+        out = lines[f"dryrun {arch} {shape}"]
+        if out[-1] != "[dryrun] all cells OK":
+            raise AssertionError(f"dry run CLI, {arch} {shape}: {out[-3:]}")
+        with open(ROOT / "results" / "dryrun_torch" / "16x16"
+                  / f"{arch}__{shape}.json") as f:
+            records[f"{arch} {shape}"] = json.load(f)
+    first = "%s %s" % GSPMD_DRYRUNS[0]
+    return {"seconds_since_start": seconds, "cell": pred, "record": records[first],
+            "records": records, "profile": lines["profile"][-6:]}
+
+
+def step_expected(cfg) -> dict:
+    """B4's, B8's and B9's launches of one step of ``cfg`` on one rank: a
+    forward of each call (twice with remat: again in the recompute of
+    backward) and a backward."""
+    fwd = 2 if cfg.remat else 1
+    if cfg.family == "rwkv":
+        return {WKV_FWD: fwd * cfg.n_layers, WKV_BWD: cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {**zamba_fa_expected(cfg, [1]), **ssd_expected(cfg, [1])}
+    calls = attention_calls(cfg)
+    return {FA_FWD: fwd * calls, **dict.fromkeys(FA_BWD, calls)}
+
+
+def gspmd_family(arch: str, layers, seq: int, batch_size: int) -> dict:
+    """One step of ``make_train_step`` of ``arch`` (GSPMD_FAMILIES) on plain
+    tensors, then on a one-rank (1, 1) ``DeviceMesh`` (``nccl``) under the
+    config's layout and ``activate(rules)``, from the same weights: every
+    leaf of the parameters, the optimizer state and the metrics bit for bit
+    (the plain step's wait on the host), each step's launches of B4, B8
+    and B9 equal and on the step's schedule."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import activate, make_rules, param_shardings
+    from repro_torch.launch.dryrun import opt_state_shardings
+    from repro_torch.launch.mesh import mesh_of
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw")
+    batch = {k: v.to(DEVICE) for k, v in stub_batch(cfg, seq, batch_size).items()}
+    params = model.init(0, device=DEVICE, dtype=torch.float32)
+    step = make_train_step(model, opt, lr=LR)
+    want_k = step_expected(cfg)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    plain_s, plain_issued, out = synced_s(lambda: step(params, opt.init(params), batch))
+    plain_peak = torch.cuda.max_memory_allocated()
+    launches = {"plain": nonzero(all_launches())}
+    if launches["plain"] != want_k:
+        raise AssertionError(f"{arch} plain step: launches {launches['plain']} != "
+                             f"the schedule {want_k}")
+    want = {k: v.cpu() for k, v in local_leaves(
+        {"p": out[0], "o": out[1], "m": out[2]}).items()}
+    del out
+    free_cuda()
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = mesh_of((1, 1), ("data", "model"))
+        rules = make_rules(mesh, fsdp=cfg.fsdp,
+                           sequence_parallel=cfg.sequence_parallel)
+        specs = model.param_specs()
+        pd = on_one_rank(mesh, params, param_shardings(rules, specs))
+        od = on_one_rank(mesh, opt.init(params),
+                         opt_state_shardings("adamw", rules, specs))
+        bd = {k: on_one_rank(mesh, v, rules.placements_for(
+            ("batch",) + (None,) * (v.dim() - 1))) for k, v in batch.items()}
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        with activate(rules):
+            mesh_s, mesh_issued, (p1, o1, m1) = synced_s(lambda: step(pd, od, bd))
+        mesh_peak = torch.cuda.max_memory_allocated()
+        launches["mesh"] = nonzero(all_launches())
+        if launches["mesh"] != launches["plain"]:
+            raise AssertionError(f"{arch}: (1, 1)-mesh step's launches "
+                                 f"{launches['mesh']} != the plain step's "
+                                 f"{launches['plain']}")
+        got = local_leaves({"p": p1, "o": o1, "m": m1})
+        differ = [k for k in want if not same_bits(got[k].cpu(), want[k])]
+        if sorted(got) != sorted(want) or differ:
+            raise AssertionError(f"{arch}: (1, 1)-mesh step differs from the plain "
+                                 f"step in {len(differ)} leaves: {differ[:5]}")
+        del pd, od, bd, p1, o1, m1, got
+    finally:
+        dist.destroy_process_group()
+    del params, want_k
+    free_cuda()
+    summary = {
+        "layers": cfg.n_layers, "seq": seq, "batch": batch_size,
+        "params": n_params(model.param_specs()),
+        "layout": {"fsdp": cfg.fsdp, "sequence_parallel": cfg.sequence_parallel},
+        "loss": float(want["m/loss"]), "grad_norm": float(want["m/grad_norm"]),
+        "mesh_step_bit_identical": True, "leaves": len(want),
+        "plain_step_s": plain_s, "mesh_step_s": mesh_s,
+        "plain_step_issue_s": plain_issued, "mesh_step_issue_s": mesh_issued,
+        "plain_step_peak_gib": plain_peak / 2**30,
+        "mesh_step_peak_gib": mesh_peak / 2**30, "launches": launches}
+    log(f"GSPMD step ({card_line()}): {arch} {cfg.n_layers} layers, seq {seq}, "
+        f"batch {batch_size}: (1, 1) mesh bit-identical to the plain step over "
+        f"{len(want)} leaves; launches {launches['mesh']}; {plain_s:.3f} s plain, "
+        f"{mesh_s:.3f} s mesh")
+    return summary
 
 
 def gspmd_path() -> dict:
@@ -3804,8 +3930,10 @@ def gspmd_path() -> dict:
     and depth, on plain tensors and on DTensors over a one-rank (1, 1)
     ``DeviceMesh`` (``nccl``) under ``activate(rules)``, held bit for bit;
     then the same step in GSPMD_MICROBATCHES microbatches against it; B4's
-    launches against the schedule of each; the dry run's prediction of the
-    cell; and the dry run and the profile on the 16x16 fake mesh."""
+    launches against the schedule of each; then the same pair of steps of
+    each of GSPMD_FAMILIES (:func:`gspmd_family`); the dry run's prediction
+    of the qwen3 cell; and the dry runs of GSPMD_DRYRUNS and the profile on
+    the 16x16 fake mesh."""
     from repro_torch.training.train_step import make_train_step
 
     cfg = get_arch(ARCH)
@@ -3892,6 +4020,10 @@ def gspmd_steps(cfg, model, opt, batch, params, step, want_fa, launches,
         free_cuda()
     finally:
         dist.destroy_process_group()
+    del params, batch
+    free_cuda()
+    families = {arch: gspmd_family(arch, *shape)
+                for arch, shape in GSPMD_FAMILIES.items()}
 
     dry = finish_dryruns(runs, arg_bytes)
     pred = dry["cell"]
@@ -3919,13 +4051,20 @@ def gspmd_steps(cfg, model, opt, batch, params, step, want_fa, launches,
                                             "collective_wire_bytes", "bottleneck",
                                             "compile_s")},
         "dryrun_16x16": {"record": dry["record"], "profile": dry["profile"]},
+        "families": families,
+        "families_dryrun_16x16": {
+            k: {f: r[f] for f in ("flops_per_device", "bytes_per_device",
+                                  "collective_wire_bytes", "bottleneck",
+                                  "useful_flops_fraction", "memory", "compile_s")}
+            for k, r in dry["records"].items()},
     }
     log(f"GSPMD step ({card_line()}): {cfg.name} {cfg.n_layers} layers, seq "
         f"{SEQ}, batch {GLOBAL_BATCH}: (1, 1) mesh bit-identical to the plain "
         f"step; {GSPMD_MICROBATCHES} microbatches within {GSPMD_TOL} "
         f"({metric_gap}, first moment {m_gap}); B4 {launches}; dry run's temp "
         f"over the measured {summary['dryrun_temp_over_measured_temp']:.4f}")
-    return {"launches": launches, "summary": summary}
+    return {"launches": launches, "summary": summary,
+            "family_launches": {a: f["launches"] for a, f in families.items()}}
 
 
 # -- phase 13: the analyses on the card ---------------------------------------
@@ -4149,7 +4288,11 @@ def main() -> int:
                            ("fault-tolerant qwen3", ft["launches"]),
                            ("gspmd step on a (1, 1) mesh",
                             {k: sum(v[k] for v in gspmd["launches"].values())
-                             for k in FA_PAIR_OPS})):
+                             for k in FA_PAIR_OPS}),
+                           *((f"gspmd {arch} step, plain and on a (1, 1) mesh",
+                              {k: f["plain"].get(k, 0) + f["mesh"].get(k, 0)
+                               for k in {**f["plain"], **f["mesh"]}})
+                             for arch, f in gspmd["family_launches"].items())):
         for name, n in launches.items():
             if n:
                 rows[name]["launches"] += n

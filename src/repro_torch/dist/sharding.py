@@ -237,12 +237,47 @@ def on_shards(fn, mesh: DeviceMesh, out, ins, grads=None):
     """``fn`` run on each device's local tensors (``local_map``), its DTensor
     inputs first redistributed to ``ins`` (one list of placements an input),
     its outputs laid out as ``out`` and its inputs' gradients as ``grads``
-    (by default, as the inputs)."""
+    (by default, as the inputs). The gradient of an output that is a
+    partial sum is made whole on every device of those mesh dims first
+    (:class:`_WholeGrad`)."""
     from torch.distributed.tensor.experimental import local_map
 
-    return local_map(fn, out_placements=out, in_placements=ins,
-                     in_grad_placements=grads, device_mesh=mesh,
-                     redistribute_inputs=True)
+    mapped = local_map(fn, out_placements=out, in_placements=ins,
+                       in_grad_placements=grads, device_mesh=mesh,
+                       redistribute_inputs=True)
+    single = out is not None and all(isinstance(p, Placement) for p in out)
+    if out is None or not any(p.is_partial() for p in (
+            out if single else [q for o in out if o is not None for q in o])):
+        return mapped
+
+    def run(*args):
+        res = mapped(*args)
+        if single:
+            return _WholeGrad.apply(res)
+        return tuple(_WholeGrad.apply(r) if isinstance(r, DTensor) else r
+                     for r in res)
+
+    return run
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity, whose gradient is redistributed to the output's
+    placements with each partial sum replaced by a replica: the gradient a
+    partial sum takes. ``local_map`` would otherwise redistribute, say, a
+    sequence-split gradient straight to a partial sum, which torch 2.11's
+    DTensor does not do."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = [Replicate() if p.is_partial() else p
+                          for p in x.placements]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not isinstance(g, DTensor) or list(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
 
 
 def like(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -254,6 +289,16 @@ def like(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     mesh = ref.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def whole_seq(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its sequence (dim 1) whole on every device: a DTensor's
+    split of it is gathered (what a token shift or a causal conv needs: the
+    rows before each); anything else is returned as it is."""
+    if not isinstance(x, DTensor) or not any(p.is_shard(1) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_shard(1) else p
+                                          for p in x.placements])
 
 
 # -- contextual activation constraints --------------------------------------

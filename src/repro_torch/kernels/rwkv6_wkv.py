@@ -320,22 +320,56 @@ def wkv6_bwd(r, k, v, logw, u, states, dy) -> Tuple[torch.Tensor, ...]:
     return dr, dk, dv, dlw, du.to(u.dtype)
 
 
+@torch.library.custom_op("repro_torch::wkv6_fwd", mutates_args=())
+def _fwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            logw: torch.Tensor, u: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`wkv6_fwd` as one operator: a dispatch mode sees the call once
+    (``OpCostModel`` prices it), and a fake tensor takes its shapes alone."""
+    return wkv6_fwd(r, k, v, logw, u)
+
+
+@_fwd_op.register_fake
+def _(r, k, v, logw, u):
+    b, s, h, p = r.shape
+    nc = -(-s // min(WKV_CHUNK, s))
+    return torch.empty_like(r), r.new_empty((b, h, nc, p, p), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::wkv6_bwd", mutates_args=())
+def _bwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            logw: torch.Tensor, u: torch.Tensor, states: torch.Tensor,
+            dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """:func:`wkv6_bwd` as one operator (as :func:`_fwd_op`)."""
+    return wkv6_bwd(r, k, v, logw, u, states, dy)
+
+
+@_bwd_op.register_fake
+def _(r, k, v, logw, u, states, dy):
+    return tuple(torch.empty_like(t) for t in (r, k, v, logw, u))
+
+
 class _Wkv6(torch.autograd.Function):
     """Saves the inputs and the chunk states, nothing larger."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u):
-        y, states = wkv6_fwd(r, k, v, logw, u)
+        _route(r, k, v, logw, u)   # raises for a device without a route
+        y, states = _fwd_op(r, k, v, logw, u)
         ctx.save_for_backward(r, k, v, logw, u, states)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        return wkv6_bwd(*ctx.saved_tensors, dy)
+        return _bwd_op(*ctx.saved_tensors, dy)
 
 
 def wkv6(r, k, v, logw, u) -> torch.Tensor:
     """The WKV of ``r, k, v, logw (B, S, H, P)`` and ``u (H, P)``, in r's
     dtype, from a zero state, differentiable in all five. Replaces
-    ``wkv6_pallas``, with a backward of its own."""
+    ``wkv6_pallas``, with a backward of its own. Forward and backward are
+    each one operator (``repro_torch::wkv6_fwd``, ``wkv6_bwd``), so that the
+    GSPMD path runs them on each device's shards and its dry run on fake
+    tensors."""
     return _Wkv6.apply(r, k, v, logw, u)

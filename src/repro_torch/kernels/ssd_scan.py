@@ -364,23 +364,58 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy) -> Tuple[torch.Tensor, ...]:
     return tuple(g.to(t.dtype) for g, t in zip(outs, (x, dt, A, Bm, Cm)))
 
 
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
+def _fwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan_fwd` as one operator: a dispatch mode sees the call
+    once (``OpCostModel`` prices it), and a fake tensor takes its shapes
+    alone."""
+    return ssd_scan_fwd(x, dt, A, Bm, Cm)
+
+
+@_fwd_op.register_fake
+def _(x, dt, A, Bm, Cm):
+    b, s, h, p = x.shape
+    nc = -(-s // min(SSD_CHUNK, s))
+    return (torch.empty_like(x),
+            x.new_empty((b, h, nc, Bm.shape[-1], p), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def _bwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, states: torch.Tensor,
+            dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan_bwd` as one operator (as :func:`_fwd_op`)."""
+    return ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy)
+
+
+@_bwd_op.register_fake
+def _(x, dt, A, Bm, Cm, states, dy):
+    return tuple(torch.empty_like(t) for t in (x, dt, A, Bm, Cm))
+
+
 class _SsdScan(torch.autograd.Function):
     """Saves the inputs and the chunk states, nothing larger."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm):
-        y, states = ssd_scan_fwd(x, dt, A, Bm, Cm)
+        _route(x, dt, A, Bm, Cm)   # raises for a device without a route
+        y, states = _fwd_op(x, dt, A, Bm, Cm)
         ctx.save_for_backward(x, dt, A, Bm, Cm, states)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        return ssd_scan_bwd(*ctx.saved_tensors, dy)
+        return _bwd_op(*ctx.saved_tensors, dy)
 
 
 def ssd_scan(x, dt, A, Bm, Cm) -> torch.Tensor:
     """The SSD scan of x ``(B, S, H, P)``, dt ``(B, S, H)``, A ``(H,)`` and
     Bm, Cm ``(B, S, N)``, in x's dtype, from a zero state, differentiable
-    in all five. Replaces ``ssd_scan_pallas``, with a backward of its
-    own."""
+    in all five. Replaces ``ssd_scan_pallas``, with a backward of its own.
+    Forward and backward are each one operator (``repro_torch::
+    ssd_scan_fwd``, ``ssd_scan_bwd``), so that the GSPMD path runs them on
+    each device's shards and its dry run on fake tensors."""
     return _SsdScan.apply(x, dt, A, Bm, Cm)

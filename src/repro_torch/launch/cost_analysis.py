@@ -18,7 +18,15 @@ records
     causal or sliding-window mask lets through, 4 d a pair forward and 14 d
     backward (F3's 8 d and F4's 6 d, each recomputing the scores) plus F2's
     2 d a row, as ``chip_smoke.fa_bound`` counts them; never the plain
-    version's blockwise loop, which computes the masked half;
+    version's blockwise loop, which computes the masked half. RWKV6's WKV
+    (``repro_torch::wkv6_fwd``/``_bwd``) and Mamba2's SSD
+    (``repro_torch::ssd_scan_fwd``/``_bwd``) are one operator a direction
+    too, priced as the products of the reference's chunked formulations
+    (``repro.models.rwkv.wkv6_chunked`` at ``WKV_CHUNK``,
+    ``repro.models.ssm.ssd_chunked`` at the config's ``ssm_chunk``), which
+    is what the reference's HLO counts (:func:`wkv6_flops`,
+    :func:`ssd_flops`), and their backward as twice that: each product's
+    gradient to both of its operands;
   * per-device bytes: every operand read once and the result written once
     (PyTorch runs each operator alone, with nothing fused); views, aliases
     and uninitialised allocations move none;
@@ -52,6 +60,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.kernels.rwkv6_wkv import WKV_CHUNK
+
 PEAK_FLOPS = 989e12          # bf16 dense per GPU (H100 SXM5 datasheet)
 HBM_BW = 3.35e12             # bytes/s per GPU (HBM3, H100 SXM5 datasheet)
 LINK_BW = 50e9               # bytes/s per GPU across nodes (ConnectX-7 NDR)
@@ -70,6 +80,9 @@ _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "detach", "alias", "lift_fresh",
                "_local_scalar_dense", "wait_tensor", "_wrap_tensor_autograd"}
 FA_FWD_OP, FA_BWD_OP = "flash_attention_fwd", "flash_attention_bwd"
+# the chunked recurrences' operators: name -> (rule, times the forward's)
+WKV_OPS = {"wkv6_fwd": 1.0, "wkv6_bwd": 2.0}
+SSD_OPS = {"ssd_scan_fwd": 1.0, "ssd_scan_bwd": 2.0}
 _GLOBAL_PRODUCTS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
                     torch.ops.aten.baddbmm}
 
@@ -107,6 +120,30 @@ def attention_flops(name: str, q: torch.Tensor, k: torch.Tensor, causal: bool,
     if name == FA_FWD_OP:
         return 4.0 * d * pairs
     return 14.0 * d * pairs + 2.0 * b * sq * hq * d
+
+
+def wkv6_flops(b: int, s: int, h: int, p: int, chunk: int = WKV_CHUNK) -> float:
+    """The products of the reference's chunked WKV forward over ``(B, S, H,
+    P)`` (S padded to whole chunks of ``L = min(chunk, S)``): the pair
+    scores and their values, ``4 B nc H L^2 P``; the chunk summaries and
+    the carried state's readout, ``4 B nc H L P^2``; the bonus, ``2 B nc L
+    H P``."""
+    lc = min(chunk, s)
+    nc = -(-s // lc)
+    return float(4 * b * nc * h * lc * lc * p + 4 * b * nc * h * lc * p * p
+                 + 2 * b * nc * lc * h * p)
+
+
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> float:
+    """The products of the reference's chunked SSD forward over x ``(B, S,
+    H, P)`` and a state of ``N`` (S padded to whole chunks of ``L =
+    min(chunk, S)``): ``C B^T``, ``2 B nc L^2 N``; the intra-chunk values,
+    ``2 B nc L^2 H P``; the chunk summaries and the state's readout,
+    ``4 B nc L H N P``."""
+    lc = min(chunk, s)
+    nc = -(-s // lc)
+    return float(2 * b * nc * lc * lc * n + 2 * b * nc * lc * lc * h * p
+                 + 4 * b * nc * lc * h * n * p)
 
 
 @dataclasses.dataclass
@@ -206,10 +243,14 @@ class OpCostModel(TorchDispatchMode):
     """Records every per-device operator of the code run inside it (module
     docstring). ``with OpCostModel() as cm: step(...)``; then
     :meth:`entry_cost`, :meth:`top_ops`, :meth:`scope_bytes` and
-    :meth:`memory`."""
+    :meth:`memory`. ``ssm_chunk`` is the chunk at which the SSD's operators
+    are priced (the config's; by default the kernels' ``SSD_CHUNK``)."""
 
-    def __init__(self):
+    def __init__(self, ssm_chunk: Optional[int] = None):
         super().__init__()
+        if ssm_chunk is None:
+            from repro_torch.kernels.ssd_scan import SSD_CHUNK as ssm_chunk
+        self.ssm_chunk = ssm_chunk
         self.rows: List[dict] = []
         self.global_flops = 0.0      # of the DTensor-level products
         self.storages = _Storages()
@@ -307,6 +348,11 @@ class OpCostModel(TorchDispatchMode):
             q, k = args[0], args[1]
             causal, window = args[-2], args[-1]
             row["flops"] = attention_flops(name, q, k, causal, window)
+        elif ns == "repro_torch" and name in WKV_OPS:
+            row["flops"] = WKV_OPS[name] * wkv6_flops(*args[0].shape)
+        elif ns == "repro_torch" and name in SSD_OPS:
+            row["flops"] = SSD_OPS[name] * ssd_flops(
+                *args[0].shape, args[3].shape[-1], self.ssm_chunk)
         elif func._overloadpacket in flop_registry:
             row["flops"] = float(flop_registry[func._overloadpacket](
                 *args, **kwargs, out_val=out))

@@ -24,8 +24,8 @@ For each cell it records the reference's keys:
   * ``lower_s`` is the time to lay the cell out, ``compile_s`` that of the
     recorded run.
 
-Only the dense and VLM family (``DenseLM``) runs on DTensors yet; a cell of
-another family fails with that reason and is counted as a failure.
+Every family runs on DTensors: the dense and VLM ``DenseLM``, the MoE, the
+encoder-decoder, RWKV6 and Mamba2/Zamba2, all 33 cells on each mesh.
 Results land in ``results/dryrun_torch/<mesh>/<arch>__<shape>.json``.
 """
 
@@ -63,12 +63,14 @@ from repro_torch.models.module import ParamSpec, _flatten, _unflatten
 from repro_torch.training.optimizer import make_optimizer
 from repro_torch.training.train_step import make_train_step
 
-DTENSOR_FAMILIES = ("dense", "vlm")
 # what the per-device counts are, stated in every record
 COUNTED = ("per device: each local operator's flops (torch.utils.flop_counter) "
            "and operand and result bytes; flash attention as its kernels' "
            "products on the (query, key) pairs its mask lets through, 4 d a "
-           "pair forward, 14 d backward plus 2 d a row; collectives' wire bytes "
+           "pair forward, 14 d backward plus 2 d a row; RWKV6's WKV and "
+           "Mamba2's SSD as the products of the reference's chunked forms "
+           "(wkv6_chunked at WKV_CHUNK 32, ssd_chunked at the config's "
+           "ssm_chunk) forward, twice that backward; collectives' wire bytes "
            "by ring formulas; the global flops here are the DTensor-level "
            "matrix products' on global shapes")
 OUT_DIR = "results/dryrun_torch"
@@ -175,10 +177,6 @@ def build_cell(arch: Union[str, ArchConfig], shape_name: Union[str, ShapeConfig]
     ``shape_name`` may be configs themselves; ``param_dtype`` is the
     parameters' dtype (bf16, as the reference's)."""
     cfg = get_arch(arch) if isinstance(arch, str) else arch
-    if cfg.family not in DTENSOR_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family does not run on DTensors "
-            f"yet (only {DTENSOR_FAMILIES})")
     if fsdp is not None:
         cfg = dataclasses.replace(cfg, fsdp=fsdp)
     if remat is not None:
@@ -275,7 +273,7 @@ def record_cell(arch, shape_name, *, multi_pod: bool, mesh=None,
         cell = build_cell(arch, shape_name, multi_pod=multi_pod, mesh=mesh,
                           param_dtype=param_dtype, **overrides)
     t_lower = time.time() - t0
-    cm = OpCostModel()
+    cm = OpCostModel(ssm_chunk=cell.cfg.ssm_chunk)
     cm.add_arguments(cell.args)
     t0 = time.time()
     with cm:
@@ -402,8 +400,7 @@ def main() -> None:
         except Exception as e:  # noqa: BLE001 — record and continue the sweep
             failures.append((arch, shape, repr(e)))
             print(f"[dryrun] FAIL {arch} {shape}: {e}", flush=True)
-            if not isinstance(e, NotImplementedError):
-                traceback.print_exc()
+            traceback.print_exc()
     if failures:
         print(f"[dryrun] {len(failures)} FAILURES: {failures}", flush=True)
         raise SystemExit(1)

@@ -14,6 +14,15 @@ Decode keeps the decoder's self K/V (written in place at each lane's
 position) and cross K/V of ``n_frames`` a lane in its cache. Like the
 reference's engine, nothing here fills the cross K/V from the encoder: the
 engine's cache starts at zero and decode attends to those zeros.
+
+On DTensors (the GSPMD path) the residual streams take the reference's
+hints (``constrain`` at each embedding, each block's output and the
+logits), and the decoder's after each attention too, as ``DenseLM``'s do.
+Heads are projected and merged shard by shard (:func:`layers.
+project_heads`, :func:`layers.merge_heads`), so whisper's 20 heads run on
+a 16-way "model" axis, and all three attentions go through
+:func:`layers.attention`'s layout (a sequence split moves to the heads;
+heads that do not divide are gathered).
 """
 
 from __future__ import annotations
@@ -21,8 +30,10 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
+    LOGITS,
     BaseModel,
     decode_positions,
     kv_slots,
@@ -30,7 +41,7 @@ from repro_torch.models.model import (
     write_kv,
 )
 from repro_torch.models.module import ParamSpec
-from repro_torch.models.transformer import unstack
+from repro_torch.models.transformer import ACT, unstack
 
 
 def _ln(nl, d):
@@ -71,14 +82,6 @@ def _mlp(lp, x):
     return L.gelu_mlp(x, lp["w_in"], lp["b_in"], lp["w_out"], lp["b_out"])
 
 
-def _proj(x, w):
-    return torch.einsum("bsd,dhk->bshk", x, w)
-
-
-def _out(o, w):
-    return torch.einsum("bshk,hkd->bsd", o, w)
-
-
 class WhisperLM(BaseModel):
     def param_specs(self):
         cfg = self.cfg
@@ -113,13 +116,13 @@ class WhisperLM(BaseModel):
     # -- encoder ----------------------------------------------------------------
     def _enc_block(self, lp, h):
         x = _norm(h, lp["ln1"])
-        o = L.attention(_proj(x, lp["wq"]), _proj(x, lp["wk"]),
-                        _proj(x, lp["wv"]), causal=False)
-        h = h + _out(o, lp["wo"])
-        return h + _mlp(lp, _norm(h, lp["ln2"]))
+        q, k, v = (L.project_heads(x, lp[w]) for w in ("wq", "wk", "wv"))
+        o = L.attention(q, k, v, causal=False)
+        h = constrain(h + L.merge_heads(o, lp["wo"]), ACT)
+        return constrain(h + _mlp(lp, _norm(h, lp["ln2"])), ACT)
 
     def encode(self, params, frames):
-        h = frames + params["enc_pos"][None].to(frames.dtype)
+        h = constrain(frames + params["enc_pos"][None].to(frames.dtype), ACT)
         for lp in unstack(params["enc_blocks"]):
             if self.cfg.remat:
                 h = checkpoint(self._enc_block, lp, h, use_reentrant=False)
@@ -131,20 +134,21 @@ class WhisperLM(BaseModel):
     def _dec_block(self, lp, h, enc_out, positions):
         cfg = self.cfg
         x = _norm(h, lp["ln1"])
-        q = L.apply_rope(_proj(x, lp["wq"]), positions, cfg.rope_theta)
-        k = L.apply_rope(_proj(x, lp["wk"]), positions, cfg.rope_theta)
-        o = L.attention(q, k, _proj(x, lp["wv"]), causal=True)
-        h = h + _out(o, lp["wo"])
+        q = L.apply_rope(L.project_heads(x, lp["wq"]), positions, cfg.rope_theta)
+        k = L.apply_rope(L.project_heads(x, lp["wk"]), positions, cfg.rope_theta)
+        o = L.attention(q, k, L.project_heads(x, lp["wv"]), causal=True)
+        h = constrain(h + L.merge_heads(o, lp["wo"]), ACT)
         x = _norm(h, lp["ln_x"])
-        o = L.attention(_proj(x, lp["xq"]), _proj(enc_out, lp["xk"]),
-                        _proj(enc_out, lp["xv"]), causal=False)
-        h = h + _out(o, lp["xo"])
-        return h + _mlp(lp, _norm(h, lp["ln2"]))
+        o = L.attention(L.project_heads(x, lp["xq"]),
+                        L.project_heads(enc_out, lp["xk"]),
+                        L.project_heads(enc_out, lp["xv"]), causal=False)
+        h = constrain(h + L.merge_heads(o, lp["xo"]), ACT)
+        return constrain(h + _mlp(lp, _norm(h, lp["ln2"])), ACT)
 
     def forward(self, params, batch):
         cfg = self.cfg
         enc_out = self.encode(params, batch["frames"])
-        h = params["embed"][batch["tokens"].long()]
+        h = constrain(L.embed(params["embed"], batch["tokens"]), ACT)
         positions = torch.arange(h.shape[1], device=h.device)
         for lp in unstack(params["dec_blocks"]):
             if cfg.remat:
@@ -153,7 +157,8 @@ class WhisperLM(BaseModel):
             else:
                 h = self._dec_block(lp, h, enc_out, positions)
         h = _norm(h, params["ln_f"])
-        return masked_lm_head(h, params["lm_head"], cfg.vocab), {}
+        logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        return constrain(logits, LOGITS), {}
 
     # -- decode -------------------------------------------------------------------
     def cache_specs(self, batch_size: int, max_seq: int,
@@ -176,7 +181,7 @@ class WhisperLM(BaseModel):
         position; the cross K/V are read from the cache, all ``n_frames``
         of them, and come back unchanged."""
         cfg = self.cfg
-        h = params["embed"][tokens.long()]
+        h = L.embed(params["embed"], tokens)
         cur = decode_positions(cur_index, h.shape[0], h.device)
         slots = kv_slots(cur, cache["k"].shape[2])
         cos, sin = L.rope_cos_sin(cur[:, None], cfg.head_dim, cfg.rope_theta)
@@ -185,16 +190,16 @@ class WhisperLM(BaseModel):
         last_frame = torch.full_like(cur, cache["xk"].shape[2] - 1)
         for li, lp in enumerate(unstack(params["dec_blocks"])):
             x = _norm(h, lp["ln1"])
-            q = L.rotate(_proj(x, lp["wq"]), cos, sin)
-            k = L.rotate(_proj(x, lp["wk"]), cos, sin)
+            q = L.rotate(L.project_heads(x, lp["wq"]), cos, sin)
+            k = L.rotate(L.project_heads(x, lp["wk"]), cos, sin)
             k_c, v_c = cache["k"][li], cache["v"][li]
             write_kv(k_c, slots, k, active)
-            write_kv(v_c, slots, _proj(x, lp["wv"]), active)
-            h = h + _out(L.decode_attention(q, k_c, v_c, cur), lp["wo"])
+            write_kv(v_c, slots, L.project_heads(x, lp["wv"]), active)
+            h = h + L.merge_heads(L.decode_attention(q, k_c, v_c, cur), lp["wo"])
             x = _norm(h, lp["ln_x"])
-            o = L.decode_attention(_proj(x, lp["xq"]), cache["xk"][li],
+            o = L.decode_attention(L.project_heads(x, lp["xq"]), cache["xk"][li],
                                    cache["xv"][li], last_frame)
-            h = h + _out(o, lp["xo"])
+            h = h + L.merge_heads(o, lp["xo"])
             h = h + _mlp(lp, _norm(h, lp["ln2"]))
         h = _norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)

@@ -259,16 +259,22 @@ def decode_attention(q, k_cache, v_cache, cur_index, *,
     cache in q's dtype with f32 products (an f32 q against a bf16 cache
     promotes to f32); the cache slice is upcast here, and softmax and
     ``p @ v`` are f32 as its ``preferred_element_type`` makes them.
+    DTensors take :func:`_decode_attention_sharded`.
     """
+    if is_dtensor(k_cache):
+        return _decode_attention_sharded(q, k_cache, v_cache, cur_index, window)
+    return _decode_attention(q, k_cache, v_cache, cur_index, window)
+
+
+def _decode_attention(q, k_cache, v_cache, cur_index, window, first: int = 0,
+                      groups=()):
+    """:func:`decode_attention` of local tensors whose cache holds the
+    positions ``first ..``; with ``groups``, the process groups over which
+    the cache's sequence is split, the softmax and ``p @ v`` are reduced
+    over them (flash decoding: maxima, then sums)."""
     b, sq, hq, d = q.shape
     s_cache, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
-    if is_dtensor(q):
-        # q's heads stay split only where the kv heads split as they do
-        qp, kv_split = attention_placements(q, hkv)
-        if not kv_split:
-            qp = [Replicate() if p.is_shard(2) else p for p in qp]
-        q = q.redistribute(q.device_mesh, qp)
     scale = 1.0 / math.sqrt(d)
     qg = (q.float() * scale).reshape(b, sq, hkv, g, d).to(q.dtype).float()
     qh = qg.permute(0, 2, 1, 3, 4).reshape(b, hkv, sq * g, d)
@@ -278,27 +284,97 @@ def decode_attention(q, k_cache, v_cache, cur_index, *,
                                         memory_format=torch.contiguous_format)
     s = torch.matmul(qh, kt)                          # (B, Hkv, Sq*G, S)
     cur = torch.as_tensor(cur_index, device=q.device).reshape(-1, 1)
-    kpos = torch.arange(s_cache, device=q.device)[None, :]
+    kpos = torch.arange(s_cache, device=q.device)[None, :] + first
     mask = kpos <= cur
     if window is not None:
         mask &= kpos > cur - window
-    s = torch.where(like(s, mask[:, None, None, :]), s, NEG_INF)
-    p = F.softmax(s, dim=-1)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    if groups:
+        from torch.distributed import _functional_collectives as funcol
+
+        def reduce(t, op):
+            for grp in groups:
+                t = funcol.all_reduce(t, op, grp)
+            return t
+
+        e = torch.exp(s - reduce(s.amax(dim=-1, keepdim=True), "max"))
+        p = e / reduce(e.sum(dim=-1, keepdim=True), "sum")
+    else:
+        p = F.softmax(s, dim=-1)
     vh = v_cache.permute(0, 2, 1, 3).to(torch.float32,
                                         memory_format=torch.contiguous_format)
     out = torch.matmul(p.to(q.dtype).float(), vh)     # (B, Hkv, Sq*G, D)
+    if groups:
+        out = reduce(out, "sum")
     out = out.reshape(b, hkv, sq, g, d).permute(0, 2, 1, 3, 4)
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
+def _decode_attention_sharded(q, k_cache, v_cache, cur_index, window):
+    """:func:`decode_attention` of DTensors, shard by shard: each device its
+    lanes, its kv heads with their q heads, and its block of the cache's
+    sequence; across a sequence split the softmax and ``p @ v`` are reduced
+    (:func:`_decode_attention`), so no key is gathered. DTensor's own
+    products flatten lanes and heads, which torch 2.11 cannot do with the
+    heads split."""
+    mesh = k_cache.device_mesh
+    cp = [p if p.is_shard() and p.dim < 3 else Replicate()
+          for p in k_cache.placements]
+    qp = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(2) else Replicate()
+          for p in cp]
+    lanes = [Shard(0) if p.is_shard(0) else Replicate() for p in cp]
+    _, offset = shard_of(mesh, cp, k_cache.shape)
+    groups = [mesh.get_group(i) for i, p in enumerate(cp)
+              if p.is_shard(1) and mesh.size(i) > 1]
+    cur = torch.as_tensor(cur_index, device=q.device).reshape(-1).expand(q.shape[0])
+    return on_shards(
+        lambda q, k, v, c: _decode_attention(q, k, v, c, window, offset[1], groups),
+        mesh, qp, (qp, cp, cp, lanes))(q, k_cache, v_cache, like(k_cache, cur))
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: ``(..., D)`` activations onto a ``(D, F)`` weight's
+    outputs. On DTensors it runs shard by shard, on each mesh dim as one of
+    Megatron's products: where the weight's outputs are split and the
+    batch is not, the activations are gathered (a sequence split under
+    sequence parallelism: gathered before a column-parallel product) and
+    the result is split as the weight; where the activations' features are
+    split, the weight's inputs are split alike and the result is a partial
+    sum (row-parallel); a split of the activations' leading dims is kept,
+    the weight gathered there (FSDP's all-gather); where neither is split,
+    the weight's outputs are. DTensor's own product flattens the leading
+    dims, here and in its backward, which torch 2.11 cannot do with the
+    second one split."""
+    if not is_dtensor(w):
+        return x @ w
+    last = x.ndim - 1
+    xp, wp, out = [], [], []
+    for i, (p, q) in enumerate(zip(x.placements, w.placements)):
+        if q.is_shard(1) and not p.is_shard(0):
+            xp.append(Replicate()), wp.append(q), out.append(Shard(last))
+        elif p.is_shard(last):
+            xp.append(p), wp.append(Shard(0)), out.append(Partial())
+        elif p.is_shard():
+            xp.append(p), wp.append(Replicate()), out.append(p)
+        elif w.shape[1] % w.device_mesh.size(i) == 0:
+            # split nowhere: the weight's outputs split here, as DTensor
+            # would (a local slice), so that no device repeats the product
+            xp.append(Replicate()), wp.append(Shard(1)), out.append(Shard(last))
+        else:
+            xp.append(Replicate()), wp.append(Replicate()), out.append(Replicate())
+    return on_shards(lambda x, w: x @ w, w.device_mesh, out, (xp, wp),
+                     product_grads(xp, wp))(x, w)
+
+
 def swiglu(x, w_gate, w_up, w_down):
-    h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    h = F.silu(project(x, w_gate)) * project(x, w_up)
+    return project(h, w_down)
 
 
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
     # jax.nn.gelu's default is the tanh approximation
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+    h = F.gelu(project(x, w_in) + b_in, approximate="tanh")
+    return project(h, w_out) + b_out
 
 
 # ---------------------------------------------------------------------------
@@ -326,8 +402,12 @@ def moe_ffn(x, router, w_gate, w_up, w_down, *, top_k: int,
     buffer through SwiGLU experts, then each token's gated outputs summed
     back; overflowing tokens go to a dump slot and get nothing. Counts are
     a scatter-add, not ``bincount``, which reads its largest value back to
-    the host and so cannot run inside a captured CUDA graph.
+    the host and so cannot run inside a captured CUDA graph. DTensors take
+    :func:`_moe_ffn_sharded`, the same global function shard by shard.
     """
+    if is_dtensor(x):
+        return _moe_ffn_sharded(x, router, w_gate, w_up, w_down, top_k=top_k,
+                                capacity_factor=capacity_factor)
     b, s, d = x.shape
     e = router.shape[-1]
     t = b * s
@@ -335,8 +415,7 @@ def moe_ffn(x, router, w_gate, w_up, w_down, *, top_k: int,
     xf = x.reshape(t, d)
     logits = xf.float() @ router.float()                            # (T, E)
     probs = F.softmax(logits, dim=-1)
-    gate_w, gate_ids = torch.topk(probs, top_k, dim=-1)             # (T, k)
-    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    gate_w, gate_ids = _top_k_gates(probs, top_k)                   # (T, k)
 
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
     expert_flat = gate_ids.reshape(-1)                              # (T*k,)
@@ -347,32 +426,145 @@ def moe_ffn(x, router, w_gate, w_up, w_down, *, top_k: int,
     aux = e * torch.sum(me * ce)
 
     capacity = moe_capacity(t, e, top_k, capacity_factor)
-    token_flat = torch.arange(t, device=dev)[:, None].expand(t, top_k).reshape(-1)
-    weight_flat = gate_w.reshape(-1)
+    y = _dispatch_combine(x, gate_w, gate_ids, w_gate, w_up, w_down,
+                          n_experts=e, capacity=capacity, slots=capacity)
+    return y, aux
+
+
+def _top_k_gates(probs, top_k: int):
+    """Each token's top-k experts and their gates, renormalised."""
+    gate_w, gate_ids = torch.topk(probs, top_k, dim=-1)
+    return gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9), gate_ids
+
+
+def _assign(gate_ids, *, n_experts: int, capacity: int, slots: int, el: int,
+            prefix=None, first: int = 0):
+    """Where each top-k assignment goes: ``(order, slot)``, the assignments
+    in stable expert order (token-major, then k, inside an expert) and each
+    one's row in the ``(el * slots + 1)``-row buffer of the experts
+    ``first .. first + el``, the last row the dump. An assignment is kept
+    while its rank inside its expert plus ``prefix[expert]`` (the
+    assignments of earlier tokens held elsewhere; by default none) is under
+    ``capacity``."""
+    t, top_k = gate_ids.shape
+    dev = gate_ids.device
+    expert_flat = gate_ids.reshape(-1)                              # (T*k,)
     order = torch.argsort(expert_flat, stable=True)
     sorted_experts = expert_flat[order]
-    sorted_tokens = token_flat[order]
-    sorted_weights = weight_flat[order]
-    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+    counts = torch.zeros(n_experts, dtype=torch.long, device=dev).scatter_add_(
         0, sorted_experts, torch.ones_like(sorted_experts))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * top_k, device=dev) - starts[sorted_experts]
-    slot = torch.where(rank < capacity, sorted_experts * capacity + rank,
-                       e * capacity)
+    if prefix is None:
+        return order, torch.where(rank < capacity,
+                                  sorted_experts * capacity + rank, el * slots)
+    keep = ((rank + prefix[sorted_experts] < capacity)
+            & (sorted_experts >= first) & (sorted_experts < first + el))
+    return order, torch.where(keep, (sorted_experts - first) * slots + rank,
+                              el * slots)
 
-    buf = x.new_zeros((e * capacity + 1, d)).index_put((slot,), xf[sorted_tokens])
-    xe = buf[:e * capacity].reshape(e, capacity, d)
+
+def _dispatch_combine(x, gate_w, gate_ids, w_gate, w_up, w_down, *,
+                      n_experts: int, capacity: int, slots: int,
+                      prefix=None, first: int = 0):
+    """The experts ``first ..`` whose weights are ``w_*`` applied to the
+    tokens of ``x`` ``(B, S, D)`` routed to them (``gate_ids``, ``gate_w``
+    ``(B*S, k)``), summed back into ``(B, S, D)``; each expert's buffer has
+    ``slots`` rows, one an assignment of these tokens that it keeps
+    (:func:`_assign`)."""
+    b, s, d = x.shape
+    t, top_k = gate_ids.shape
+    el = w_gate.shape[0]
+    dev = x.device
+    xf = x.reshape(t, d)
+    order, slot = _assign(gate_ids, n_experts=n_experts, capacity=capacity,
+                          slots=slots, el=el, prefix=prefix, first=first)
+    token_flat = torch.arange(t, device=dev)[:, None].expand(t, top_k).reshape(-1)
+    sorted_tokens = token_flat[order]
+    sorted_weights = gate_w.reshape(-1)[order]
+
+    buf = x.new_zeros((el * slots + 1, d)).index_put((slot,), xf[sorted_tokens])
+    xe = buf[:el * slots].reshape(el, slots, d)
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, w_gate)) * torch.einsum(
         "ecd,edf->ecf", xe, w_up)
     ye = torch.einsum("ecf,efd->ecd", h, w_down)
 
     # combine: each slot's output, weighted by its gate, added to its token
     # (the dump slot's token is the extra row t)
-    token_for_slot = torch.full((e * capacity + 1,), t, dtype=torch.long,
+    token_for_slot = torch.full((el * slots + 1,), t, dtype=torch.long,
                                 device=dev).index_put((slot,), sorted_tokens)
-    weight_for_slot = torch.zeros(e * capacity + 1, dtype=torch.float32,
+    weight_for_slot = torch.zeros(el * slots + 1, dtype=torch.float32,
                                   device=dev).index_put(
         (slot,), sorted_weights.float())
-    contrib = ye.reshape(e * capacity, d) * weight_for_slot[:e * capacity, None].to(x.dtype)
-    y = x.new_zeros((t + 1, d)).index_add(0, token_for_slot[:e * capacity], contrib)
-    return y[:t].reshape(b, s, d), aux
+    contrib = ye.reshape(el * slots, d) * weight_for_slot[:el * slots, None].to(x.dtype)
+    y = x.new_zeros((t + 1, d)).index_add(0, token_for_slot[:el * slots], contrib)
+    return y[:t].reshape(b, s, d)
+
+
+def _moe_ffn_sharded(x, router, w_gate, w_up, w_down, *, top_k: int,
+                     capacity_factor: float):
+    """:func:`moe_ffn` of DTensors: the reference's global function (GSPMD
+    runs it on the global ``(B, S, D)`` array), shard by shard.
+
+    Each device takes its batch rows whole (a sequence split is gathered)
+    and the router whole: the logits and probabilities of its tokens, then
+    the top-k of each. Capacity is that of the global token count, and an
+    assignment's rank inside its expert is its rank in the global order:
+    the expert counts of the batch rows before the device's, gathered once
+    (a ``(B, E)`` integer tensor), start its ranks. The aux loss takes the
+    global ``me`` and ``ce`` (DTensor reductions). Each device runs the
+    experts it holds (split over "model" by default, their hidden dim under
+    ``moe_tp``) on its tokens, in a buffer of ``min(capacity, its tokens)``
+    rows an expert, and its combine is a partial sum over the mesh dims
+    that split the experts, reduced once into ``(B, S, D)``. On a one-rank
+    mesh every step is the plain route's."""
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    e = router.shape[-1]
+    t = b * s
+    capacity = moe_capacity(t, e, top_k, capacity_factor)
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+    whole = [Replicate()] * mesh.ndim
+
+    def route(x, r):
+        return F.softmax(x.reshape(-1, d).float() @ r.float(), dim=-1)
+
+    probs = on_shards(route, mesh, rows, (rows, whole),
+                      product_grads(rows, whole))(x, router)         # (T, E)
+
+    def row_counts(p):
+        ids = torch.topk(p, top_k, dim=-1)[1].reshape(-1, s * top_k)
+        return torch.zeros(ids.shape[0], e, dtype=torch.long,
+                           device=p.device).scatter_add_(1, ids, torch.ones_like(ids))
+
+    counts = on_shards(row_counts, mesh, rows, (rows,))(probs.detach())
+    counts = counts.redistribute(mesh, whole)                        # (B, E)
+    me = probs.mean(dim=0)
+    ce = counts.sum(0).float() / (t * top_k)
+    aux = e * torch.sum(me * ce)
+
+    # weights: the expert dim and the hidden dim keep their splits, except
+    # on a mesh dim that splits the tokens; the rest is gathered
+    def weight_placements(w, hidden: int):
+        return [Replicate() if rows[i].is_shard()
+                else p if p.is_shard(0) or p.is_shard(hidden) else Replicate()
+                for i, p in enumerate(w.placements)]
+
+    gp, dp = weight_placements(w_gate, 2), weight_placements(w_down, 1)
+    out = [Partial() if gp[i].is_shard() else rows[i] for i in range(mesh.ndim)]
+    local_rows, row_off = shard_of(mesh, rows, x.shape)
+    _, expert_off = shard_of(mesh, gp, w_gate.shape)
+    slots = min(capacity, local_rows[0] * s)
+
+    def experts(x, p, c, wg, wu, wd):
+        gate_w, gate_ids = _top_k_gates(p, top_k)
+        return _dispatch_combine(x, gate_w, gate_ids, wg, wu, wd, n_experts=e,
+                                 capacity=capacity, slots=slots,
+                                 prefix=c[:row_off[0]].sum(0), first=expert_off[0])
+
+    act_g, gate_g = product_grads(rows, gp)
+    down_g = product_grads(rows, dp)[1]
+    y = on_shards(experts, mesh, out, (rows, rows, whole, gp, gp, dp),
+                  (act_g, act_g, whole, gate_g, gate_g, down_g))(
+        x, probs, counts, w_gate, w_up, w_down)
+    return y, aux

@@ -28,7 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.dist.sharding import (
@@ -254,7 +254,7 @@ def keep_state(new, old, active: Optional[torch.Tensor]):
     if active is None:
         return new
     mask = active.reshape((1, -1) + (1,) * (new.dim() - 2))
-    return torch.where(mask, new, old)
+    return torch.where(like(new, mask), new, old)
 
 
 # the logits' logical axes
@@ -297,10 +297,13 @@ def _head_to(h, w):
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy; labels are pre-shifted by the pipeline.
-    One row a token. DTensor logits whose vocab is split over more than one
-    device take :func:`_vocab_parallel_ce` (DTensor would gather the whole
-    vocab for the log-sum-exp and scatter the gather's gradient into it);
-    others have their vocab rows made whole first."""
+    One row a token. DTensor logits whose sequence is split take
+    :func:`_seq_split_ce`; those whose vocab is split over more than one
+    device :func:`_vocab_parallel_ce` (DTensor would gather the whole vocab
+    for the log-sum-exp and scatter the gather's gradient into it); others
+    have their vocab rows made whole first."""
+    if is_dtensor(logits) and any(p.is_shard(1) for p in logits.placements):
+        return _seq_split_ce(logits, labels)
     logits = logits.float().reshape(-1, logits.shape[-1])
     labels = labels.long().reshape(-1, 1)
     if is_dtensor(logits):
@@ -333,6 +336,33 @@ def _vocab_parallel_ce(logits, labels):
     groups = [mesh.get_group(i) for i in _split_dims(logits, 1)]
     return on_shards(lambda l, y: _VocabCE.apply(l, y, offset[1], groups),
                      mesh, rows, (lp, rows))(logits, labels)
+
+
+def _seq_split_ce(logits, labels):
+    """The mean cross-entropy of ``(B, S, V)`` DTensor logits whose sequence
+    is split (sequence parallelism), shard by shard: each device flattens
+    its own block of rows (torch 2.11's DTensor cannot flatten dims whose
+    second is split) and takes their mean, a vocab split reduced as
+    :func:`_vocab_parallel_ce` reduces it; the blocks' means, each over as
+    many rows, are averaged, a partial sum of each over their number."""
+    mesh = logits.device_mesh
+    lp = [p if p.is_shard() else Replicate() for p in logits.placements]
+    rows = [p if p.is_shard() and p.dim < 2 else Replicate() for p in lp]
+    _, offset = shard_of(mesh, lp, logits.shape)
+    groups = [mesh.get_group(i) for i in _split_dims(logits, 2)]
+    blocks = 1
+    for i, p in enumerate(rows):
+        blocks *= mesh.size(i) if p.is_shard() else 1
+
+    def local(l, y):
+        l, y = l.float().reshape(-1, l.shape[-1]), y.long().reshape(-1, 1)
+        if groups:
+            return torch.mean(_VocabCE.apply(l, y, offset[2], groups)) / blocks
+        logz = torch.logsumexp(l, dim=-1, keepdim=True)
+        return torch.mean(logz - torch.gather(l, -1, y)) / blocks
+
+    out = [Partial() if p.is_shard() else Replicate() for p in rows]
+    return on_shards(local, mesh, out, (lp, rows))(logits, labels)
 
 
 class _VocabCE(torch.autograd.Function):

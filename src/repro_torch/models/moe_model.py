@@ -11,6 +11,11 @@ whole batch at the config's factor instead, lanes would take each other's
 expert slots, so a decode step routes at the factor ``E / k``, at which no
 token is dropped either: each lane's output is its own dropless top-k
 mixture, whatever the other lanes hold.
+
+On DTensors (the GSPMD path) the residual stream takes the reference's
+hints (``constrain`` at the embedding, each block's output and the
+logits), and the one after attention too, as ``DenseLM``'s does; the
+routed FFN is :func:`layers.moe_ffn`'s global function shard by shard.
 """
 
 from __future__ import annotations
@@ -18,10 +23,17 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import constrain, like
 from repro_torch.models import layers as L
-from repro_torch.models.model import masked_lm_head
+from repro_torch.models.model import LOGITS, masked_lm_head
 from repro_torch.models.module import ParamSpec
-from repro_torch.models.transformer import DenseLM, _attn_specs, _mlp_specs, unstack
+from repro_torch.models.transformer import (
+    ACT,
+    DenseLM,
+    _attn_specs,
+    _mlp_specs,
+    unstack,
+)
 
 
 class MoeLM(DenseLM):
@@ -67,16 +79,16 @@ class MoeLM(DenseLM):
 
     def _block_train(self, lp, h, positions):
         x = L.rms_norm(h, lp["ln1"])
-        h = h + self._attn(lp, x, positions)
+        h = constrain(h + self._attn(lp, x, positions), ACT)
         x = L.rms_norm(h, lp["ln2"])
         y, aux = self._ffn(lp, x)
-        return h + y, aux
+        return constrain(h + y, ACT), aux
 
     def forward(self, params, batch):
         cfg = self.cfg
-        h = self._embed_inputs(params, batch)
+        h = constrain(self._embed_inputs(params, batch), ACT)
         positions = torch.arange(h.shape[1], device=h.device)
-        aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        aux_sum = like(h, torch.zeros((), dtype=torch.float32, device=h.device))
         for lp in unstack(params["blocks"]):
             if cfg.remat:
                 h, aux = checkpoint(self._block_train, lp, h, positions,
@@ -86,6 +98,7 @@ class MoeLM(DenseLM):
             aux_sum = aux_sum + aux
         h = L.rms_norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        logits = constrain(logits, LOGITS)
         return logits, {"moe_aux": aux_sum / cfg.n_layers}
 
     def _decode_ffn(self, lp, x):

@@ -17,6 +17,17 @@ forward unbinds each stacked leaf once and runs the layers in a loop, and
 ``decode=True`` branches) is one token a lane through the recurrence in
 plain torch on every device, as the reference's is in XLA: an f32 WKV
 state and two bf16 token-shift states a layer.
+
+On DTensors (the GSPMD path) the residual stream takes the reference's
+hints (``constrain`` at the embedding, each block's output and the
+logits), and the one after the time-mix too, as ``DenseLM``'s after
+attention. Each mix first makes the sequence whole on every device (the
+token shift needs the previous row): a split of "seq" moves off it, an
+all-gather, not a halo. r, k, v and the decays are cut into heads shard by
+shard (:func:`_heads`), and the WKV runs shard by shard over batch and
+heads (:func:`_wkv_sharded`) through B8's operators on every device: the
+kernels on the card, their plain versions on the CPU, their shapes alone on
+the dry run's fake tensors.
 """
 
 from __future__ import annotations
@@ -25,13 +36,21 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import (
+    attention_placements,
+    constrain,
+    is_dtensor,
+    on_shards,
+    whole_seq,
+)
 from repro_torch.kernels.rwkv6_wkv import WKV_CHUNK, wkv6
 from repro_torch.models import layers as L
-from repro_torch.models.model import BaseModel, keep_state, masked_lm_head
+from repro_torch.models.model import LOGITS, BaseModel, keep_state, masked_lm_head
 from repro_torch.models.module import ParamSpec
-from repro_torch.models.transformer import unstack
+from repro_torch.models.transformer import ACT, unstack
 
 DECAY_CLAMP = 2.5   # per-step |log w| bound
 LORA_RANK = 64
@@ -80,7 +99,15 @@ def wkv6_chunked(r, k, v, logw, u, initial_state: Optional[torch.Tensor] = None
 
 def wkv6_decode_step(r, k, v, logw, u, state):
     """One token. r/k/v/logw ``(B, 1, H, P)``, the state ``(B, H, P, P)``
-    f32; returns f32 y ``(B, 1, H, P)`` and the new state."""
+    f32; returns f32 y ``(B, 1, H, P)`` and the new state. A DTensor state
+    runs shard by shard, each device its lanes and heads."""
+    if is_dtensor(state):
+        sp = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
+              for p in state.placements]
+        rp = [Shard(2) if p.is_shard(1) else p for p in sp]
+        up = [Shard(0) if p.is_shard(1) else Replicate() for p in sp]
+        return on_shards(wkv6_decode_step, state.device_mesh, (rp, sp),
+                         (rp,) * 4 + (up, sp))(r, k, v, logw, u, state)
     rf, kf, vf, lw = (a.float()[:, 0] for a in (r, k, v, logw))
     kv = torch.einsum("bhp,bhq->bhpq", kf, vf)
     y = torch.einsum("bhp,bhpq->bhq", rf, state + u.float()[..., None] * kv)
@@ -89,8 +116,59 @@ def wkv6_decode_step(r, k, v, logw, u, state):
 
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
-    """The token shift: x one step later along the sequence, zeros first."""
+    """The token shift: x one step later along the sequence, zeros first;
+    on a DTensor, shard by shard, its sequence whole (:func:`whole_seq`)."""
+    if is_dtensor(x):
+        xp = [Replicate() if p.is_shard(1) else p for p in x.placements]
+        return on_shards(_shift, x.device_mesh, xp, (xp,))(x)
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _head_ways(t: torch.Tensor, heads: int) -> list:
+    """``t``'s placements with its split of dim 2 (``heads`` heads of whole
+    rows) kept where the heads divide over its ways and gathered where they
+    do not; batch splits kept, every other dim gathered."""
+    ways = 1
+    for i, p in enumerate(t.placements):
+        if p.is_shard(2):
+            ways *= t.device_mesh.size(i)
+    return [p if p.is_shard(0) or (p.is_shard(2) and heads % ways == 0)
+            else Replicate() for p in t.placements]
+
+
+def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """``(B, S, D)`` cut into ``(B, S, heads, D / heads)``; on a DTensor,
+    shard by shard, a split of D becoming a split of the heads."""
+    b, s, d = t.shape
+    if not is_dtensor(t):
+        return t.reshape(b, s, heads, d // heads)
+    tp = _head_ways(t, heads)
+    return on_shards(lambda a: a.reshape(a.shape[0], a.shape[1], -1, d // heads),
+                     t.device_mesh, tp, (tp,))(t)
+
+
+def _unheads(y: torch.Tensor) -> torch.Tensor:
+    """``(B, S, H, P)`` back to ``(B, S, H P)``; on a DTensor, shard by
+    shard, a split of the heads becoming a split of the features."""
+    b, s, h, p = y.shape
+    if not is_dtensor(y):
+        return y.reshape(b, s, h * p)
+    yp = _head_ways(y, h)
+    return on_shards(lambda a: a.reshape(a.shape[0], a.shape[1], -1),
+                     y.device_mesh, yp, (yp,))(y)
+
+
+def _wkv_sharded(r, k, v, logw, u):
+    """:func:`wkv6` of DTensors, shard by shard: each device runs B8's
+    operators on its batch rows and heads (``layers.attention_placements``'s
+    layout: a sequence split moves to the heads, heads that do not divide
+    are gathered), with the bonus u split as the heads; u's gradient is a
+    partial sum over the batch's mesh dims."""
+    rp, _ = attention_placements(r, r.shape[2])
+    up = [Shard(0) if p.is_shard(2) else Replicate() for p in rp]
+    ug = [Partial() if p.is_shard(0) else q for p, q in zip(rp, up)]
+    return on_shards(wkv6, r.device_mesh, rp, (rp,) * 4 + (up,),
+                     (rp,) * 4 + (ug,))(r, k, v, logw, u)
 
 
 class Rwkv6LM(BaseModel):
@@ -140,8 +218,8 @@ class Rwkv6LM(BaseModel):
 
     # -- block pieces ---------------------------------------------------------
     def _decay(self, lp, xw):
-        raw = lp["decay_base"] + torch.tanh(
-            xw @ lp["decay_lora_a"]) @ lp["decay_lora_b"]
+        raw = lp["decay_base"] + L.project(
+            torch.tanh(L.project(xw, lp["decay_lora_a"])), lp["decay_lora_b"])
         return -torch.clamp(torch.exp(raw.float()), max=DECAY_CLAMP)
 
     def _time_mix(self, lp, h, *, shift_state=None, wkv_state=None,
@@ -150,48 +228,49 @@ class Rwkv6LM(BaseModel):
         decode the previous token's normed input is ``shift_state``; on
         the card the training form goes through the kernels, which give no
         final state (None)."""
-        p = self.cfg.rwkv_head_dim
-        b, s, d = h.shape
-        nh = d // p
-        x = L.rms_norm(h, lp["ln"])
+        nh = h.shape[-1] // self.cfg.rwkv_head_dim
+        x = whole_seq(L.rms_norm(h, lp["ln"]))
         x_prev = shift_state[:, None, :].to(x.dtype) if decode else _shift(x)
         new_shift = x[:, -1, :]
 
         def mix(mu):
             return x + (x_prev - x) * mu
 
-        r = (mix(lp["mu_r"]) @ lp["w_r"]).reshape(b, s, nh, p)
-        k = (mix(lp["mu_k"]) @ lp["w_k"]).reshape(b, s, nh, p)
-        v = (mix(lp["mu_v"]) @ lp["w_v"]).reshape(b, s, nh, p)
-        g = mix(lp["mu_g"]) @ lp["w_g"]
-        logw = self._decay(lp, mix(lp["mu_w"])).reshape(b, s, nh, p)
+        r = _heads(L.project(mix(lp["mu_r"]), lp["w_r"]), nh)
+        k = _heads(L.project(mix(lp["mu_k"]), lp["w_k"]), nh)
+        v = _heads(L.project(mix(lp["mu_v"]), lp["w_v"]), nh)
+        g = L.project(mix(lp["mu_g"]), lp["w_g"])
+        logw = _heads(self._decay(lp, mix(lp["mu_w"])), nh)
         if decode:
             y, new_state = wkv6_decode_step(r, k, v, logw, lp["bonus_u"],
                                             wkv_state)
+        elif is_dtensor(h):
+            y, new_state = _wkv_sharded(r, k, v, logw, lp["bonus_u"]), None
         elif h.device.type == "cpu":
             y, new_state = wkv6_chunked(r, k, v, logw, lp["bonus_u"])
         else:
             y, new_state = wkv6(r, k, v, logw, lp["bonus_u"]), None
-        y = y.reshape(b, s, d).to(h.dtype)
+        y = _unheads(y).to(h.dtype)
         y = L.rms_norm(y, lp["gn"]) * F.silu(g)
-        return h + y @ lp["w_o"], new_shift, new_state
+        return h + L.project(y, lp["w_o"]), new_shift, new_state
 
     def _chan_mix(self, lp, h, *, shift_state=None, decode: bool = False):
         """Returns (h_out, the shift state out)."""
-        x = L.rms_norm(h, lp["ln"])
+        x = whole_seq(L.rms_norm(h, lp["ln"]))
         x_prev = shift_state[:, None, :].to(x.dtype) if decode else _shift(x)
         xk = x + (x_prev - x) * lp["mu_k"]
         xr = x + (x_prev - x) * lp["mu_r"]
-        kk = torch.square(torch.relu(xk @ lp["w_k"]))
-        out = torch.sigmoid(xr @ lp["w_r"]) * (kk @ lp["w_v"])
+        kk = torch.square(torch.relu(L.project(xk, lp["w_k"])))
+        out = torch.sigmoid(L.project(xr, lp["w_r"])) * L.project(kk, lp["w_v"])
         return h + out, x[:, -1, :]
 
     def _block(self, tm, cm, h):
-        return self._chan_mix(cm, self._time_mix(tm, h)[0])[0]
+        h = constrain(self._time_mix(tm, h)[0], ACT)
+        return constrain(self._chan_mix(cm, h)[0], ACT)
 
     def forward(self, params, batch):
         cfg = self.cfg
-        h = params["embed"][batch["tokens"].long()]
+        h = constrain(L.embed(params["embed"], batch["tokens"]), ACT)
         for tm, cm in zip(unstack(params["time_mix"]),
                           unstack(params["chan_mix"])):
             if cfg.remat:
@@ -200,7 +279,7 @@ class Rwkv6LM(BaseModel):
                 h = self._block(tm, cm, h)
         h = L.rms_norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
-        return logits, {}
+        return constrain(logits, LOGITS), {}
 
     def cache_specs(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16):
@@ -226,14 +305,18 @@ class Rwkv6LM(BaseModel):
         from their states; the shift states come back bf16, as the
         reference casts them."""
         cfg = self.cfg
-        h = params["embed"][tokens.long()]
+        h = L.embed(params["embed"], tokens)
         new_wkv, new_tm, new_cm = [], [], []
         for li, (tm, cm) in enumerate(zip(unstack(params["time_mix"]),
                                           unstack(params["chan_mix"]))):
+            # each mix's input held to the residual's layout, as in
+            # training: on DTensors its partial sums reduced before the
+            # shift states are cast to bf16
             h, sh_tm, wkv_s = self._time_mix(
-                tm, h, shift_state=cache["shift_tm"][li],
+                tm, constrain(h, ACT), shift_state=cache["shift_tm"][li],
                 wkv_state=cache["wkv"][li], decode=True)
-            h, sh_cm = self._chan_mix(cm, h, shift_state=cache["shift_cm"][li],
+            h, sh_cm = self._chan_mix(cm, constrain(h, ACT),
+                                      shift_state=cache["shift_cm"][li],
                                       decode=True)
             new_wkv.append(wkv_s)
             new_tm.append(sh_tm)

@@ -22,6 +22,22 @@ families' ``decode_step``) is one token a lane through the recurrence in
 plain torch on every device, as the reference's is in XLA: an f32 SSM state
 and the conv window a layer, and, in Zamba2, one KV slot per application of
 the shared attention block.
+
+On DTensors (the GSPMD path) the residual stream takes the reference's
+hints (``constrain`` at the embedding, each Mamba layer's output and the
+logits), and the shared block's after its attention and at its output, as
+``DenseLM``'s do; the shared block projects and merges heads shard by
+shard and attends through :func:`layers.attention`'s layout. A Mamba2
+layer runs shard by shard over its batch rows and its SSM heads
+(:func:`_mamba2_sharded`): each device takes its heads' columns of
+``in_proj`` (z, x and dt) and B's and C's, which every head shares, from
+the gathered weight, and the same channels of the conv, so that a split of
+``in_proj`` or of the conv's ``din + 2n`` channels that falls inside a part
+never matters; the sequence is made whole first (the conv reads the
+``CONV_K - 1`` rows before each): a split of "seq" moves off it, an
+all-gather, not a halo. The SSD goes through B9's operators on every
+device: the kernels on the card, their plain versions on the CPU, their
+shapes alone on the dry run's fake tensors.
 """
 
 from __future__ import annotations
@@ -30,12 +46,21 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import (
+    constrain,
+    is_dtensor,
+    on_shards,
+    shard_of,
+    whole_seq,
+)
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
+    LOGITS,
     BaseModel,
     decode_positions,
     keep_state,
@@ -44,7 +69,7 @@ from repro_torch.models.model import (
     write_kv,
 )
 from repro_torch.models.module import ParamSpec
-from repro_torch.models.transformer import _attn_specs, _mlp_specs, unstack
+from repro_torch.models.transformer import ACT, _attn_specs, _mlp_specs, unstack
 
 CONV_K = 4  # mamba2 depthwise conv kernel width
 
@@ -175,7 +200,11 @@ def mamba2_block(cfg: ArchConfig, lp, h_in: torch.Tensor, *,
     through :func:`ssd_decode_step` from ``ssm_state``. Otherwise, on the
     card, the SSD goes through the kernels, which start from a zero state
     and give no final state (None); nothing passes them a state (serving
-    prefills through ``decode_step``, as the reference does)."""
+    prefills through ``decode_step``, as the reference does). DTensors take
+    :func:`_mamba2_sharded`."""
+    if is_dtensor(h_in):
+        return _mamba2_sharded(cfg, lp, h_in, ssm_state=ssm_state,
+                               conv_state=conv_state, decode=decode)
     din, n, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     p = cfg.ssm_head_dim
     x = L.rms_norm(h_in, lp["ln"])
@@ -205,8 +234,98 @@ def mamba2_block(cfg: ArchConfig, lp, h_in: torch.Tensor, *,
     return h_in + y @ lp["out_proj"], new_state, new_conv
 
 
+def _mamba2_sharded(cfg: ArchConfig, lp, h_in, *, ssm_state=None,
+                    conv_state=None, decode: bool = False):
+    """:func:`mamba2_block` of DTensors (module docstring). Every device
+    runs its batch rows and its heads: the mesh dims that split
+    ``in_proj``'s output split the heads where they divide over them. In
+    training and prefill a device projects and convolves its heads' x
+    channels and B and C; in decode it convolves every channel, since the
+    conv state it returns is the whole of it, and steps its heads' SSD
+    state. ``in_proj`` and the conv's weights are gathered (their gradients
+    partial sums), the per-head parameters taken as the heads are split.
+    The gate's norm and ``out_proj`` run on DTensors. On a one-rank mesh
+    every step is the plain route's."""
+    din, n, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    p = cfg.ssm_head_dim
+    x = whole_seq(L.rms_norm(h_in, lp["ln"]))
+    mesh = x.device_mesh
+    rows = [Shard(0) if q.is_shard(0) else Replicate() for q in x.placements]
+    split = [q.is_shard(1) and not r.is_shard() for q, r in
+             zip(lp["in_proj"].placements, rows)]
+    ways = 1
+    for i, sp in enumerate(split):
+        ways *= mesh.size(i) if sp else 1
+    if nh % ways:
+        split = [False] * mesh.ndim
+    whole = [Replicate()] * mesh.ndim
+    heads = [Shard(0) if sp else Replicate() for sp in split]
+    summed = [Partial() if r.is_shard() or sp else Replicate()
+              for r, sp in zip(rows, split)]
+    heads_g = [Partial() if r.is_shard() else q for r, q in zip(rows, heads)]
+    act_g = [r if r.is_shard() else Partial() if sp else r
+             for r, sp in zip(rows, split)]
+    (hl,), (lo,) = shard_of(mesh, heads, (nh,))
+
+    def block(x, w, cw, cb, dt_bias, a_log, d_skip, *state):
+        if hl == nh:
+            z, xbc, dt = _split_in_proj(cfg, x @ w)
+        else:
+            z_cols = slice(lo * p, (lo + hl) * p)
+            x_cols = slice(din + lo * p, din + (lo + hl) * p)
+            bc_cols = slice(2 * din, 2 * din + 2 * n)
+            dt_cols = slice(2 * din + 2 * n + lo, 2 * din + 2 * n + lo + hl)
+            # decode convolves every channel: its conv state is all of them
+            xbc_cols = [slice(din, 2 * din + 2 * n)] if decode else [x_cols, bc_cols]
+            cols = [z_cols] + xbc_cols + [dt_cols]
+            z, xbc, dt = torch.split(
+                x @ torch.cat([w[:, c] for c in cols], dim=1),
+                [hl * p, sum(c.stop - c.start for c in xbc_cols), hl], dim=-1)
+            cw = torch.cat([cw[:, c.start - din:c.stop - din] for c in xbc_cols], 1)
+            cb = torch.cat([cb[c.start - din:c.stop - din] for c in xbc_cols])
+        xbc, new_conv = _causal_conv(xbc, cw, cb,
+                                     state=state[1] if decode else None)
+        if decode and hl != nh:
+            xs, Bm, Cm = torch.split(xbc, [din, n, n], dim=-1)
+            xs = xs[..., lo * p:(lo + hl) * p]
+        else:
+            xs, Bm, Cm = torch.split(xbc, [hl * p, n, n], dim=-1)
+        dt = F.softplus(dt.float() + dt_bias.float())
+        A = -torch.exp(a_log.float())
+        b, s, _ = xs.shape
+        xh = xs.reshape(b, s, hl, p)
+        if decode:
+            y, new_state = ssd_decode_step(xh, dt, A, Bm, Cm, state[0])
+        else:
+            y = ssd_scan(xh, dt, A, Bm, Cm)
+        y = y.float() + d_skip.float()[None, None, :, None] * xh.float()
+        y = y.reshape(b, s, hl * p).to(h_in.dtype) * F.silu(z)
+        return (y, new_state, new_conv) if decode else y
+
+    out = [Shard(2) if sp else r for r, sp in zip(rows, split)]
+    ins = [rows, whole, whole, whole, heads, heads, heads]
+    args = [x, lp["in_proj"], lp["conv_w"], lp["conv_b"], lp["dt_bias"],
+            lp["A_log"], lp["D"]]
+    if decode:
+        state_p = [Shard(1) if sp else r for r, sp in zip(rows, split)]
+        y, new_state, new_conv = on_shards(
+            block, mesh, (out, state_p, rows), ins + [state_p, rows])(
+            *args, ssm_state, conv_state)
+    else:
+        if ssm_state is not None:
+            raise NotImplementedError(
+                "the SSD from an initial state has no kernel; serving "
+                "prefills through decode_step and never passes one")
+        new_state = new_conv = None
+        y = on_shards(block, mesh, out, ins,
+                      [act_g, summed, summed, summed, heads_g, heads_g, heads_g])(
+            *args)
+    y = L.rms_norm(y, lp["gate_ln"])
+    return h_in + L.project(y, lp["out_proj"]), new_state, new_conv
+
+
 def _mamba_layer(cfg: ArchConfig, lp, h):
-    return mamba2_block(cfg, lp, h)[0]
+    return constrain(mamba2_block(cfg, lp, h)[0], ACT)
 
 
 def _mamba_layers(cfg: ArchConfig, layers, h):
@@ -237,11 +356,11 @@ class Mamba2LM(BaseModel):
 
     def forward(self, params, batch):
         cfg = self.cfg
-        h = params["embed"][batch["tokens"].long()]
+        h = constrain(L.embed(params["embed"], batch["tokens"]), ACT)
         h = _mamba_layers(cfg, unstack(params["mamba"]), h)
         h = L.rms_norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
-        return logits, {}
+        return constrain(logits, LOGITS), {}
 
     def cache_specs(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16):
@@ -249,7 +368,7 @@ class Mamba2LM(BaseModel):
 
     def decode_step(self, params, cache, tokens, cur_index, active=None):
         cfg = self.cfg
-        h = params["embed"][tokens.long()]
+        h = L.embed(params["embed"], tokens)
         new_ssm, new_conv = [], []
         for li, lp in enumerate(unstack(params["mamba"])):
             h, s2, c2 = mamba2_block(cfg, lp, h, ssm_state=cache["ssm"][li],
@@ -311,15 +430,15 @@ class Zamba2LM(BaseModel):
     def _shared_attn_train(self, sp, h, positions):
         cfg = self.cfg
         x = L.rms_norm(h, sp["ln1"])
-        q = torch.einsum("bsd,dhk->bshk", x, sp["wq"])
-        k = torch.einsum("bsd,dhk->bshk", x, sp["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, sp["wv"])
+        q, k, v = (L.project_heads(x, sp[w]) for w in ("wq", "wk", "wv"))
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+        q = constrain(q, ("batch", "seq", "act_heads", None))
         o = L.attention(q, k, v, causal=True)
-        h = h + torch.einsum("bshk,hkd->bsd", o, sp["wo"])
+        h = constrain(h + L.merge_heads(o, sp["wo"]), ACT)
         x = L.rms_norm(h, sp["ln2"])
-        return h + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
+        return constrain(h + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"]),
+                         ACT)
 
     def _mamba_span(self, layers, h, lo, hi):
         return _mamba_layers(self.cfg, layers[lo:hi], h)
@@ -327,7 +446,7 @@ class Zamba2LM(BaseModel):
     def forward(self, params, batch):
         cfg = self.cfg
         g, rem = self._layout()
-        h = params["embed"][batch["tokens"].long()]
+        h = constrain(L.embed(params["embed"], batch["tokens"]), ACT)
         positions = torch.arange(h.shape[1], device=h.device)
         layers = unstack(params["mamba"])
         for gi in range(g):
@@ -338,7 +457,7 @@ class Zamba2LM(BaseModel):
             h = self._mamba_span(layers, h, g * cfg.attn_every, cfg.n_layers)
         h = L.rms_norm(h, params["ln_f"])
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
-        return logits, {}
+        return constrain(logits, LOGITS), {}
 
     def cache_specs(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16):
@@ -356,7 +475,7 @@ class Zamba2LM(BaseModel):
         place at the lane's position)."""
         cfg = self.cfg
         g, _ = self._layout()
-        h = params["embed"][tokens.long()]
+        h = L.embed(params["embed"], tokens)
         cur = decode_positions(cur_index, h.shape[0], h.device)
         slots = kv_slots(cur, cache["k"].shape[2])
         cos, sin = L.rope_cos_sin(cur[:, None], cfg.head_dim, cfg.rope_theta)
@@ -376,15 +495,13 @@ class Zamba2LM(BaseModel):
             for li in range(gi * cfg.attn_every, (gi + 1) * cfg.attn_every):
                 h = mamba(h, li)
             x = L.rms_norm(h, sp["ln1"])
-            q = torch.einsum("bsd,dhk->bshk", x, sp["wq"])
-            k = torch.einsum("bsd,dhk->bshk", x, sp["wk"])
-            v = torch.einsum("bsd,dhk->bshk", x, sp["wv"])
+            q, k, v = (L.project_heads(x, sp[w]) for w in ("wq", "wk", "wv"))
             q, k = L.rotate(q, cos, sin), L.rotate(k, cos, sin)
             k_cache, v_cache = cache["k"][gi], cache["v"][gi]
             write_kv(k_cache, slots, k, active)
             write_kv(v_cache, slots, v, active)
             o = L.decode_attention(q, k_cache, v_cache, cur)
-            h = h + torch.einsum("bshk,hkd->bsd", o, sp["wo"])
+            h = h + L.merge_heads(o, sp["wo"])
             x = L.rms_norm(h, sp["ln2"])
             h = h + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
         for li in range(g * cfg.attn_every, cfg.n_layers):

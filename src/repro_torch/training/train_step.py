@@ -44,6 +44,7 @@ from repro_torch.dist.overlap import (
     value_and_grad,
 )
 from repro_torch.dist.registry import STEP_MODES
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models.module import _flatten, _unflatten
 from repro_torch.training.optimizer import Optimizer
 
@@ -158,11 +159,17 @@ def make_train_step(model, optimizer: Optimizer, *, lr: float = 3e-4,
     """GSPMD train step: ``(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``, on plain tensors or on DTensors alike.
     ``grad_norm`` is the f32 norm of all the gradients, summed leaf by leaf
-    in the reference's tree order."""
+    in the reference's tree order. A DTensor gradient is laid out as its
+    parameter before the update (a partial sum reduce-scattered, FSDP's
+    reduction), so that the optimizer's arithmetic is each device's own."""
 
     def step(params, opt_state, batch):
         loss, grads = microbatch_grads(model.loss, params, batch,
                                        n_microbatches)
+        layout = dict(_flatten(params))
+        grads = _unflatten({
+            path: g.redistribute(g.device_mesh, layout[path].placements)
+            if is_dtensor(g) else g for path, g in _flatten(grads)})
         new_params, new_opt = optimizer.update(grads, opt_state, params, lr=lr)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                for _, g in tree_leaves(grads)))
