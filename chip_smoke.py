@@ -38,8 +38,14 @@ non-zero and prints no result. Phases, each raising on failure:
      a weak decay (A = -0.01 exp(N) a head, so the carried state weighs)
      and bf16, each run twice for identical bits, and time them beside
      their bounds (f32 FMAs and the split TF32 form on the tensor cores)
-     and their plain versions. Every kernel and library call
-     timed is also timed on the device alone (``device_ms``: the summed
+     and their plain versions; then the state-carrying forms at the main
+     shapes: B4's four kernels at query offset 512 (q the last 512 of 1024
+     rows against all the keys, causal, and causal in a window of 300), B8's
+     and B9's from a random initial state with a random final-state
+     gradient (y, the chunk states, the final state, every gradient with
+     the initial state's), each against its plain version within its
+     kernel's limits and timed beside the zero-state row. Every kernel and
+     library call timed is also timed on the device alone (``device_ms``: the summed
      durations of the CUDA kernels one call launches, from
      ``torch.profiler``, its inputs evicted from the L2 first) and every
      kernel's wrapper on the host alone (``host_us``, while the device is
@@ -90,6 +96,17 @@ non-zero and prints no result. Phases, each raising on failure:
      one rank's forward and backward (the slot is not held against one
      through the plain SSD: the model at random init amplifies any
      reordering of its sums; ``tools/zamba2_ssd_forms.py`` measures that);
+ 7b. the state-carrying path (``state_carry_path``): a sequence of 1024
+     tokens in two halves, the second from the states the first returns,
+     against the whole, at full width and 2 rows: each of zamba2-1.2b's 38
+     Mamba2 layers from its own input in the whole sequence's forward
+     (``mamba2_block``, SSM and conv states), its shared attention's 6
+     applications (the second half's queries at ``q_offset=512`` over all
+     1024 keys), and rwkv6-7b's WKV in 4 layers; outputs within B4's
+     forward limit and the gradients of a loss on the second half, run
+     back through the carried state, within its backward limit (the largest
+     gap and the calls that kept their bits printed); B4's, B8's and B9's
+     launches equal to the path's schedule;
   8. GADGET's online loop on the card: ``repro_torch.launch.schedule_and_
      train`` at the example's own sizes (three reduced jobs, 6 slots of 4
      steps, the scripted ``WorkerLeave``, calibration on), with the
@@ -99,7 +116,7 @@ non-zero and prints no result. Phases, each raising on failure:
      engine on the card against HiGHS;
   9. serving (``repro_torch.launch.serve``; decode is plain PyTorch on the
      card, as it is XLA in the reference, so no ported kernel runs in it):
-     qwen3-0.6b at full width and depth answers 16 staggered requests
+     qwen3-0.6b at full width and depth answers 8 staggered requests
      through ``ServingEngine(max_batch=8, max_seq=1024, prefill_chunk=8)``
      with a clean audit, each of its three steps captured once as a CUDA
      graph and no kernel launched; two requests' logits held against the
@@ -122,7 +139,8 @@ non-zero and prints no result. Phases, each raising on failure:
      weights, in f32 and in f64: the card's logits and cache held to the
      CPU f32 step at reduced size, and no further from the f64 step than the
      CPU's f32 step at full width, zamba2's layer by layer from the card's
-     inputs to each layer (``STEP_*``); reduced Mamba2LM's decode held
+     inputs to each layer (``STEP_*``; at full width the first 7 decode
+     steps, at reduced size all 31); reduced Mamba2LM's decode held
      against its forward (S1 on the card);
  10. the MoE path: phi3.5-moe-42b at full width, 1 of 32 layers, in
      ``compressed-fused`` (``moe_path``);
@@ -293,6 +311,10 @@ ARCH, SEQ, GLOBAL_BATCH, LR = "qwen3-0.6b", 1024, 8, 3e-4
 EMBED_CHUNK_W4 = (9496, 4096)  # the embed leaf's (n_blocks, block) at w=4
 PLAN = SlotPlan(workers=4, steps=4, leave=(2, 2))
 MAIN_RINGS = [4, 4, 2, 2]      # ring size of each step of PLAN
+# psums a ring step takes beside its reduction: the loss mean, as the
+# reference's pmean (tools/kernel_times.py sets 0 for a checkout whose step
+# takes the mean on the host)
+LOSS_MEAN_PSUMS = 1
 
 # B4, flash attention: its kernels, and the f32 operations each does per
 # visible (query, key) pair and unit of head_dim (F2 has no pairs)
@@ -385,6 +407,35 @@ SSD_SHAPES = [
 ]
 SSD_TIMED = "main w=4"
 ZAMBA_ARCH = "zamba2-1.2b"
+
+# B4, B8 and B9 in their state-carrying forms, at the main shapes: B4 at
+# query offset CARRY_CUT, q the last CARRY_CUT of SEQ rows against all SEQ
+# keys (causal, and causal in a window), each of its kernels held against
+# its plain version within B4's limits; B8 and B9 at WKV_TIMED's and
+# SSD_TIMED's shapes from a random initial state (and, backward, with a
+# random final-state gradient), held likewise: y, the chunk states, the
+# final state, and every gradient with the initial state's. Each form is
+# timed beside the zero-state row (``forms`` in the kernel's row).
+CARRY_CUT = 512
+FA_OFFSET_SHAPES = [
+    ("main w=4 second half", (2, 512, 1024, 16, 8, 128), True, None, torch.float32),
+    ("main w=4 second half, window 300", (2, 512, 1024, 16, 8, 128), True, 300,
+     torch.float32),
+]
+# The state-carrying path (``state_carry_path``): a sequence of SEQ tokens
+# in two halves, cut at CARRY_CUT (a chunk boundary of B8's 32 and of B9's
+# 64), the second half from the states the first returns, against the
+# whole sequence, at full width and CARRY_BATCH rows (a rank's at w=4):
+# zamba2-1.2b's 38 Mamba2 layers (``mamba2_block``: SSM and conv states),
+# each from its own input in the whole sequence's forward (the model
+# amplifies any reordering at random init, so it is held layer by layer),
+# and its shared attention's applications (the second half's queries at
+# ``q_offset`` CARRY_CUT over all the keys); rwkv6-7b's WKV in
+# RWKV_LAYERS layers (its time-mix's token shift starts from zeros outside
+# decode, as the reference's, so the WKV itself is split). Forward outputs
+# within B4's forward limit, and the gradients of a loss on the second
+# half, run back through the carried state, within its backward limit.
+CARRY_BATCH = 2
 # Zamba2 at random init amplifies any reordering of its sums: its first
 # loss moves by about 1e-2 between exact forms of the SSD in f32, and its
 # slot through the plain SSD parts from the kernels' by more with every
@@ -434,7 +485,7 @@ SERVE_GAP_FACTOR = 10.0
 # the forward and the oracle; the decode step timed with every lane
 # admitted a fresh SERVE_FULL_PROMPT-token prompt
 SERVE_ARCH, SERVE_BATCH, SERVE_MAX_SEQ, SERVE_CHUNK = "qwen3-0.6b", 8, 1024, 8
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_STAGGER = 16, (32, 512), 64, 4
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_STAGGER = 8, (32, 512), 64, 4
 SERVE_HELD, SERVE_FULL_PROMPT = 2, 64
 # zamba2-1.2b and Mamba2LM at full width and depth, rwkv6-7b at full width
 # cut to 4 layers: RECURRENT_REQUESTS requests through RECURRENT_BATCH lanes
@@ -463,6 +514,12 @@ HELD_RECURRENT = ("rwkv6-7b",)
 # 0.048 from f64, the CPU's 0.0078, largest 4.06).
 STEP_CHECKED = ("zamba2-1.2b", MAMBA2)
 STEP_LOGITS_REL, STEP_CACHE_REL, STEP_F64_REL = 1e-3, 1e-4, 1e-3
+# tokens of request 0 at full width (STEP_FULL_NEW - 1 decode steps held on
+# the CPU; RECURRENT_NEW at reduced size): each full-width step reruns 38
+# layers on the CPU in f32 and f64 (about 1.2 s a step on the card
+# machine's host), the depth this check was cut to in time for the
+# state-carrying path
+STEP_FULL_NEW = 8
 BF16_ROUNDING = 2.0**-7
 RECURRENT_BATCH, RECURRENT_REQUESTS = 2, 4
 RECURRENT_PROMPT, RECURRENT_NEW = (64, 256), 32
@@ -838,17 +895,19 @@ def check_cast_off_16_bytes(gen: torch.Generator) -> None:
     log("cast_pack_bf16 bit-exact on views off 16 bytes")
 
 
-def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
-    """(query, key) pairs B4's mask lets through."""
+def visible_pairs(sq: int, skv: int, causal: bool, window, q_offset: int = 0) -> int:
+    """(query, key) pairs B4's mask lets through, query row i at position i
+    + ``q_offset``."""
     n = 0
-    for qpos in range(sq):
+    for qpos in range(q_offset, q_offset + sq):
         hi = min(qpos, skv - 1) if causal else skv - 1
         lo = max(0, qpos - window + 1) if window else 0
         n += max(0, hi - lo + 1)
     return n
 
 
-def fa_bound(name: str, dims, causal: bool, window, dtype, tensor_cores: bool = False):
+def fa_bound(name: str, dims, causal: bool, window, dtype, tensor_cores: bool = False,
+             q_offset: int = 0):
     """Least time for the kernel's work: each input read once and each
     output written once over the memory rate, against its f32 operations
     on the visible pairs over the f32 rate; with ``tensor_cores``, against
@@ -858,7 +917,7 @@ def fa_bound(name: str, dims, causal: bool, window, dtype, tensor_cores: bool = 
     elt = torch.empty((), dtype=dtype).element_size()
     q_bytes, kv_bytes = b * sq * hq * d * elt, b * skv * hkv * d * elt
     row_bytes = 4 * b * hq * sq
-    ops = FA_PAIR_OPS[name] * d * visible_pairs(sq, skv, causal, window) * b * hq
+    ops = FA_PAIR_OPS[name] * d * visible_pairs(sq, skv, causal, window, q_offset) * b * hq
     n_bytes = {
         FA_FWD: 2 * q_bytes + 2 * kv_bytes + row_bytes,          # q k v -> O lse
         FA_BWD[0]: 2 * q_bytes + row_bytes,                      # O dO -> delta
@@ -1003,15 +1062,18 @@ def time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window)
         f"its largest value)")
 
 
-def check_flash_attention() -> dict:
+def check_flash_attention(shapes=None, q_offset: int = 0, rows=None) -> dict:
     """B4's kernels against their plain versions, each on the same inputs,
-    at every shape of FA_SHAPES; every kernel run twice gives the same
-    bits; timed at FA_TIMED."""
+    at every shape of ``shapes`` (FA_SHAPES) with query row i at position i +
+    ``q_offset``; every kernel run twice gives the same bits; timed at
+    FA_TIMED, or with an offset at the first shape (``time_state_form``).
+    ``rows`` (new ones by default) take the errors."""
     gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(1)
-    rows = {name: {"name": name, "route": "cuda", "source": FA_SOURCE,
-                   "replaces": FA_REPLACES, "max_abs_err": 0.0, "max_rel_err": 0.0}
-            for name in FA_PAIR_OPS}
+    gen.manual_seed(1 + q_offset)
+    if rows is None:
+        rows = {name: {"name": name, "route": "cuda", "source": FA_SOURCE,
+                       "replaces": FA_REPLACES, "max_abs_err": 0.0, "max_rel_err": 0.0}
+                for name in FA_PAIR_OPS}
 
     def check(name, label, kernel, plain, measure, over):
         outs, again, refs = kernel(), kernel(), plain()
@@ -1032,12 +1094,15 @@ def check_flash_attention() -> dict:
         row["max_of_limit"] = max(row.get("max_of_limit", 0.0), *overs)
         return {"errors": errs, "of_limit": overs}
 
-    for label, dims, causal, window, dtype in FA_SHAPES:
+    for i, (label, dims, causal, window, dtype) in enumerate(shapes or FA_SHAPES):
         b, sq, skv, hq, hkv, d = dims
         q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
                        for shape in ((b, sq, hq, d), (b, skv, hkv, d),
                                      (b, skv, hkv, d), (b, sq, hq, d)))
-        opts = dict(causal=causal, window=window)
+        # (an offset only where one is asked for: tools/kernel_times.py runs
+        # this over a parent's package too)
+        opts = dict(causal=causal, window=window, **(
+            {"q_offset": q_offset} if q_offset else {}))
         o, lse = fa.flash_attention_plain(q, k, v, **opts)
         delta = fa.bwd_preprocess_plain(o, do)
         errs = {
@@ -1061,16 +1126,46 @@ def check_flash_attention() -> dict:
         whole = [rel_norm(a, r) for a, r in pairs]
         if not within(bwd_over(a, r) for a, r in pairs):
             raise AssertionError(f"backward {label}: dq dk dv error {whole}")
-        log(f"B4 {label} {dims} causal={causal} window={window} {dtype}: "
-            f"errors {errs}, whole backward {whole}; bits identical run to run")
-        if label == FA_TIMED:
+        log(f"B4 {label} {dims} causal={causal} window={window} {dtype}"
+            f"{f' q_offset={q_offset}' if q_offset else ''}: errors {errs}, "
+            f"whole backward {whole}; bits identical run to run")
+        if q_offset and i == 0:
+            time_state_form(rows, f"q_offset {q_offset}", {
+                FA_FWD: (lambda: fa.flash_attention_fwd(q, k, v, **opts),
+                         lambda: fa.flash_attention_plain(q, k, v, **opts)),
+                FA_BWD[0]: (lambda: fa.bwd_preprocess(o, do),
+                            lambda: fa.bwd_preprocess_plain(o, do)),
+                FA_BWD[1]: (lambda: fa.bwd_dkdv(q, k, v, do, lse, delta, **opts),
+                            lambda: fa.bwd_dkdv_plain(q, k, v, do, lse, delta, **opts)),
+                FA_BWD[2]: (lambda: fa.bwd_dq(q, k, v, do, lse, delta, **opts),
+                            lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta, **opts))},
+                {name: fa_bound(name, dims, causal, window, dtype, q_offset=q_offset)
+                 for name in FA_PAIR_OPS}, dims)
+        elif not q_offset and label == FA_TIMED:
             time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window)
         del q, k, v, do, o, lse, delta, ko, klse
         free_cuda()
     return rows
 
 
-def wkv_bound(name: str, dims, dtype, tensor_cores: bool = False):
+def time_state_form(rows, form: str, calls: dict, bounds: dict, dims) -> None:
+    """Each kernel of ``calls`` (name -> (kernel, plain version)) in a
+    state-carrying form, timed as the zero-state rows are (``ms``, its
+    plain version's, ``device_ms``, ``host_us``) beside its bound, into the
+    kernel's row under ``form``."""
+    for name, (kernel, plain) in calls.items():
+        bound_ms, bound_by = bounds[name]
+        t = dict(shape=list(dims), ms=cuda_ms(kernel),
+                 plain_ms=cuda_ms(plain, samples=5, calls=3),
+                 bound_ms=bound_ms, bound_by=bound_by, **timings(kernel, None))
+        rows[name].setdefault("forms", {})[form] = t
+        log(f"{name} {form} {dims}: {t['ms']:.5g} ms (zero-state row "
+            f"{rows[name].get('ms', float('nan')):.5g}), device alone "
+            f"{t['device_ms']:.5g} ms, plain {t['plain_ms']:.5g} ms, bound "
+            f"{bound_ms:.5g} ms ({bound_by})")
+
+
+def wkv_bound(name: str, dims, dtype, tensor_cores: bool = False, state: bool = False):
     """Least time for a WKV kernel's work: its inputs read once and outputs
     written once (W1 writes y and the chunk states, W2 reads the states and
     writes four f32 gradients and du) over the memory rate, against its f32
@@ -1079,12 +1174,14 @@ def wkv_bound(name: str, dims, dtype, tensor_cores: bool = False):
     per chunk the L x L and L x P products counted in full, two operations
     a multiply-add (W1: A, A v, r_dec S and the state update; W2: A and dA
     again, the intra-chunk dr, dk and dv, and dr's, dk's and dv's state
-    terms and the dS update)."""
+    terms and the dS update). With ``state``, the initial state read and
+    the final state written (W2: the final state's gradient read and the
+    initial state's written) count too."""
     b, s, h, p = dims
     lc = min(W.WKV_CHUNK, s)
     chunks = b * h * -(-s // lc)
     n, elt = b * s * h * p, torch.empty((), dtype=dtype).element_size()
-    states, u = 4 * chunks * p * p, 4 * h * p
+    states, u = 4 * chunks * p * p + (8 * b * h * p * p if state else 0), 4 * h * p
     if name == WKV_FWD:
         n_bytes = 5 * n * elt + u + states
         ops = chunks * (4 * lc * lc * p + 4 * lc * p * p)
@@ -1167,29 +1264,13 @@ def check_wkv6() -> dict:
             for name in (WKV_FWD, WKV_BWD)}
     peak = 0.0
 
-    def check(name, label, kernel, refs, measure, over):
-        outs, again = kernel(), kernel()
-        if not all(same_bits(a, b) for a, b in zip(outs, again)):
-            raise AssertionError(f"{name} {label}: two runs differ")
-        errs = [measure(a, r) if bool(r.abs().max() > 0) else 0.0
-                for a, r in zip(outs, refs)]
-        abs_errs = [float((a.float() - r.float()).abs().max())
-                    for a, r in zip(outs, refs)]
-        overs = [over(a, r) for a, r in zip(outs, refs)]
-        if not within(overs) or not all(map(math.isfinite, errs + abs_errs)):
-            raise AssertionError(f"{name} {label}: errors {errs} (abs {abs_errs}) "
-                                 f"are {overs} of their limits")
-        row = rows[name]
-        row["max_abs_err"] = max(row["max_abs_err"], *abs_errs)
-        row["max_rel_err"] = max(row["max_rel_err"], *errs)
-        row["max_of_limit"] = max(row["max_of_limit"], *overs)
-        return errs
-
+    check = scan_check(rows)
     for label, dims, dtype, decay in WKV_SHAPES:
         ins, u, dy = wkv_inputs(dims, dtype, decay, gen)
-        y, states = W.wkv6_plain(*ins, u)
+        y_states = W.wkv6_plain(*ins, u)    # y, the chunk states (and the final)
+        states = y_states[1]
         grads = W.wkv6_bwd_plain(*ins, u, states, dy)
-        fwd = check(WKV_FWD, label, lambda: W.wkv6_fwd(*ins, u), (y, states),
+        fwd = check(WKV_FWD, label, lambda: W.wkv6_fwd(*ins, u), y_states,
                     rel_max, wkv_fwd_over)
         bwd = check(WKV_BWD, label, lambda: W.wkv6_bwd(*ins, u, states, dy),
                     grads, rel_norm, bwd_over)
@@ -1197,7 +1278,7 @@ def check_wkv6() -> dict:
         label_rebased = rebased_peak(ins[0], ins[1], ins[3])
         peak = max(peak, label_peak)
         lo, hi = chunk_decay_range(ins[3])
-        log(f"B8 {label} {dims} {dtype}: y, states errors {fwd}; dr dk dv "
+        log(f"B8 {label} {dims} {dtype}: y, states, final state errors {fwd}; dr dk dv "
             f"dlogw du errors {bwd}; largest |k exp(-cum)| {label_peak:.4g}, "
             f"with m the middle row's cum the largest |r exp(cumprev - m)|, "
             f"|k exp(m - cum)| {label_rebased:.4g}; exp(cum_L) in "
@@ -1221,11 +1302,40 @@ def check_wkv6() -> dict:
                     f"{tc_ms:.5g} ms ({tc_by}); device alone "
                     f"{rows[name]['device_ms']:.5g} ms, host "
                     f"{rows[name]['host_us']:.4g} us")
-        del ins, u, dy, y, states, grads
+        del ins, u, dy, y_states, states, grads
         free_cuda()
     for row in rows.values():
         row["max_boost"] = peak
     return rows
+
+
+def scan_check(rows):
+    """``check(name, label, kernel, refs, measure, over)`` for B8's and B9's
+    rows: the kernel run twice gives the same bits, and each output (an
+    output not asked for, None, left out) is within its limit of the plain
+    version's; the errors join the kernel's row."""
+    def present(outs):
+        return [t for t in outs if t is not None]
+
+    def check(name, label, kernel, refs, measure, over):
+        outs, again, refs = present(kernel()), present(kernel()), present(refs)
+        if len(outs) != len(refs) or not all(same_bits(a, b) for a, b in zip(outs, again)):
+            raise AssertionError(f"{name} {label}: two runs differ, or "
+                                 f"{len(outs)} outputs for {len(refs)}")
+        errs = [measure(a, r) if bool(r.abs().max() > 0) else 0.0
+                for a, r in zip(outs, refs)]
+        abs_errs = [float((a.float() - r.float()).abs().max())
+                    for a, r in zip(outs, refs)]
+        overs = [over(a, r) for a, r in zip(outs, refs)]
+        if not within(overs) or not all(map(math.isfinite, errs + abs_errs)):
+            raise AssertionError(f"{name} {label}: errors {errs} (abs {abs_errs}) "
+                                 f"are {overs} of their limits")
+        row = rows[name]
+        row["max_abs_err"] = max(row["max_abs_err"], *abs_errs)
+        row["max_rel_err"] = max(row["max_rel_err"], *errs)
+        row["max_of_limit"] = max(row["max_of_limit"], *overs)
+        return errs
+    return check
 
 
 def ssd_ops(name: str, dims, lc: int) -> int:
@@ -1254,7 +1364,7 @@ def ssd_ops(name: str, dims, lc: int) -> int:
     return b * (whole * chunk(lc) + (chunk(rest) if rest else 0))
 
 
-def ssd_bound(name: str, dims, dtype, tensor_cores: bool = False):
+def ssd_bound(name: str, dims, dtype, tensor_cores: bool = False, state: bool = False):
     """Least time for an SSD kernel's work: the function's inputs read once
     and outputs written once over the memory rate (S1: x, dt, A, B, C in, y
     out; S2: those and dy in, dx, d(dt), dA, dB, dC out; the chunk states
@@ -1266,18 +1376,22 @@ def ssd_bound(name: str, dims, dtype, tensor_cores: bool = False):
     and per head, per token and head S1 2L(N + P) + 4NP (C B^T, M xf, the
     readout C S, the state update), S2 2L(3N + 2P) + 10NP (C B^T, dy
     xf^T, M^T dy, G B, G^T C; B dS, C S, dy S^T, dS xf^T, the dS update):
-    a yardstick that stays when a kernel changes its chunk. Returns ``(bound ms, "bytes" or "operations", the fewest
-    operations' chunk, the yardstick in ms)``."""
+    a yardstick that stays when a kernel changes its chunk. With ``state``,
+    the initial state read and the final state written (S2: the final
+    state's gradient read and the initial state's written) count too.
+    Returns ``(bound ms, "bytes" or "operations", the fewest operations'
+    chunk, the yardstick in ms)``."""
     b, s, h, p, n = dims
     elt = torch.empty((), dtype=dtype).element_size()
     x_bytes, bc_bytes, dt_bytes, a_bytes = b * s * h * p * elt, b * s * n * elt, 4 * b * s * h, 4 * h
     ins = x_bytes + dt_bytes + a_bytes + 2 * bc_bytes
+    carried = 8 * b * h * n * p if state else 0   # one state read, one written
     lc = B9_CHUNK
     if name == SSD_FWD:
-        n_bytes = ins + x_bytes
+        n_bytes = ins + x_bytes + carried
         yard = b * s * h * (2 * lc * (n + p) + 4 * n * p)
     else:
-        n_bytes = 2 * ins + x_bytes
+        n_bytes = 2 * ins + x_bytes + carried
         yard = b * s * h * (2 * lc * (3 * n + 2 * p) + 10 * n * p)
     best = min(range(1, s + 1), key=lambda c: ssd_ops(name, dims, c))
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -1329,35 +1443,18 @@ def check_ssd() -> dict:
                    "max_rel_err": 0.0, "max_of_limit": 0.0}
             for name in (SSD_FWD, SSD_BWD)}
     spans = {}
-
-    def check(name, label, kernel, refs, measure, over):
-        outs, again = kernel(), kernel()
-        if not all(same_bits(a, b) for a, b in zip(outs, again)):
-            raise AssertionError(f"{name} {label}: two runs differ")
-        errs = [measure(a, r) if bool(r.abs().max() > 0) else 0.0
-                for a, r in zip(outs, refs)]
-        abs_errs = [float((a.float() - r.float()).abs().max())
-                    for a, r in zip(outs, refs)]
-        overs = [over(a, r) for a, r in zip(outs, refs)]
-        if not within(overs) or not all(map(math.isfinite, errs + abs_errs)):
-            raise AssertionError(f"{name} {label}: errors {errs} (abs {abs_errs}) "
-                                 f"are {overs} of their limits")
-        row = rows[name]
-        row["max_abs_err"] = max(row["max_abs_err"], *abs_errs)
-        row["max_rel_err"] = max(row["max_rel_err"], *errs)
-        row["max_of_limit"] = max(row["max_of_limit"], *overs)
-        return errs
-
+    check = scan_check(rows)
     for label, dims, dtype, decay in SSD_SHAPES:
         ins, dy = ssd_inputs(dims, dtype, decay, gen)
-        y, states = SSD.ssd_scan_plain(*ins)
+        y_states = SSD.ssd_scan_plain(*ins)    # y, the chunk states (and the final)
+        states = y_states[1]
         grads = SSD.ssd_scan_bwd_plain(*ins, states, dy)
-        fwd = check(SSD_FWD, label, lambda: SSD.ssd_scan_fwd(*ins), (y, states),
+        fwd = check(SSD_FWD, label, lambda: SSD.ssd_scan_fwd(*ins), y_states,
                     rel_max, wkv_fwd_over)
         bwd = check(SSD_BWD, label, lambda: SSD.ssd_scan_bwd(*ins, states, dy),
                     grads, rel_norm, bwd_over)
         lo, hi = spans[label] = ssd_chunk_decay_range(ins[1], ins[2])
-        log(f"B9 {label} {dims} {dtype}: y, states errors {fwd}; dx ddt dA dB "
+        log(f"B9 {label} {dims} {dtype}: y, states, final state errors {fwd}; dx ddt dA dB "
             f"dC errors {bwd}; exp(g_L) over a chunk of {SSD.SSD_CHUNK} in "
             f"[{lo:.4g}, {hi:.4g}]; largest state {float(states.abs().max()):.4g}; "
             f"bits identical run to run")
@@ -1385,11 +1482,77 @@ def check_ssd() -> dict:
                     f"states {states.numel() * 4} bytes; device alone "
                     f"{rows[name]['device_ms']:.5g} ms, host "
                     f"{rows[name]['host_us']:.4g} us")
-        del ins, dy, y, states, grads
+        del ins, dy, y_states, states, grads
         free_cuda()
     for row in rows.values():
         row["chunk_decay_span"] = spans
     return rows
+
+
+def check_state_forms(rows: dict) -> None:
+    """Phase 3's state-carrying forms (FA_OFFSET_SHAPES; B8 and B9 from an
+    initial state), each held against its plain version and timed beside
+    the zero-state row."""
+    check_flash_attention(FA_OFFSET_SHAPES, CARRY_CUT, rows)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    check = scan_check(rows)
+    for label, dims, dtype, decay in WKV_SHAPES:
+        if label != WKV_TIMED:
+            continue
+        ins, u, dy = wkv_inputs(dims, dtype, decay, gen)
+        b, _, h, p = dims
+        s0 = torch.randn((b, h, p, p), generator=gen, device=DEVICE)
+        d_fin = torch.randn((b, h, p, p), generator=gen, device=DEVICE)
+        ref = W.wkv6_plain(*ins, u, s0)
+        fwd = check(WKV_FWD, f"{label} from a state", lambda: W.wkv6_fwd(*ins, u, s0),
+                    ref, rel_max, wkv_fwd_over)
+        states = ref[1]
+
+        def bwd_call(states=states):
+            return W.wkv6_bwd(*ins, u, states, dy, d_fin, with_initial=True)
+
+        bwd = check(WKV_BWD, f"{label} from a state", bwd_call,
+                    W.wkv6_bwd_plain(*ins, u, states, dy, d_fin, with_initial=True),
+                    rel_norm, bwd_over)
+        log(f"B8 {label} {dims} from a state: y, states, final state errors "
+            f"{fwd}; dr dk dv dlogw du d_initial errors {bwd}")
+        time_state_form(rows, "from a state", {
+            WKV_FWD: (lambda: W.wkv6_fwd(*ins, u, s0), lambda: W.wkv6_plain(*ins, u, s0)),
+            WKV_BWD: (bwd_call, lambda: W.wkv6_bwd_plain(
+                *ins, u, states, dy, d_fin, with_initial=True))},
+            {name: wkv_bound(name, dims, dtype, state=True) for name in (WKV_FWD, WKV_BWD)},
+            dims)
+        del ins, u, dy, s0, d_fin, ref, states
+    for label, dims, dtype, decay in SSD_SHAPES:
+        if label != SSD_TIMED:
+            continue
+        ins, dy = ssd_inputs(dims, dtype, decay, gen)
+        b, _, h, p, n = dims
+        s0 = torch.randn((b, h, n, p), generator=gen, device=DEVICE)
+        d_fin = torch.randn((b, h, n, p), generator=gen, device=DEVICE)
+        ref = SSD.ssd_scan_plain(*ins, s0)
+        fwd = check(SSD_FWD, f"{label} from a state", lambda: SSD.ssd_scan_fwd(*ins, s0),
+                    ref, rel_max, wkv_fwd_over)
+        states = ref[1]
+
+        def bwd_call(states=states):
+            return SSD.ssd_scan_bwd(*ins, states, dy, d_fin, with_initial=True)
+
+        bwd = check(SSD_BWD, f"{label} from a state", bwd_call,
+                    SSD.ssd_scan_bwd_plain(*ins, states, dy, d_fin, with_initial=True),
+                    rel_norm, bwd_over)
+        log(f"B9 {label} {dims} from a state: y, states, final state errors "
+            f"{fwd}; dx ddt dA dB dC d_initial errors {bwd}")
+        time_state_form(rows, "from a state", {
+            SSD_FWD: (lambda: SSD.ssd_scan_fwd(*ins, s0),
+                      lambda: SSD.ssd_scan_plain(*ins, s0)),
+            SSD_BWD: (bwd_call, lambda: SSD.ssd_scan_bwd_plain(
+                *ins, states, dy, d_fin, with_initial=True))},
+            {name: ssd_bound(name, dims, dtype, state=True)[:2]
+             for name in (SSD_FWD, SSD_BWD)}, dims)
+        del ins, dy, s0, d_fin, ref, states
+    free_cuda()
 
 
 def fa_expected(n_layers: int, rings, remat: bool) -> dict:
@@ -1571,7 +1734,8 @@ def check_wire(mode: str, trainer, sizes: list, rings: list) -> None:
         ring = trainer.group.current.ring
         want_bytes = steps * sum(variant.expected_bytes(d, w) for d in units)
         want_msgs = steps * sum(variant.expected_messages(w, d) for d in units)
-        want_psums = steps * len(units) if variant.collective == "psum" else 0
+        want_psums = steps * ((len(units) if variant.collective == "psum" else 0)
+                              + LOSS_MEAN_PSUMS)
         if (ring.bytes != [want_bytes] * w or ring.messages != [want_msgs] * w
                 or ring.psums != [want_psums] * w):
             raise AssertionError(
@@ -1862,8 +2026,8 @@ def rwkv_path(cfg) -> dict:
     free_cuda()
 
     kernel_wkv6 = rwkv_model.wkv6
-    rwkv_model.wkv6 = lambda r, k, v, logw, u: rwkv_model.wkv6_chunked(
-        r, k, v, logw, u)[0]
+    rwkv_model.wkv6 = lambda r, k, v, logw, u, state=None: rwkv_model.wkv6_chunked(
+        r, k, v, logw, u, initial_state=state)
     try:
         plain, _, plain_evals, plain_s, _, plain_launches = ring_slot(model, data)
     finally:
@@ -1910,24 +2074,27 @@ def ssd_calls_against_plain(model, trainer, data) -> dict:
     out = {"fwd_calls": 0, "bwd_calls": 0, "fwd_of_limit": 0.0,
            "bwd_of_limit": 0.0, "kernel_vs_f64": 0.0, "chunked_vs_f64": 0.0}
 
-    def fwd(x, dt, A, Bm, Cm):
-        y, states = kernel_fwd(x, dt, A, Bm, Cm)
-        y_ref, st_ref = SSD.ssd_scan_plain(x, dt, A, Bm, Cm)
+    def fwd(x, dt, A, Bm, Cm, initial_state=None):
+        y, states, final = kernel_fwd(x, dt, A, Bm, Cm, initial_state)
+        y_ref, st_ref, fin_ref = SSD.ssd_scan_plain(x, dt, A, Bm, Cm, initial_state)
         exact = SSD.ssd_scan_plain(*(t.double() for t in (x, dt, A, Bm, Cm)))[0]
         chunked = ssm_model.ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk)[0]
         out["fwd_calls"] += 1
         out["fwd_of_limit"] = max(out["fwd_of_limit"], wkv_fwd_over(y, y_ref),
-                                  wkv_fwd_over(states, st_ref))
+                                  wkv_fwd_over(states, st_ref),
+                                  wkv_fwd_over(final, fin_ref))
         out["kernel_vs_f64"] = max(out["kernel_vs_f64"], rel_max(y, exact))
         out["chunked_vs_f64"] = max(out["chunked_vs_f64"], rel_max(chunked, exact))
-        return y, states
+        return y, states, final
 
-    def bwd(x, dt, A, Bm, Cm, states, dy):
-        grads = kernel_bwd(x, dt, A, Bm, Cm, states, dy)
-        refs = SSD.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy)
+    def bwd(x, dt, A, Bm, Cm, states, dy, d_final=None, *, with_initial=False):
+        grads = kernel_bwd(x, dt, A, Bm, Cm, states, dy, d_final,
+                           with_initial=with_initial)
+        refs = SSD.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, d_final,
+                                      with_initial=with_initial)
         out["bwd_calls"] += 1
-        out["bwd_of_limit"] = max(out["bwd_of_limit"],
-                                  *(bwd_over(g, r) for g, r in zip(grads, refs)))
+        out["bwd_of_limit"] = max(out["bwd_of_limit"], *(
+            bwd_over(g, r) for g, r in zip(grads, refs) if r is not None))
         return grads
 
     SSD.ssd_scan_fwd, SSD.ssd_scan_bwd = fwd, bwd
@@ -1996,6 +2163,184 @@ def zamba_path(cfg) -> dict:
         "peak_gib": peak / 2**30, "launches": launches,
         "b9_share_of_rank_grads": shares["b9"],
         "b4_share_of_rank_grads": shares["b4"]}}
+
+
+# -- phase 7b: the state-carrying path ----------------------------------------
+
+@contextlib.contextmanager
+def recorded(module, name: str, calls: list):
+    """While active, ``module.<name>`` appends its positional arguments
+    (tensors detached and cloned) and keywords to ``calls`` before it runs."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        calls.append(([a.detach().clone() if isinstance(a, torch.Tensor) else a
+                       for a in args], kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def halves_against_whole(whole, halves, leaves: dict, gen) -> dict:
+    """``whole(leaves)``, the whole sequence's outputs on its second half
+    (then its final states), against ``halves(leaves)``, the second half's
+    from the states the first half returns: each output within FA_FWD_TOL
+    of its largest value, and the gradients of ``<output, g>`` (a loss on
+    the second half, ``g`` normal) in every leaf within FA_BWD_TOL's
+    relative norm. The largest shares of the limits, the largest gap of an
+    output over its largest value, and whether every output and gradient
+    kept its bits."""
+    outs, grads, g = {}, {}, None
+    for name, fn in (("whole", whole), ("halves", halves)):
+        lv = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
+        out = fn(lv)
+        if g is None:
+            g = torch.randn(out[0].shape, generator=gen, device=DEVICE)
+        grads[name] = dict(zip(lv, torch.autograd.grad(torch.sum(out[0] * g),
+                                                       list(lv.values()))))
+        outs[name] = [o.detach() for o in out]
+    pairs = list(zip(outs["halves"], outs["whole"]))
+    gpairs = [(grads["halves"][k], grads["whole"][k]) for k in leaves]
+    return {"fwd_of_limit": max(fwd_over(a, b) for a, b in pairs),
+            "bwd_of_limit": max(bwd_over(a, b) for a, b in gpairs),
+            "largest_gap": max(rel_max(a, b) for a, b in pairs),
+            "bits_identical": all(same_bits(a, b) for a, b in pairs + gpairs)}
+
+
+def carry_inputs(cfg):
+    """``cfg``'s model at full width with random weights from seed 0, and
+    CARRY_BATCH rows of the first batch of SEQ tokens."""
+    model = build_model(cfg)
+    params = model.init(0, device=DEVICE, dtype=torch.float32)
+    batch = {k: torch.as_tensor(v)[:CARRY_BATCH].to(DEVICE) for k, v in
+             SyntheticTokens(cfg.vocab, SEQ, GLOBAL_BATCH, seed=0).batch(0).items()}
+    return model, params, batch
+
+
+def zamba_carry(cfg, gen) -> dict:
+    """zamba2-1.2b's Mamba2 layers (each from its input in the whole
+    sequence's forward) and its shared attention's applications, the
+    sequence in two halves against the whole."""
+    from repro_torch.models import layers as layers_model
+    from repro_torch.models import ssm as ssm_model
+    from repro_torch.models.transformer import unstack
+
+    model, params, batch = carry_inputs(cfg)
+    seen, calls = [], []
+    with torch.no_grad(), mamba_inputs(seen), recorded(layers_model, "attention", calls):
+        model.forward(params, batch)
+    cut = CARRY_CUT
+
+    def lp_of(lv):
+        return _unflatten({k[3:]: v for k, v in lv.items() if k.startswith("lp/")})
+
+    def whole_block(lv):
+        out, state, conv = ssm_model.mamba2_block(cfg, lp_of(lv), lv["h"])
+        return out[:, cut:], state, conv
+
+    def block_halves(lv):
+        lp = lp_of(lv)
+        _, state, conv = ssm_model.mamba2_block(cfg, lp, lv["h"][:, :cut])
+        return ssm_model.mamba2_block(cfg, lp, lv["h"][:, cut:], ssm_state=state,
+                                      conv_state=conv)
+
+    layers = [halves_against_whole(
+        whole_block, block_halves,
+        {**{f"lp/{k}": v for k, v in _flatten(lp)}, "h": h}, gen)
+        for lp, h in zip(unstack(params["mamba"]), seen)]
+    attention = []
+    for (q, k, v), kw in calls:
+        def whole_attention(lv, kw=kw):
+            return (layers_model.attention(lv["q"], lv["k"], lv["v"], **kw)[:, cut:],)
+
+        def attention_halves(lv, kw=kw):
+            return (layers_model.attention(lv["q"][:, cut:], lv["k"], lv["v"],
+                                           q_offset=cut, **kw),)
+
+        attention.append(halves_against_whole(
+            whole_attention, attention_halves, {"q": q, "k": k, "v": v}, gen))
+    del model, params, seen, calls
+    n, a = cfg.n_layers, len(attention)
+    want = {SSD_FWD: n + 3 * n, SSD_BWD: 3 * n, FA_FWD: a + 2 * a,
+            **{name: 2 * a for name in FA_BWD}}
+    return {"mamba2_layers": layers, "attention": attention, "want": want}
+
+
+def rwkv_carry(cfg, gen) -> dict:
+    """rwkv6-7b's WKV in each layer (from its inputs in the whole sequence's
+    forward), the sequence in two halves against the whole."""
+    from repro_torch.models import rwkv as rwkv_model
+
+    model, params, batch = carry_inputs(cfg)
+    calls = []
+    with torch.no_grad(), recorded(rwkv_model, "wkv6", calls):
+        model.forward(params, batch)
+    cut, names = CARRY_CUT, ("r", "k", "v", "logw")
+
+    def whole(lv):
+        y, final = rwkv_model.wkv6(*(lv[n] for n in names), lv["u"])
+        return y[:, cut:], final
+
+    def halves(lv):
+        _, state = rwkv_model.wkv6(*(lv[n][:, :cut] for n in names), lv["u"])
+        return rwkv_model.wkv6(*(lv[n][:, cut:] for n in names), lv["u"], state)
+
+    layers = [halves_against_whole(whole, halves, dict(zip(names + ("u",), args[:5])),
+                                   gen) for args, _ in calls]
+    del model, params, calls
+    n = cfg.n_layers
+    return {"wkv_layers": layers, "want": {WKV_FWD: n + 3 * n, WKV_BWD: 3 * n}}
+
+
+def state_carry_path() -> dict:
+    """The sequence in two halves through every layer that carries state
+    (CARRY_CUT's note): zamba2-1.2b's 38 Mamba2 layers and its shared
+    attention, rwkv6-7b's WKV in RWKV_LAYERS layers; each within its
+    limits, and B4's, B8's and B9's launches equal to the path's schedule
+    (each half and the whole a forward and a backward, beside the forward
+    that gave the layers' inputs), no other kernel launched."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    t0 = time.perf_counter()
+    reset_all_launches()
+    zamba = zamba_carry(get_arch(ZAMBA_ARCH), gen)
+    free_cuda()
+    rwkv = rwkv_carry(dataclasses.replace(get_arch(RWKV_ARCH), n_layers=RWKV_LAYERS),
+                      gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    want = {**zamba.pop("want"), **rwkv.pop("want")}
+    mine = {k: v for k, v in launches.items() if k in want}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    parts = {"zamba2-1.2b mamba2_block": zamba["mamba2_layers"],
+             "zamba2-1.2b shared attention": zamba["attention"],
+             "rwkv6-7b wkv6": rwkv["wkv_layers"]}
+    summary = {"cut": CARRY_CUT, "seq": SEQ, "batch": CARRY_BATCH,
+               "seconds": seconds, "launches": mine}
+    for what, rows in parts.items():
+        summary[what] = {
+            "calls": len(rows),
+            "fwd_of_limit": max(r["fwd_of_limit"] for r in rows),
+            "bwd_of_limit": max(r["bwd_of_limit"] for r in rows),
+            "largest_gap": max(r["largest_gap"] for r in rows),
+            "bits_identical": sum(r["bits_identical"] for r in rows)}
+        log(f"state carry, {what} ({len(rows)} calls, {card_line()}): the second "
+            f"half from the first's states against the whole, largest gap "
+            f"{summary[what]['largest_gap']:.4g} of the largest value, shares of "
+            f"the limits: forward {summary[what]['fwd_of_limit']:.4g}, gradients "
+            f"{summary[what]['bwd_of_limit']:.4g}; bit-identical in "
+            f"{summary[what]['bits_identical']} of {len(rows)}")
+    fails = {what: [i for i, r in enumerate(rows) if not within(
+        (r["fwd_of_limit"], r["bwd_of_limit"]))] for what, rows in parts.items()}
+    if any(fails.values()) or mine != want or others:
+        raise AssertionError(f"state carry: calls outside their limits {fails}; "
+                             f"launches {mine} != schedule {want}, or others {others}")
+    return {"launches": mine, "summary": summary}
 
 
 # -- phase 8: GADGET's online loop --------------------------------------------
@@ -2700,8 +3045,9 @@ def decode_steps_on_cpu(arch: str, reduced: bool) -> dict:
         return nxt, logits
 
     engine._decode = checked
+    new = RECURRENT_NEW if reduced else STEP_FULL_NEW
     t0 = time.perf_counter()
-    serve_requests(engine, [Request(id=0, prompt=prompt, max_new=RECURRENT_NEW)])
+    serve_requests(engine, [Request(id=0, prompt=prompt, max_new=new)])
     seconds = time.perf_counter() - t0
     # per key, the step where it comes nearest its limit
     at_worst = {k: max(((i, st[k]) for i, st in enumerate(steps)),
@@ -2719,7 +3065,7 @@ def decode_steps_on_cpu(arch: str, reduced: bool) -> dict:
         if "by_layer" in d:
             log(f"serving {what}: {k} at step {i}, each layer's max |card - "
                 f"f64| and |CPU f32 - f64|: {d['by_layer']}")
-    if len(steps) != RECURRENT_NEW - 1 or not all(
+    if len(steps) != new - 1 or not all(
             math.isfinite(v) and v <= 1.0 for v in worst.values()):
         raise AssertionError(f"{what}: {len(steps)} decode steps against the "
                              f"CPU, worst share of each limit {worst}")
@@ -3027,26 +3373,36 @@ def serving_path() -> dict:
     """Phase 9: qwen3-0.6b, then zamba2-1.2b and rwkv6-7b, then
     phi3.5-moe-42b and whisper-large-v3, then GADGET."""
     t0 = time.perf_counter()
-    qwen = serve_qwen3()
+    parts = {}   # each part's wall seconds, everything in it included
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return res
+
+    qwen = part("qwen3", serve_qwen3)
     launches = dict(qwen["launches"])
     summary = {"qwen3": qwen["summary"]}
     runs = [(arch, serve_recurrent, layers) for arch, layers in RECURRENT_SERVE.items()]
     runs += [(arch, serve_family, layers) for arch, layers in FAMILY_SERVE.items()]
     for arch, serve, layers in runs:
-        res = serve(arch, layers)
+        res = part(arch, serve, arch, layers)
         for k, v in res["launches"].items():
             launches[k] = launches.get(k, 0) + v
         summary[arch] = res["summary"]
     summary["per_step_on_cpu"] = []
     for arch in STEP_CHECKED:
         for reduced in (True, False):
-            res = decode_steps_on_cpu(arch, reduced)
+            res = part(f"{arch} steps on the CPU{' reduced' if reduced else ''}",
+                       decode_steps_on_cpu, arch, reduced)
             for k, v in res.pop("forward_launches", {}).items():
                 launches[k] = launches.get(k, 0) + v
             summary["per_step_on_cpu"].append(res)
-    summary["gadget"] = serve_in_gadget()
+    summary["gadget"] = part("gadget", serve_in_gadget)
+    summary["part_seconds"] = parts
     summary["seconds"] = time.perf_counter() - t0
-    log(f"serving: phase 9 took {summary['seconds']:.3f} s")
+    log(f"serving: phase 9 took {summary['seconds']:.3f} s: {json.dumps(parts)}")
     return {"launches": launches, "summary": summary}
 
 
@@ -3192,18 +3548,17 @@ class _PlainAttention(torch.autograd.Function):
     the kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, block_k):
-        o, lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                          block_k=block_k)
+    def forward(ctx, q, k, v, causal, window, block_k, q_offset):
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset)
+        o, lse = fa.flash_attention_plain(q, k, v, block_k=block_k, **ctx.opts)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = dict(causal=causal, window=window)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         return (*fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **ctx.opts),
-                None, None, None)
+                None, None, None, None)
 
 
 def stub_batch(cfg, seq: int, batch: int) -> dict:
@@ -3239,12 +3594,12 @@ def one_rank(model, params, batch, device, plain_block=None, dtype=None):
 
     kernels = model_layers.flash_attention
 
-    def attention(q, k, v, *, causal, window):
+    def attention(q, k, v, *, causal, window, q_offset):
         q2, k2, v2 = (t.to(dtype or q.dtype) for t in (q, k, v))
         if plain_block:
-            o = _PlainAttention.apply(q2, k2, v2, causal, window, plain_block)
+            o = _PlainAttention.apply(q2, k2, v2, causal, window, plain_block, q_offset)
         else:
-            o = kernels(q2, k2, v2, causal=causal, window=window)
+            o = kernels(q2, k2, v2, causal=causal, window=window, q_offset=q_offset)
         return o.to(q.dtype)
 
     model_layers.flash_attention = attention
@@ -3290,22 +3645,23 @@ def b4_calls_against_plain(model, params, batch) -> dict:
         row[f"{part}_of_limit"] = max(row[f"{part}_of_limit"], *(
             e / (p + tol) for e, p in zip(kernel_errs, plain_errs)))
 
-    def fwd(q, k, v, *, causal=True, window=None):
-        out = kernel_fwd(q, k, v, causal=causal, window=window)
-        plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    def fwd(q, k, v, *, causal=True, window=None, q_offset=0):
+        out = kernel_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         q_offset=q_offset)
         exact = fa.flash_attention_plain(q.double(), k.double(), v.double(),
-                                         causal=causal, window=window)
+                                         causal=causal, window=window,
+                                         q_offset=q_offset)
         record(kind(q, k, causal), "fwd", [rel_max(a, x) for a, x in zip(out, exact)],
                [rel_max(a, x) for a, x in zip(plain, exact)], FA_FWD_TOL)
         return out
 
-    def bwd(q, k, v, o, lse, do, *, causal=True, window=None):
-        grads = kernel_bwd(q, k, v, o, lse, do, causal=causal, window=window)
-        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                             window=window)
+    def bwd(q, k, v, o, lse, do, *, causal=True, window=None, q_offset=0):
+        opts = dict(causal=causal, window=window, q_offset=q_offset)
+        grads = kernel_bwd(q, k, v, o, lse, do, **opts)
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **opts)
         exact = fa.flash_attention_bwd_plain(
-            *(t.double() for t in (q, k, v, o, lse, do)), causal=causal,
-            window=window)
+            *(t.double() for t in (q, k, v, o, lse, do)), **opts)
         record(kind(q, k, causal), "bwd", [rel_norm(a, x) for a, x in zip(grads, exact)],
                [rel_norm(a, x) for a, x in zip(plain, exact)], FA_BWD_TOL[q.dtype])
         return grads
@@ -4191,6 +4547,7 @@ def main() -> int:
     rows.update(check_flash_attention())
     rows.update(check_wkv6())
     rows.update(check_ssd())
+    check_state_forms(rows)
     for mode in MODE_KERNELS:
         check_small_against_cpu(mode)
     check_rwkv_small_against_cpu()
@@ -4249,6 +4606,10 @@ def main() -> int:
     log("summary zamba2 " + json.dumps(zamba["summary"]))
     free_cuda()
     done("phase 7 (zamba2)")
+    carry = state_carry_path()
+    log("summary carry " + json.dumps(carry["summary"]))
+    free_cuda()
+    done("phase 7b (state carry)")
     gloop = gadget_loop()
     log("summary loop " + json.dumps(gloop["summary"]))
     free_cuda()
@@ -4281,6 +4642,7 @@ def main() -> int:
     done("phase 14 (the GSPMD path)")
     for path, launches in (("rwkv ring", rwkv["launches"]),
                            ("zamba2 ring", zamba["launches"]),
+                           ("state carry, two halves", carry["launches"]),
                            ("gadget loop", gloop["launches"]),
                            ("serving forward checks", serving["launches"]),
                            ("phi3.5-moe compressed-fused", moe["launches"]),

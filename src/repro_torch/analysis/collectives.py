@@ -501,26 +501,22 @@ def check_pricing(variant, sites: Sequence[CollectiveSite], w: int,
 def check_step_pricing(spec, sites: Sequence[CollectiveSite], w: int,
                        leaf_sizes: Sequence[int]) -> List[str]:
     """Axis (iii) for a full train step: the per-leaf (or per-bucket)
-    reduction.
-
-    The reference's step also traces one 4-byte psum, the loss ``pmean``.
-    The port's step averages the ranks' losses on the host
-    (``torch.stack(...).mean()``) and issues no collective for it, so this
-    expects no loss psum: ``n_leaves`` psums in ``psum`` mode, none in the
-    ring modes. A transport across processes makes the loss mean a
-    collective again, and this expectation gains it back.
+    reduction and the loss mean, one 4-byte f32 psum over the ring, as the
+    reference's ``pmean``: ``n_leaves + 1`` psums in ``psum`` mode, exactly
+    that one in the ring modes.
     """
     msgs = _rank_mismatch_errors(sites)
     n_leaves = len(leaf_sizes)
-    n_psum = sum(s.repeat for s in sites if s.primitive == "psum")
+    psums = [s for s in sites if s.primitive == "psum"]
+    n_psum = sum(s.repeat for s in psums)
     count = _ppermute_count(sites)
     if spec.collective == "psum":
         if count:
             msgs.append(f"psum mode records {count} ppermute(s); expected 0")
-        if n_psum != n_leaves:
+        if n_psum != n_leaves + 1:
             msgs.append(
-                f"psum mode records {n_psum} psum(s); expected {n_leaves} "
-                "(one a grad leaf; the loss mean is taken on the host)")
+                f"psum mode records {n_psum} psum(s); expected "
+                f"{n_leaves + 1} ({n_leaves} grad leaves + 1 loss mean)")
         return msgs
     leaf_variant = spec.leaf_variant()
     if spec.n_buckets:
@@ -547,10 +543,12 @@ def check_step_pricing(spec, sites: Sequence[CollectiveSite], w: int,
         msgs.append(
             f"step ppermute payloads total {total} B but rar_model prices "
             f"{expect_bytes:g} B over {unit} at w={w}")
-    if n_psum:
-        msgs.append(f"step records {n_psum} psum(s); expected none (the "
-                    "loss mean is taken on the host) — extra collectives "
-                    "are unpriced")
+    if n_psum != 1:
+        msgs.append(f"step records {n_psum} psum(s); expected exactly 1 "
+                    "(the loss mean) — extra collectives are unpriced")
+    elif psums[0].nbytes != 4:
+        msgs.append(f"the loss mean carries {psums[0].nbytes} B; expected "
+                    "a 4 B f32 scalar")
     return msgs
 
 

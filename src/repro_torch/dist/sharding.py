@@ -204,7 +204,7 @@ def attention_placements(q: DTensor, hkv: int
     """Placements for attention shard by shard, and whether k and v split
     as q does. q keeps its batch and head shards; a mesh dim that splits
     its sequence splits its heads instead (an all-to-all: the kernels take
-    whole rows of keys and no query offset); every other dim is gathered
+    whole rows of keys and one query offset); every other dim is gathered
     and partial sums reduced. Heads that do not divide over their ways
     are gathered. k and v take q's placements where their kv heads divide
     over the same ways."""

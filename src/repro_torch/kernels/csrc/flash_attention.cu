@@ -17,7 +17,10 @@
 //
 // What it computes, as B4 does: s = (f32(q) * scale) . f32(k), scale =
 // 1/sqrt(D); s = -1e30 where the key is masked (kpos >= Skv, kpos > qpos when
-// causal, qpos - kpos >= window); over kv tiles in order the online softmax
+// causal, qpos - kpos >= window), query row i sitting at qpos = i + q_offset
+// (the reference's attention(q_offset=): a query block that continues a
+// sequence whose keys come first; 0 for training); over kv tiles in order the
+// online softmax
 // m' = max(m, rowmax s), p = exp(s - m'), corr = exp(m - m'), l = l*corr +
 // rowsum p, acc = acc*corr + p.v; O = acc / max(l, 1e-30). The backward
 // recomputes P = exp(S - lse) (0 where masked: exp(-1e30 - lse) is 0) and
@@ -31,8 +34,11 @@
 // come after a visible key, where p = exp(-1e30 - m) = 0 and corr = 1, or
 // before one, where the visible key's corr = exp(-1e30 - m) = 0 wipes what
 // they added to l and acc. This needs every query row to see at least one
-// key, which fails only for Sq > Skv + window - 1; the wrapper refuses that
-// case. In the backward the skipped pairs' P is all 0.
+// key, which fails only for q_offset + Sq > Skv + window - 1, or under the
+// causal mask for q_offset < 0; the wrapper refuses those cases. In the
+// backward the skipped pairs' P is all 0. The offset moves every tile range
+// below by q_offset positions and changes no arithmetic: at 0 the kernels
+// are the offset-free ones, launch for launch and bit for bit.
 //
 // F1, F3 and F4: the products on the tensor cores in split TF32. Every
 // product (F1: S = q K^T, O += P V; F3: S^T = K q^T, dP^T = V dO^T, dV +=
@@ -106,6 +112,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 struct Dims {
   int batch, sq, skv, hq, hkv, causal, window;  // window <= 0: no window
   float scale;
+  int q_offset;  // query row i sits at position i + q_offset
 };
 
 // Offset of element (b, s, h, 0) of a contiguous (B, S, H, D) tensor.
@@ -114,7 +121,9 @@ __device__ __forceinline__ int64_t row_offset(int b, int s, int h, int S, int H)
   return ((static_cast<int64_t>(b) * S + s) * H + h) * D;
 }
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, const Dims& d) {
+// Whether query row `qrow` (at position qrow + q_offset) sees key kpos.
+__device__ __forceinline__ bool visible(int qrow, int kpos, const Dims& d) {
+  const int qpos = qrow + d.q_offset;
   return kpos < d.skv && (!d.causal || qpos >= kpos) &&
          (d.window <= 0 || qpos - kpos < d.window);
 }
@@ -397,8 +406,9 @@ __device__ __forceinline__ void stage_vals(float* dst, const float* src, int b, 
 __device__ __forceinline__ bool tile_sees(int qa, int nq, int ka, int nk, const Dims& d) {
   const int qb = min(qa + nq, d.sq) - 1, kb = min(ka + nk, d.skv) - 1;
   if (qb < qa || kb < ka) return false;
-  if (d.causal && qb - ka < 0) return false;             // every q - kv < 0
-  if (d.window > 0 && qa - kb >= d.window) return false;  // every q - kv >= window
+  const int pa = qa + d.q_offset, pb = qb + d.q_offset;  // the rows' positions
+  if (d.causal && pb - ka < 0) return false;             // every q - kv < 0
+  if (d.window > 0 && pa - kb >= d.window) return false;  // every q - kv >= window
   return true;
 }
 
@@ -409,12 +419,13 @@ __device__ __forceinline__ void group_sync(int id) {
 }
 
 // The kv stages [lo, hi) of kStage rows that hold a key visible to some row
-// of the q tile of kMmaRows rows starting at q0 (F1's and F4's walk).
+// of the q tile of kMmaRows rows starting at q0 (F1's and F4's walk), the
+// rows at positions q0 + q_offset on.
 __device__ __forceinline__ void kv_stages(int q0, const Dims& d, int* lo, int* hi) {
   const int nst = (d.skv + kStage - 1) / kStage;
-  const int q_last = min(q0 + kMmaRows, d.sq) - 1;
-  *lo = d.window > 0 ? max(0, q0 - d.window + 1) / kStage : 0;
-  *hi = d.causal ? min(nst, q_last / kStage + 1) : nst;
+  const int p0 = q0 + d.q_offset, p_last = min(q0 + kMmaRows, d.sq) - 1 + d.q_offset;
+  *lo = d.window > 0 ? max(0, p0 - d.window + 1) / kStage : 0;
+  *hi = !d.causal ? nst : p_last < 0 ? 0 : min(nst, p_last / kStage + 1);
 }
 
 // The block of F1 and F4 for blockIdx.x: its q tile's first row (the tiles
@@ -577,11 +588,14 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int kr0 = k0 + 16 * warp;  // the warp's kv rows
 
-  // the q stages with a row that sees a key of this tile, for each q head
+  // the q stages with a row that sees a key of this tile, for each q head:
+  // under the causal mask rows at k0 - q_offset on, under the window rows
+  // up to k_last + window - 1 - q_offset
   const int nst = (d.sq + kStage - 1) / kStage;
   const int k_last = min(k0 + kMmaRows, d.skv) - 1;
-  const int st_lo = d.causal ? k0 / kStage : 0;
-  const int st_hi = d.window > 0 ? min(nst, (k_last + d.window - 1) / kStage + 1) : nst;
+  const int w_last = k_last + d.window - 1 - d.q_offset;
+  const int st_lo = d.causal ? min(nst, max(0, k0 - d.q_offset) / kStage) : 0;
+  const int st_hi = d.window <= 0 ? nst : w_last < 0 ? 0 : min(nst, w_last / kStage + 1);
   const int n_st = max(0, st_hi - st_lo), items = group * n_st;
 
   float dkr[NT][4], dvr[NT][4];
@@ -845,7 +859,7 @@ int launch_config(int which, int* out) {
   } while (0)
 
 Dims make_dims(int batch, int sq, int skv, int hq, int hkv, int causal, int window,
-               float scale) {
+               float scale, int q_offset) {
   Dims d;
   d.batch = batch;
   d.sq = sq;
@@ -855,6 +869,7 @@ Dims make_dims(int batch, int sq, int skv, int hq, int hkv, int causal, int wind
   d.causal = causal;
   d.window = window;
   d.scale = scale;
+  d.q_offset = q_offset;
   return d;
 }
 
@@ -864,8 +879,9 @@ extern "C" {
 
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int batch, int sq, int skv, int hq, int hkv, int head_dim,
-                        int causal, int window, float scale, int bf16, void* stream) {
-  const Dims d = make_dims(batch, sq, skv, hq, hkv, causal, window, scale);
+                        int causal, int window, float scale, int bf16, int q_offset,
+                        void* stream) {
+  const Dims d = make_dims(batch, sq, skv, hq, hkv, causal, window, scale, q_offset);
   DISPATCH(head_dim, bf16, fwd, q, k, v, o, lse, d, stream);
 }
 
@@ -877,16 +893,17 @@ int flash_attention_bwd_preprocess(const void* o, const void* dout, void* delta,
 int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv,
                              int batch, int sq, int skv, int hq, int hkv, int head_dim,
-                             int causal, int window, float scale, int bf16, void* stream) {
-  const Dims d = make_dims(batch, sq, skv, hq, hkv, causal, window, scale);
+                             int causal, int window, float scale, int bf16, int q_offset,
+                             void* stream) {
+  const Dims d = make_dims(batch, sq, skv, hq, hkv, causal, window, scale, q_offset);
   DISPATCH(head_dim, bf16, dkdv, q, k, v, dout, lse, delta, dk, dv, d, stream);
 }
 
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dqp, int batch, int sq,
                            int skv, int hq, int hkv, int head_dim, int causal, int window,
-                           float scale, int bf16, void* stream) {
-  const Dims d = make_dims(batch, sq, skv, hq, hkv, causal, window, scale);
+                           float scale, int bf16, int q_offset, void* stream) {
+  const Dims d = make_dims(batch, sq, skv, hq, hkv, causal, window, scale, q_offset);
   DISPATCH(head_dim, bf16, dq, q, k, v, dout, lse, delta, dqp, d, stream);
 }
 

@@ -5,12 +5,15 @@
 // src/repro/kernels/ssd_scan.py (pallas_call at :77), which is forward
 // only; the backward is new, so that Mamba2LM and Zamba2LM can train
 // through the forward:
-//   ssd_fwd   S1  y, and the state at the start of every chunk
-//   ssd_bwd   S2  dx, d(dt), dA, dB and dC
+//   ssd_fwd   S1  y, the state at the start of every chunk, and the final
+//                 state, from an initial state (or zeros)
+//   ssd_bwd   S2  dx, d(dt), dA, dB and dC, from the final state's gradient
+//                 (or zeros), and the initial state's gradient
 // Layout: x, y, dy, dx (B, S, H, P); dt, d(dt) (B, S, H) f32; A, dA (H,)
 // f32; Bm, Cm, dB, dC (B, S, N), B and C shared by the heads (ngroups = 1);
-// states (B, H, chunks, N, P) f32; all contiguous, x, Bm, Cm, dy and states
-// on 16 bytes. x, Bm, Cm, dy f32 or bf16 (all of one dtype), y in that
+// states (B, H, chunks, N, P) f32; the initial and final states and their
+// gradients (B, H, N, P) f32; all contiguous, x, Bm, Cm, dy, the states and
+// their gradients on 16 bytes. x, Bm, Cm, dy f32 or bf16 (all of one dtype), y in that
 // dtype, gradients f32, all arithmetic in f32 but g's (f64). (N, P) is (16, 32) or
 // (64, 64): the reduced and the full zamba2-1.2b. The scratch (C B^T of
 // every chunk, e_L of every chunk and head, S2's dS and partial sums) is the
@@ -38,21 +41,32 @@
 //   da    = reverse cumsum of dg; d(dt) = da A + dxf . x; dA = sum da dt
 //   dS    <- exp(g_L) dS + (C exp(g))^T dy
 // g restarts in every chunk, so every term but the carried S and dS is
-// chunk-local.
+// chunk-local. The carry starts from the initial state S_0 (the reference's
+// ssd_chunked(initial_state=)), and dS from the final state's gradient; a
+// null pointer for either is zeros, today's arithmetic. The final state is
+// exp(g_L) S + the last chunk's summary, and the initial state's gradient
+// exp(g_L) dS + the first chunk's (C exp(g))^T dy: the pass that carries S or
+// dS takes one step more, past the edge. S_0 reaches every other term as
+// states[0], which the backward reads as it reads every chunk's state.
 //
 // Design: a chunk-parallel scan, each stage a grid over (chunk, batch row,
 // group of heads), as Mamba2's own chunked SSD is split:
 //   S1  1. chunk_sum_kernel: each chunk's summary (B exp(g_L - g))^T xf, an
-//          (N x L)(L x P) product, into the states slot of the next chunk,
-//          and e_L = exp(g_L); one more block per (batch row, chunk) forms
-//          C B^T once for all the heads (ngroups = 1) into scratch;
-//       2. pass_kernel: states[c] = e_L[c-1] states[c-1] + states[c], in
-//          place, a float4 a thread walking the chunks;
+//          (N x L)(L x P) product, into the states slot of the next chunk
+//          (the last chunk's into the final state), and e_L = exp(g_L); one
+//          more block per (batch row, chunk) forms C B^T once for all the
+//          heads (ngroups = 1) into scratch;
+//       2. pass_kernel: states[0] = S_0, states[c] = e_L[c-1] states[c-1] +
+//          states[c], in place, a float4 a thread walking the chunks, and
+//          the final state e_L[nc-1] states[nc-1] + its summary;
 //       3. fwd_out_kernel: per head of the block's group, y = (C B^T
 //          exp(g_t - g_j)) xf + exp(g) (C states[c]).
 //   S2  1. chunk_sum_kernel: (C exp(g))^T dy into the dS slot of the chunk
-//          before, e_L, and C B^T again;
-//       2. pass_kernel in reverse: dS[c] = e_L[c+1] dS[c+1] + dS[c];
+//          before (the first chunk's into the initial state's gradient), e_L,
+//          and C B^T again;
+//       2. pass_kernel in reverse: dS[nc-1] = the final state's gradient,
+//          dS[c] = e_L[c+1] dS[c+1] + dS[c], and the initial state's
+//          gradient e_L[0] dS[0] + its chunk sum;
 //       3. bwd_chunk_kernel: per head of the block's group every chunk-local
 //          term from states[c] and dS[c]: dx, d(dt), dA's partial a (batch
 //          row, head, chunk), and dB and dC summed over the group's heads in
@@ -331,15 +345,18 @@ __host__ __device__ constexpr int sum_floats() {
 // Grid (chunk, batch row, head group + 1). Blocks of the head groups: per
 // head h of the group, out[slot] = (U exp-weighted)^T V over the chunk's
 // rows, an N x P product: S1 (kBwd false) (B exp(g_L - g))^T (x dt) into
-// states[b, h, c + 1]; S2 (C exp(g))^T dy into dS[b, h, c - 1]; and
-// el[b, h, c] = exp(g_L). The last block of each (chunk, batch row) forms
-// C B^T of the chunk (its lower triangle, zeros above) into cb[b, c].
+// states[b, h, c + 1]; S2 (C exp(g))^T dy into dS[b, h, c - 1]; the edge
+// chunk's (S1's last, S2's first), which has no such slot, into edge[b, h]
+// where edge is given; and el[b, h, c] = exp(g_L). The last block of each
+// (chunk, batch row) forms C B^T of the chunk (its lower triangle, zeros
+// above) into cb[b, c].
 template <int N, int P, typename T, bool kBwd>
 __global__ void __launch_bounds__(kThreads)
     chunk_sum_kernel(const T* __restrict__ v, const float* __restrict__ dt,
                      const float* __restrict__ A, const T* __restrict__ bm,
                      const T* __restrict__ cm, float* __restrict__ out,
-                     float* __restrict__ el, float* __restrict__ cb, Dims d) {
+                     float* __restrict__ edge, float* __restrict__ el,
+                     float* __restrict__ cb, Dims d) {
   constexpr bool kExact = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -372,7 +389,8 @@ __global__ void __launch_bounds__(kThreads)
   double* sg = reinterpret_cast<double*>(sdt + kL);
   float* se = sdt + 3 * kL;
   float* sw = se + kL;
-  const bool wanted = kBwd ? c > 0 : c + 1 < d.nc;  // whether the summary has a slot
+  const bool at_edge = kBwd ? c == 0 : c + 1 == d.nc;  // no slot: the edge's
+  const bool wanted = !at_edge || edge != nullptr;      // whether the summary goes somewhere
   if (wanted) stage<N, SU>(su, (kBwd ? cm : bm) + bc0, N, rows);
   const int row0 = 16 * rs, col0 = ch * (P / 2);
   for (int i = 0; i < d.group; ++i) {
@@ -392,7 +410,8 @@ __global__ void __launch_bounds__(kThreads)
         acc, 0, kL, NT,
         [&](int r, int k) { return su[k * SU + row0 + r] * (kBwd ? se[k] : sw[k]); },
         [&](int k, int j) { return sv[k * SV + col0 + j]; });
-    float* slot = out + (bh * d.nc + (kBwd ? c - 1 : c + 1)) * N * P;
+    float* slot = at_edge ? edge + bh * N * P
+                          : out + (bh * d.nc + (kBwd ? c - 1 : c + 1)) * N * P;
     store_tile<NT>(slot, P, acc, row0, col0, N);
   }
 }
@@ -403,12 +422,16 @@ __global__ void __launch_bounds__(kThreads)
 
 // Grid (batch row x head, float4s of a slot / kThreads). Slot c holds the
 // summary of chunk c - 1 (S1) or c + 1 (S2); a thread walks its float4
-// over the chunks: S1 s[0] = 0, s[c] = e_L[c-1] s[c-1] + s[c] upward; S2
-// s[nc-1] = 0, s[c] = e_L[c+1] s[c+1] + s[c] downward. Four chunks' loads
-// are issued before their updates.
+// over the chunks: S1 s[0] = seed, s[c] = e_L[c-1] s[c-1] + s[c] upward; S2
+// s[nc-1] = seed, s[c] = e_L[c+1] s[c+1] + s[c] downward; a null seed is
+// zeros. Four chunks' loads are issued before their updates. Where edge is
+// given, one step more: edge = e_L[nc-1] s[nc-1] + edge (S1, the final
+// state) or e_L[0] s[0] + edge (S2, the initial state's gradient).
 template <bool kBwd>
 __global__ void __launch_bounds__(kThreads)
-    pass_kernel(float* __restrict__ s, const float* __restrict__ el, int nc, int slot_floats) {
+    pass_kernel(float* __restrict__ s, const float* __restrict__ el,
+                const float* __restrict__ seed, float* __restrict__ edge, int nc,
+                int slot_floats) {
   const int q = slot_floats / 4;
   const int i = blockIdx.y * kThreads + threadIdx.x;
   if (i >= q) return;
@@ -416,6 +439,7 @@ __global__ void __launch_bounds__(kThreads)
   float4* base = reinterpret_cast<float4*>(s + bh * nc * slot_floats) + i;
   const float* e = el + bh * nc;
   float4 prev = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (seed != nullptr) prev = reinterpret_cast<const float4*>(seed + bh * slot_floats)[i];
   base[static_cast<int64_t>(kBwd ? nc - 1 : 0) * q] = prev;
   for (int step = 1; step < nc; step += 4) {
     float4 sum[4];
@@ -433,6 +457,13 @@ __global__ void __launch_bounds__(kThreads)
                          f * prev.w + sum[k].w);
       base[static_cast<int64_t>(c) * q] = prev;
     }
+  }
+  if (edge != nullptr) {
+    float4* out = reinterpret_cast<float4*>(edge + bh * slot_floats) + i;
+    const float4 sum = *out;
+    const float f = e[kBwd ? 0 : nc - 1];
+    *out = make_float4(f * prev.x + sum.x, f * prev.y + sum.y, f * prev.z + sum.z,
+                       f * prev.w + sum.w);
   }
 }
 
@@ -880,7 +911,8 @@ inline bool dims(int batch, int seq, int heads, int chunk, Dims* d) {
 
 template <int N, int P, typename T>
 int fwd(const void* x, const void* dt, const void* A, const void* bm, const void* cm, void* y,
-        void* states, void* cb, void* el, Dims d, void* stream) {
+        void* states, const void* initial, void* final_state, void* cb, void* el, Dims d,
+        void* stream) {
   const T *xt = static_cast<const T*>(x), *bt = static_cast<const T*>(bm),
           *ct = static_cast<const T*>(cm);
   const float *dtf = static_cast<const float*>(dt), *af = static_cast<const float*>(A);
@@ -890,10 +922,11 @@ int fwd(const void* x, const void* dt, const void* A, const void* bm, const void
   dsum.group = group_of(d.heads, kSumHeads);
   int err = launch(chunk_sum_kernel<N, P, T, false>,
                    dim3(d.nc, d.batch, d.heads / dsum.group + 1), sum_floats<N, P>(), stream, xt,
-                   dtf, af, bt, ct, st, elf, cbf, dsum);
+                   dtf, af, bt, ct, st, static_cast<float*>(final_state), elf, cbf, dsum);
   if (err) return err;
   err = launch(pass_kernel<false>, dim3(d.batch * d.heads, (N * P / 4 + kThreads - 1) / kThreads),
-               0, stream, st, static_cast<const float*>(elf), d.nc, N * P);
+               0, stream, st, static_cast<const float*>(elf), static_cast<const float*>(initial),
+               static_cast<float*>(final_state), d.nc, N * P);
   if (err) return err;
   Dims dout = d;
   dout.group = group_of(d.heads, kFwdHeads);
@@ -904,9 +937,9 @@ int fwd(const void* x, const void* dt, const void* A, const void* bm, const void
 
 template <int N, int P, typename T>
 int bwd(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
-        const void* states, const void* dy, void* dx, void* ddt, void* dA, void* dB, void* dC,
-        void* cb, void* el, void* ds, void* da_part, void* db_part, void* dc_part, int group,
-        Dims d, void* stream) {
+        const void* states, const void* dy, const void* d_final, void* dx, void* ddt, void* dA,
+        void* dB, void* dC, void* d_initial, void* cb, void* el, void* ds, void* da_part,
+        void* db_part, void* dc_part, int group, Dims d, void* stream) {
   if (group < 1 || d.heads % group != 0 || d.heads / group > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const T *xt = static_cast<const T*>(x), *bt = static_cast<const T*>(bm),
@@ -918,10 +951,11 @@ int bwd(const void* x, const void* dt, const void* A, const void* bm, const void
   dsum.group = group_of(d.heads, kSumHeads);
   int err = launch(chunk_sum_kernel<N, P, T, true>,
                    dim3(d.nc, d.batch, d.heads / dsum.group + 1), sum_floats<N, P>(), stream,
-                   dyt, dtf, af, bt, ct, dsf, elf, cbf, dsum);
+                   dyt, dtf, af, bt, ct, dsf, static_cast<float*>(d_initial), elf, cbf, dsum);
   if (err) return err;
   err = launch(pass_kernel<true>, dim3(d.batch * d.heads, (N * P / 4 + kThreads - 1) / kThreads),
-               0, stream, dsf, static_cast<const float*>(elf), d.nc, N * P);
+               0, stream, dsf, static_cast<const float*>(elf), static_cast<const float*>(d_final),
+               static_cast<float*>(d_initial), d.nc, N * P);
   if (err) return err;
   Dims dloc = d;
   dloc.group = group;
@@ -974,28 +1008,31 @@ int launch_config(int which, int* out) {
 
 extern "C" {
 
-// S1. Scratch: cb (B, chunks, 64, 64) f32, el (B, H, chunks) f32.
+// S1, from initial (null: zeros), into final (null: not formed). Scratch:
+// cb (B, chunks, 64, 64) f32, el (B, H, chunks) f32.
 int ssd_fwd(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
-            void* y, void* states, void* cb, void* el, int batch, int seq, int heads,
-            int head_dim, int state, int chunk, int bf16, void* stream) {
+            void* y, void* states, const void* initial, void* final_state, void* cb, void* el,
+            int batch, int seq, int heads, int head_dim, int state, int chunk, int bf16,
+            void* stream) {
   Dims d;
   if (!dims(batch, seq, heads, chunk, &d)) return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH(state, head_dim, bf16, fwd, x, dt, A, bm, cm, y, states, cb, el, d, stream);
+  DISPATCH(state, head_dim, bf16, fwd, x, dt, A, bm, cm, y, states, initial, final_state, cb, el,
+           d, stream);
 }
 
-// S2, with heads_per_block heads a block of its chunk-local stage (a divisor
-// of heads). Scratch: cb and el as S1's, ds (B, H, chunks, N, P) f32,
-// da_part (B, H, chunks) f32, db_part and dc_part (B, H / heads_per_block,
-// S, N) f32.
+// S2, from d_final (null: zeros), into d_initial (null: not formed), with
+// heads_per_block heads a block of its chunk-local stage (a divisor of
+// heads). Scratch: cb and el as S1's, ds (B, H, chunks, N, P) f32, da_part
+// (B, H, chunks) f32, db_part and dc_part (B, H / heads_per_block, S, N) f32.
 int ssd_bwd(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
-            const void* states, const void* dy, void* dx, void* ddt, void* dA, void* dB,
-            void* dC, void* cb, void* el, void* ds, void* da_part, void* db_part,
-            void* dc_part, int batch, int seq, int heads, int head_dim, int state, int chunk,
-            int heads_per_block, int bf16, void* stream) {
+            const void* states, const void* dy, const void* d_final, void* dx, void* ddt,
+            void* dA, void* dB, void* dC, void* d_initial, void* cb, void* el, void* ds,
+            void* da_part, void* db_part, void* dc_part, int batch, int seq, int heads,
+            int head_dim, int state, int chunk, int heads_per_block, int bf16, void* stream) {
   Dims d;
   if (!dims(batch, seq, heads, chunk, &d)) return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH(state, head_dim, bf16, bwd, x, dt, A, bm, cm, states, dy, dx, ddt, dA, dB, dC, cb, el,
-           ds, da_part, db_part, dc_part, heads_per_block, d, stream);
+  DISPATCH(state, head_dim, bf16, bwd, x, dt, A, bm, cm, states, dy, d_final, dx, ddt, dA, dB,
+           dC, d_initial, cb, el, ds, da_part, db_part, dc_part, heads_per_block, d, stream);
 }
 
 // The resources of S1's kernels (which 0-2: chunk sums, pass, outputs) and

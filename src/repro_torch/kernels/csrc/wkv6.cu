@@ -5,11 +5,14 @@
 // src/repro/kernels/rwkv6_wkv.py (pallas_call at :76), which is forward
 // only; the backward is new, so that Rwkv6LM can train through the
 // forward:
-//   wkv6_fwd   W1  y, and the state at the start of every chunk
-//   wkv6_bwd   W2  dr, dk, dv, dlogw and du
+//   wkv6_fwd   W1  y, the state at the start of every chunk, and the final
+//                  state, from an initial state (or zeros)
+//   wkv6_bwd   W2  dr, dk, dv, dlogw and du, from the final state's gradient
+//                  (or zeros), and the initial state's gradient
 // Layout (B, S, H, P) for r, k, v, logw, y, dy and the four gradients,
-// contiguous; u and du (H, P) f32; states (B, H, chunks, P, P) f32; r, k,
-// v, logw, dy and states on 16 bytes. r, k, v, logw, dy f32 or bf16 (all of
+// contiguous; u and du (H, P) f32; states (B, H, chunks, P, P) f32; the
+// initial and final states and their gradients (B, H, P, P) f32; r, k, v,
+// logw, dy, the states and their gradients on 16 bytes. r, k, v, logw, dy f32 or bf16 (all of
 // one dtype), y in that dtype, gradients f32, all arithmetic in f32. P
 // (head_dim) 32 or 64: the reduced and the full rwkv6-7b. The scratch
 // (exp(cum_L) of every chunk, W2's dS and du partials) is the caller's:
@@ -33,6 +36,12 @@
 //            dcum_L = sum_j k dk_tail + exp(cum_L) sum_q S dS
 //   du     = sum over the batch and the chunks of sum_t dbonus r k
 //   dS    <- exp(cum_L) dS + (r exp(cumprev))^T dy
+// The carry starts from the initial state S_0 (the reference's
+// wkv6_chunked(initial_state=)), and dS from the final state's gradient; a
+// null pointer for either is zeros, today's arithmetic. The final state is
+// exp(cum_L) S + the last chunk's summary, and the initial state's gradient
+// exp(cum_L) dS + the first chunk's (r exp(cumprev))^T dy: the pass takes one
+// step more, past the edge. S_0 reaches every other term as states[0].
 //
 // The pairs' decay is referred to the chunk's middle row. With m the cum of
 // row 15 (row ceil(L/2) - 1 of a chunk of L < 32), r' = r exp(cumprev - m)
@@ -56,13 +65,19 @@
 // head), as B9's kernels (ssd_scan.cu) are split:
 //   W1  1. chunk_sum_kernel: each chunk's summary (k exp(cum_L - cum))^T v,
 //          an (P x L)(L x P) product, into the states slot of the next
-//          chunk, and exp(cum_L) into el;
-//       2. pass_kernel: states[c] = el[c-1] states[c-1] + states[c] (el
-//          scaling rows), in place, a float4 a thread walking the chunks;
+//          chunk (the last chunk's into the final state), and exp(cum_L)
+//          into el;
+//       2. pass_kernel: states[0] = S_0, states[c] = el[c-1] states[c-1] +
+//          states[c] (el scaling rows), in place, a float4 a thread walking
+//          the chunks, and the final state el[nc-1] states[nc-1] + its
+//          summary;
 //       3. fwd_out_kernel: A, then y = A v + bonus v + r' (exp(m) S).
 //   W2  1. chunk_sum_kernel: (r exp(cumprev))^T dy into the dS slot of the
-//          chunk before, and el;
-//       2. pass_kernel in reverse: dS[c] = el[c+1] dS[c+1] + dS[c];
+//          chunk before (the first chunk's into the initial state's
+//          gradient), and el;
+//       2. pass_kernel in reverse: dS[nc-1] = the final state's gradient,
+//          dS[c] = el[c+1] dS[c+1] + dS[c], and the initial state's gradient
+//          el[0] dS[0] + its chunk sum;
 //       3. bwd_chunk_kernel: every chunk-local term from states[c] and
 //          dS[c]: A and dA again, dr, dk, dv, dlogw (the column sums and the
 //          in-chunk reverse cumulative sum on f32 FMAs, in order), and du's
@@ -303,11 +318,14 @@ __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* __restric
 // Grid (chunk, batch row, head). W1 (kBwd false), for every chunk but the
 // last: (k exp(cum_L - cum))^T v into states[b, h, c + 1] and el[b, h, c] =
 // exp(cum_L); W2, for every chunk but the first: (r exp(cumprev))^T dy into
-// dS[b, h, c - 1] and el[b, h, c]. `x` is k (W1) or r (W2), `y` v or dy.
+// dS[b, h, c - 1] and el[b, h, c]. The edge chunk (W1's last, W2's first)
+// does the same into edge[b, h] where edge is given, and nothing where it is
+// not. `x` is k (W1) or r (W2), `y` v or dy.
 template <int P, typename T, bool kBwd>
 __global__ void __launch_bounds__(kThreads)
     chunk_sum_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ lw,
-                     float* __restrict__ out, float* __restrict__ el, Dims d) {
+                     float* __restrict__ out, float* __restrict__ edge, float* __restrict__ el,
+                     Dims d) {
   constexpr bool kExact = sizeof(T) == 2;
   constexpr int SD = P + 8;
   __shared__ __align__(16) float sx[kL * SD];
@@ -315,7 +333,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) float sw[kL * SD];  // logw, then cum (W1) or cumprev (W2)
   __shared__ float slast[P];                   // cum_L
   const int c = blockIdx.x, b = blockIdx.y, h = blockIdx.z;
-  if (kBwd ? c == 0 : c + 1 == d.nc) return;
+  const bool at_edge = kBwd ? c == 0 : c + 1 == d.nc;  // no slot: the edge's
+  if (at_edge && edge == nullptr) return;
   const int t0 = c * d.chunk, rows = min(d.chunk, d.seq - t0);
   const int64_t pitch = static_cast<int64_t>(d.heads) * P;
   const int64_t at = ((static_cast<int64_t>(b) * d.seq + t0) * d.heads + h) * P;  // (b, t0, h, 0)
@@ -355,7 +374,8 @@ __global__ void __launch_bounds__(kThreads)
   mma_tile<NT, false, kExact>(
       acc, 0, kL, NT, [&](int r, int k) { return sx[k * SD + row0 + r]; },
       [&](int k, int j) { return sy[k * SD + col0 + j]; });
-  store_tile<NT>(out + (bh * d.nc + (kBwd ? c - 1 : c + 1)) * P * P, P, acc, row0, col0);
+  store_tile<NT>(at_edge ? edge + bh * P * P : out + (bh * d.nc + (kBwd ? c - 1 : c + 1)) * P * P,
+                 P, acc, row0, col0);
 }
 
 // ---------------------------------------------------------------------------
@@ -364,12 +384,16 @@ __global__ void __launch_bounds__(kThreads)
 
 // Grid (batch row x head, float4s of a slot / kThreads). Slot c holds the
 // summary of chunk c - 1 (W1) or c + 1 (W2); a thread walks its float4 (four
-// columns of one row p) over the chunks: W1 s[0] = 0, s[c] = el[c-1, p]
-// s[c-1] + s[c] upward; W2 s[nc-1] = 0, s[c] = el[c+1, p] s[c+1] + s[c]
-// downward. Four chunks' loads are issued before their updates.
+// columns of one row p) over the chunks: W1 s[0] = seed, s[c] = el[c-1, p]
+// s[c-1] + s[c] upward; W2 s[nc-1] = seed, s[c] = el[c+1, p] s[c+1] + s[c]
+// downward; a null seed is zeros. Four chunks' loads are issued before their
+// updates. Where edge is given, one step more: edge = el[nc-1, p] s[nc-1] +
+// edge (W1, the final state) or el[0, p] s[0] + edge (W2, the initial
+// state's gradient).
 template <int P, bool kBwd>
 __global__ void __launch_bounds__(kThreads)
-    pass_kernel(float* __restrict__ s, const float* __restrict__ el, int nc) {
+    pass_kernel(float* __restrict__ s, const float* __restrict__ el,
+                const float* __restrict__ seed, float* __restrict__ edge, int nc) {
   constexpr int Q = P * P / 4;
   const int i = blockIdx.y * kThreads + threadIdx.x;
   if (i >= Q) return;
@@ -377,6 +401,7 @@ __global__ void __launch_bounds__(kThreads)
   float4* base = reinterpret_cast<float4*>(s + bh * nc * P * P) + i;
   const float* e = el + bh * nc * P + (4 * i) / P;
   float4 prev = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (seed != nullptr) prev = reinterpret_cast<const float4*>(seed + bh * P * P)[i];
   base[static_cast<int64_t>(kBwd ? nc - 1 : 0) * Q] = prev;
   for (int step = 1; step < nc; step += 4) {
     float4 sum[4];
@@ -394,6 +419,13 @@ __global__ void __launch_bounds__(kThreads)
                          f * prev.w + sum[k].w);
       base[static_cast<int64_t>(c) * Q] = prev;
     }
+  }
+  if (edge != nullptr) {
+    float4* out = reinterpret_cast<float4*>(edge + bh * P * P) + i;
+    const float4 sum = *out;
+    const float f = e[(kBwd ? 0 : nc - 1) * P];
+    *out = make_float4(f * prev.x + sum.x, f * prev.y + sum.y, f * prev.z + sum.z,
+                       f * prev.w + sum.w);
   }
 }
 
@@ -801,15 +833,17 @@ inline bool dims(int batch, int seq, int heads, int chunk, Dims* d) {
 
 template <int P, typename T>
 int fwd(const void* r, const void* k, const void* v, const void* lw, const void* u, void* y,
-        void* states, void* el, Dims d, void* stream) {
+        void* states, const void* initial, void* final_state, void* el, Dims d, void* stream) {
   const T *rt = static_cast<const T*>(r), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v), *lt = static_cast<const T*>(lw);
   float *st = static_cast<float*>(states), *elf = static_cast<float*>(el);
+  float* fin = static_cast<float*>(final_state);
   int err = launch(chunk_sum_kernel<P, T, false>, dim3(d.nc, d.batch, d.heads), 0, stream, kt,
-                   vt, lt, st, elf, d);
+                   vt, lt, st, fin, elf, d);
   if (err) return err;
   err = launch(pass_kernel<P, false>, dim3(d.batch * d.heads, (P * P / 4 + kThreads - 1) / kThreads),
-               0, stream, st, static_cast<const float*>(elf), d.nc);
+               0, stream, st, static_cast<const float*>(elf), static_cast<const float*>(initial),
+               fin, d.nc);
   if (err) return err;
   return launch(fwd_out_kernel<P, T>, dim3(d.nc, d.batch, d.heads), fwd_floats<P>(),
                 stream, rt, kt, vt, lt, static_cast<const float*>(u),
@@ -818,18 +852,21 @@ int fwd(const void* r, const void* k, const void* v, const void* lw, const void*
 
 template <int P, typename T>
 int bwd(const void* r, const void* k, const void* v, const void* lw, const void* u,
-        const void* states, const void* dy, void* dr, void* dk, void* dv, void* dlw, void* du,
-        void* ds, void* el, void* du_part, Dims d, void* stream) {
+        const void* states, const void* dy, const void* d_final, void* dr, void* dk, void* dv,
+        void* dlw, void* du, void* d_initial, void* ds, void* el, void* du_part, Dims d,
+        void* stream) {
   const T *rt = static_cast<const T*>(r), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v), *lt = static_cast<const T*>(lw),
           *dyt = static_cast<const T*>(dy);
   float *dsf = static_cast<float*>(ds), *elf = static_cast<float*>(el),
         *dup = static_cast<float*>(du_part);
+  float* dini = static_cast<float*>(d_initial);
   int err = launch(chunk_sum_kernel<P, T, true>, dim3(d.nc, d.batch, d.heads), 0, stream, rt,
-                   dyt, lt, dsf, elf, d);
+                   dyt, lt, dsf, dini, elf, d);
   if (err) return err;
   err = launch(pass_kernel<P, true>, dim3(d.batch * d.heads, (P * P / 4 + kThreads - 1) / kThreads),
-               0, stream, dsf, static_cast<const float*>(elf), d.nc);
+               0, stream, dsf, static_cast<const float*>(elf), static_cast<const float*>(d_final),
+               dini, d.nc);
   if (err) return err;
   err = launch(bwd_chunk_kernel<P, T>, dim3(d.nc, d.batch, d.heads), bwd_floats<P>(),
                stream, rt, kt, vt, lt, static_cast<const float*>(u),
@@ -872,25 +909,27 @@ int launch_config(int which, int* out) {
 
 extern "C" {
 
-// W1. Scratch: el (B, H, chunks, P) f32.
+// W1, from initial (null: zeros), into final (null: not formed). Scratch:
+// el (B, H, chunks, P) f32.
 int wkv6_fwd(const void* r, const void* k, const void* v, const void* lw, const void* u,
-             void* y, void* states, void* el, int batch, int seq, int heads, int head_dim,
-             int chunk, int bf16, void* stream) {
+             void* y, void* states, const void* initial, void* final_state, void* el, int batch,
+             int seq, int heads, int head_dim, int chunk, int bf16, void* stream) {
   Dims d;
   if (!dims(batch, seq, heads, chunk, &d)) return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH(head_dim, bf16, fwd, r, k, v, lw, u, y, states, el, d, stream);
+  DISPATCH(head_dim, bf16, fwd, r, k, v, lw, u, y, states, initial, final_state, el, d, stream);
 }
 
-// W2. Scratch: ds (B, H, chunks, P, P), el and du_part (B, H, chunks, P),
-// all f32.
+// W2, from d_final (null: zeros), into d_initial (null: not formed).
+// Scratch: ds (B, H, chunks, P, P), el and du_part (B, H, chunks, P), all
+// f32.
 int wkv6_bwd(const void* r, const void* k, const void* v, const void* lw, const void* u,
-             const void* states, const void* dy, void* dr, void* dk, void* dv, void* dlw,
-             void* du, void* ds, void* el, void* du_part, int batch, int seq, int heads,
-             int head_dim, int chunk, int bf16, void* stream) {
+             const void* states, const void* dy, const void* d_final, void* dr, void* dk,
+             void* dv, void* dlw, void* du, void* d_initial, void* ds, void* el, void* du_part,
+             int batch, int seq, int heads, int head_dim, int chunk, int bf16, void* stream) {
   Dims d;
   if (!dims(batch, seq, heads, chunk, &d)) return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH(head_dim, bf16, bwd, r, k, v, lw, u, states, dy, dr, dk, dv, dlw, du, ds, el,
-           du_part, d, stream);
+  DISPATCH(head_dim, bf16, bwd, r, k, v, lw, u, states, dy, d_final, dr, dk, dv, dlw, du,
+           d_initial, ds, el, du_part, d, stream);
 }
 
 // The resources of W1's kernels (which 0-2: chunk sums, pass, outputs) and

@@ -4,7 +4,9 @@
 Causal, sliding-window and GQA attention over ``(B, S, H, D)`` tensors, as
 ``flash_attention_pallas`` computes it: scores ``(f32(q) * 1/sqrt(D)) .
 f32(k)``, masked to ``NEG_INF = -1e30`` (keys past ``Skv``, above the
-diagonal when causal, ``qpos - kpos >= window``), an online softmax over kv
+diagonal when causal, ``qpos - kpos >= window``; query row ``i`` at
+position ``qpos = i + q_offset``, the reference's ``attention(q_offset=)``),
+an online softmax over kv
 blocks with f32 ``m``, ``l`` and ``acc``, and ``O = acc / max(l, 1e-30)`` in
 ``q``'s dtype. The forward also gives the row log-sum-exp ``lse = m + log l``
 (f32, ``(B, Hq, Sq)``), from which the backward recomputes the
@@ -74,6 +76,24 @@ def _dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return b, sq, skv, hq, hkv, d
 
 
+def query_offset(q_offset) -> int:
+    """The query offset as an int: an int, or a 0-d integer tensor (the
+    reference's ``int | jax.Array``), which is read once, on the host (a
+    CUDA tensor's read waits for the device)."""
+    if isinstance(q_offset, torch.Tensor):
+        if q_offset.dim() != 0 or q_offset.is_floating_point() \
+                or q_offset.is_complex():
+            raise TypeError(f"q_offset must be an int or a 0-d integer tensor; "
+                            f"got {q_offset.dtype} {tuple(q_offset.shape)}")
+        return int(q_offset.item())
+    return int(q_offset)
+
+
+def _positions(sq: int, q_offset: int, device) -> torch.Tensor:
+    """The query rows' positions, ``arange(Sq) + q_offset``."""
+    return torch.arange(sq, device=device) + q_offset
+
+
 def _visible(qpos: torch.Tensor, kpos: torch.Tensor, skv: int, causal: bool,
              window: Optional[int]) -> torch.Tensor:
     """B4's mask of (query, key) pairs, ``(len(qpos), len(kpos))``."""
@@ -106,7 +126,8 @@ def _kv_blocks(k: torch.Tensor, block_k: int, wt: torch.dtype):
 # ---------------------------------------------------------------------------
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None, block_k: int = 128
+                          window: Optional[int] = None, block_k: int = 128,
+                          q_offset: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(O, lse)``: B4's online softmax over kv blocks of ``block_k``
     (capped at ``Skv``). Rows are independent, so B4's q blocking changes
@@ -115,7 +136,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     wt = _work_dtype(q)
     block_k = min(block_k, skv)
     qg = _grouped(q, hkv, wt) * (1.0 / math.sqrt(d))
-    qpos = torch.arange(sq, device=q.device)
+    qpos = _positions(sq, query_offset(q_offset), q.device)
     m = torch.full(qg.shape[:-1], NEG_INF, dtype=wt, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qg)
@@ -151,7 +172,7 @@ def _block_grads(qg, dog, kj, vj, lse, delta, qpos, kpos, skv, causal, window):
     return p, p * (dp - delta[..., None])
 
 
-def _bwd_blocks(q, k, v, do, lse, delta, causal, window):
+def _bwd_blocks(q, k, v, do, lse, delta, causal, window, q_offset):
     """Shared set-up of F3's and F4's plain versions: per kv block of 128
     keys, its start, its k block and ``(P, dS)``; and the scaled grouped
     queries and dO."""
@@ -163,7 +184,7 @@ def _bwd_blocks(q, k, v, do, lse, delta, causal, window):
     g = hq // hkv
     lse_g = lse.to(wt).reshape(b, hkv, g, sq)
     delta_g = delta.to(wt).reshape(b, hkv, g, sq)
-    qpos = torch.arange(sq, device=q.device)
+    qpos = _positions(sq, query_offset(q_offset), q.device)
 
     def blocks():
         for (start, kj), (_, vj) in zip(_kv_blocks(k, block_k, wt),
@@ -175,11 +196,12 @@ def _bwd_blocks(q, k, v, do, lse, delta, causal, window):
 
 
 def bwd_dkdv_plain(q, k, v, do, lse, delta, *, causal: bool = True,
-                   window: Optional[int] = None
+                   window: Optional[int] = None, q_offset: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """F3's ``dK = dS^T (scale * q)`` and ``dV = P^T dO``, kv block by kv
     block, summed over each kv head's group of q heads."""
-    qg, dog, blocks = _bwd_blocks(q, k, v, do, lse, delta, causal, window)
+    qg, dog, blocks = _bwd_blocks(q, k, v, do, lse, delta, causal, window,
+                                  q_offset)
     dks, dvs = [], []
     for _, _, (p, ds) in blocks:
         dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, dog))
@@ -190,9 +212,10 @@ def bwd_dkdv_plain(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 def bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True,
-                 window: Optional[int] = None) -> torch.Tensor:
+                 window: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
     """F4's ``dQ = scale * dS K``, accumulated over kv blocks."""
-    qg, _, blocks = _bwd_blocks(q, k, v, do, lse, delta, causal, window)
+    qg, _, blocks = _bwd_blocks(q, k, v, do, lse, delta, causal, window,
+                                q_offset)
     dq = torch.zeros_like(qg)
     for _, kj, (_, ds) in blocks:
         dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, kj)
@@ -202,14 +225,14 @@ def bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              window: Optional[int] = None
+                              window: Optional[int] = None, q_offset: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dQ, dK, dV)`` from the explicit formulas (not autograd), as F2-F4
     compute them."""
+    opts = dict(causal=causal, window=window, q_offset=q_offset)
     delta = bwd_preprocess_plain(o, do)
-    dk, dv = bwd_dkdv_plain(q, k, v, do, lse, delta, causal=causal,
-                            window=window)
-    dq = bwd_dq_plain(q, k, v, do, lse, delta, causal=causal, window=window)
+    dk, dv = bwd_dkdv_plain(q, k, v, do, lse, delta, **opts)
+    dq = bwd_dq_plain(q, k, v, do, lse, delta, **opts)
     return dq, dk, dv
 
 
@@ -218,8 +241,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# batch, sq, skv, hq, hkv, head_dim, causal, window; scale; bf16
-_DIMS = [_INT] * 8 + [_F32, _INT]
+# batch, sq, skv, hq, hkv, head_dim, causal, window; scale; bf16, q_offset
+_DIMS = [_INT] * 8 + [_F32, _INT, _INT]
 _SIGNATURES = {
     "flash_attention_fwd": [_PTR] * 5 + _DIMS,
     "flash_attention_bwd_preprocess": [_PTR] * 3 + [_INT] * 5,
@@ -296,9 +319,10 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
-def _kernel_args(q, k, v, causal: bool, window: Optional[int]):
+def _kernel_args(q, k, v, causal: bool, window: Optional[int], q_offset: int = 0):
     """Check what the CUDA kernels take and return their dimension
-    arguments; raise on anything else."""
+    arguments but the query offset, which the kernels take last; raise on
+    anything else."""
     b, sq, skv, hq, hkv, d = _dims(q, k, v)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the kernels take f32 or bf16 q, k, v of one dtype; "
@@ -310,11 +334,16 @@ def _kernel_args(q, k, v, causal: bool, window: Optional[int]):
                          "and batch, heads <= 65535")
     if window is not None and not 1 <= window < 2 ** 31:
         raise ValueError(f"window must be a positive int, got {window}")
-    if window is not None and sq > skv + window - 1:
-        # a query row would see no key; the kernels skip masked tiles, which
-        # matches B4 only where every row sees one
-        raise ValueError(f"Sq {sq} > Skv {skv} + window {window} - 1: rows that "
-                         "see no key")
+    # a query row that would see no key: the kernels skip masked tiles,
+    # which matches B4 only where every row sees one
+    if not (-2 ** 31 < q_offset and q_offset + sq < 2 ** 31):
+        raise ValueError(f"q_offset {q_offset} out of the kernels' range")
+    if window is not None and q_offset + sq > skv + window - 1:
+        raise ValueError(f"q_offset {q_offset} + Sq {sq} > Skv {skv} + window "
+                         f"{window} - 1: rows that see no key")
+    if causal and q_offset < 0:
+        raise ValueError(f"causal with q_offset {q_offset} < 0: rows that see "
+                         "no key")
     if max(q.numel(), k.numel()) >= 2 ** 62:
         raise ValueError("tensor too large")
     return [b, sq, skv, hq, hkv, d, int(causal), window or 0,
@@ -322,18 +351,20 @@ def _kernel_args(q, k, v, causal: bool, window: Optional[int]):
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None
+                        window: Optional[int] = None, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(O, lse)`` through F1 on a CUDA tensor, the plain version on the CPU."""
+    q_offset = query_offset(q_offset)
     if not _route(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    args = _kernel_args(q, k, v, causal, window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    args = _kernel_args(q, k, v, causal, window, q_offset)
     q, k, v = build.on_16_bytes(q, k, v)
     o = torch.empty_like(q)
     b, sq, hq = q.shape[0], q.shape[1], q.shape[2]
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), lse.data_ptr(), *args)
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), *args, q_offset)
     return o, lse
 
 
@@ -357,10 +388,10 @@ def bwd_preprocess(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return delta
 
 
-def _bwd_inputs(q, k, v, do, lse, delta, causal, window):
+def _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset=0):
     """Check the backward kernels' inputs; their dimension arguments and
     the inputs made contiguous."""
-    args = _kernel_args(q, k, v, causal, window)
+    args = _kernel_args(q, k, v, causal, window, q_offset)
     b, sq, hq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO must be {tuple(q.shape)} {q.dtype}, got "
@@ -373,60 +404,65 @@ def _bwd_inputs(q, k, v, do, lse, delta, causal, window):
 
 
 def bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
-             window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+             window: Optional[int] = None, q_offset: int = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dK, dV)`` through F3 on a CUDA tensor, the plain version on the
     CPU."""
+    q_offset = query_offset(q_offset)
     if not _route(q, k, v, do, lse, delta):
         return bwd_dkdv_plain(q, k, v, do, lse, delta, causal=causal,
-                              window=window)
-    args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window)
+                              window=window, q_offset=q_offset)
+    args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset)
     dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
     _launch("flash_attention_bwd_dkdv", q.device, *(t.data_ptr() for t in ins),
-            dk.data_ptr(), dv.data_ptr(), *args)
+            dk.data_ptr(), dv.data_ptr(), *args, q_offset)
     return dk, dv
 
 
 def bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
-           window: Optional[int] = None) -> torch.Tensor:
+           window: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
     """``dQ`` through F4 on a CUDA tensor, the plain version on the CPU."""
+    q_offset = query_offset(q_offset)
     if not _route(q, k, v, do, lse, delta):
         return bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
-                            window=window)
-    args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window)
+                            window=window, q_offset=q_offset)
+    args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset)
     dq = torch.empty_like(ins[0])
     _launch("flash_attention_bwd_dq", q.device, *(t.data_ptr() for t in ins),
-            dq.data_ptr(), *args)
+            dq.data_ptr(), *args, q_offset)
     return dq
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: Optional[int] = None
+                        window: Optional[int] = None, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dQ, dK, dV)`` through F2, F3 and F4 on a CUDA tensor, the plain
     versions on the CPU."""
+    opts = dict(causal=causal, window=window, q_offset=query_offset(q_offset))
     if not _route(q, k, v, o, lse, do):
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         window=window)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, **opts)
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"O must be {tuple(q.shape)} {q.dtype}, got "
                          f"{tuple(o.shape)} {o.dtype}")
     delta = bwd_preprocess(o, do)
-    dk, dv = bwd_dkdv(q, k, v, do, lse, delta, causal=causal, window=window)
-    dq = bwd_dq(q, k, v, do, lse, delta, causal=causal, window=window)
+    dk, dv = bwd_dkdv(q, k, v, do, lse, delta, **opts)
+    dq = bwd_dq(q, k, v, do, lse, delta, **opts)
     return dq, dk, dv
 
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
 def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+            window: Optional[int], q_offset: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_fwd` as one operator: a dispatch mode sees the
     call once (``OpCostModel`` prices it), and a fake tensor takes its
     shapes alone."""
-    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 @_fwd_op.register_fake
-def _(q, k, v, causal, window):
+def _(q, k, v, causal, window, q_offset):
     b, sq, hq = q.shape[0], q.shape[1], q.shape[2]
     return torch.empty_like(q), q.new_empty((b, hq, sq), dtype=torch.float32)
 
@@ -434,14 +470,15 @@ def _(q, k, v, causal, window):
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
 def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
             lse: torch.Tensor, do: torch.Tensor, causal: bool,
-            window: Optional[int]
+            window: Optional[int], q_offset: int
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_bwd` as one operator (as :func:`_fwd_op`)."""
-    return flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    return flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 @_bwd_op.register_fake
-def _(q, k, v, o, lse, do, causal, window):
+def _(q, k, v, o, lse, do, causal, window, q_offset):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -449,34 +486,39 @@ class _FlashAttention(torch.autograd.Function):
     """Saves ``q, k, v, O`` and ``lse``, nothing larger."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset):
         _route(q, k, v)     # raises for a device without a route (meta too)
-        o, lse = _fwd_op(q, k, v, causal, window)
+        o, lse = _fwd_op(q, k, v, causal, window, q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = (causal, window)
+        ctx.opts = (causal, window, q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _bwd_op(q, k, v, o, lse, do, *ctx.opts)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None,
+                    window: Optional[int] = None, q_offset=0,
                     placements=None) -> torch.Tensor:
     """Attention of ``q (B, Sq, Hq, D)`` over ``k, v (B, Skv, Hkv, D)``, in
-    ``q``'s dtype, differentiable in ``q``, ``k`` and ``v``. Replaces
-    ``flash_attention_pallas``, with a backward of its own. DTensors run
-    shard by shard: q, k and v redistributed to ``placements`` (one a mesh
-    dim, which the caller chooses: the sequence whole on every device), then
-    each shard's local tensors through :class:`_FlashAttention`."""
+    ``q``'s dtype, differentiable in ``q``, ``k`` and ``v``, query row ``i``
+    at position ``i + q_offset``. Replaces ``flash_attention_pallas``, with a
+    backward of its own. ``q_offset`` is an int or a 0-d integer tensor (the
+    reference's ``int | jax.Array``), read once, on the host: a CUDA tensor
+    is synchronized with. DTensors run shard by shard: q, k and v
+    redistributed to ``placements`` (one a mesh dim, which the caller
+    chooses: the sequence whole on every device), then each shard's local
+    tensors through :class:`_FlashAttention`."""
+    q_offset = query_offset(q_offset)
     if placements is None:
-        return _FlashAttention.apply(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
     from torch.distributed.tensor.experimental import local_map
 
-    return local_map(lambda q, k, v: _FlashAttention.apply(q, k, v, causal, window),
-                     out_placements=placements,
-                     in_placements=(placements, placements, placements),
-                     device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v)
+    return local_map(
+        lambda q, k, v: _FlashAttention.apply(q, k, v, causal, window, q_offset),
+        out_placements=placements,
+        in_placements=(placements, placements, placements),
+        device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v)

@@ -4,7 +4,7 @@
 For one head, with x ``(S, P)``, dt ``(S,)``, the scalar decay rate A < 0,
 and B, C ``(S, N)`` shared by all heads (ngroups = 1)::
 
-    S_t = exp(A dt_t) S_{t-1} + B_t (x) (dt_t x_t),    S_0 = 0
+    S_t = exp(A dt_t) S_{t-1} + B_t (x) (dt_t x_t),    S_0 given or 0
     y_t = C_t . S_t
 
 computed as ``ssd_scan_pallas`` computes it: per chunk of ``L`` steps
@@ -23,15 +23,21 @@ CUDA entry points in ``csrc/ssd_scan.cu``, each a chunk-parallel scan whose
 products run on the tensor cores in split TF32 (three TF32 products an f32
 product, as B4's kernels):
 
-  * ``ssd_fwd`` (S1) — y, and the state at the start of every chunk,
+  * ``ssd_fwd`` (S1) — y, the state at the start of every chunk,
     ``(B, H, chunks, N, P)`` f32, which the backward reads instead of
-    walking the chunks forward again. Three kernels: every chunk's summary
+    walking the chunks forward again, and the final state ``(B, H, N, P)``
+    f32, from an initial state (the reference's ``ssd_chunked(
+    initial_state=)``; none is zeros). Three kernels: every chunk's summary
     ``(B ⊙ exp(g_L - g))^T xf`` and ``C B^T`` once per batch row and chunk
     (B and C are shared by the heads); the short pass that carries the
-    states across the chunks; every chunk's outputs;
-  * ``ssd_bwd`` (S2) — dx, d(dt), dA, dB and dC. Four kernels: every
-    chunk's ``(C ⊙ exp(g))^T dy``; the pass that carries ``dS`` back across
-    the chunks; every chunk's local terms from its state and ``dS``, dB and
+    states across the chunks from the initial state, and one step past the
+    last to the final state; every chunk's outputs;
+  * ``ssd_bwd`` (S2) — dx, d(dt), dA, dB and dC, from the final state's
+    gradient (none is zeros), and the initial state's gradient where it is
+    asked for. Four kernels: every chunk's ``(C ⊙ exp(g))^T dy``; the pass
+    that carries ``dS`` back across the chunks from the final state's
+    gradient, and one step past the first to the initial state's; every
+    chunk's local terms from its state and ``dS``, dB and
     dC summed over a block's heads in order; and the sums over head groups,
     batch rows and chunks, each in a fixed order: no atomics, the same bits
     every run.
@@ -131,11 +137,21 @@ def _pair_decay(g: torch.Tensor) -> torch.Tensor:
 # plain PyTorch versions: the reference the kernels are held against
 # ---------------------------------------------------------------------------
 
-def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = SSD_CHUNK
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(y, states)``: B9's body, each chunk's terms for all chunks at
-    once, then the state carried chunk by chunk. ``states[:, :, c]`` is the
-    state at the start of chunk ``c``."""
+def _state(t: Optional[torch.Tensor], b: int, h: int, n: int, p: int,
+           name: str) -> Optional[torch.Tensor]:
+    """Check a carried state (or its gradient): ``(B, H, N, P)``, or None."""
+    if t is not None and tuple(t.shape) != (b, h, n, p):
+        raise ValueError(f"{name} must be (B, H, N, P) = {(b, h, n, p)}, got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def ssd_scan_plain(x, dt, A, Bm, Cm, initial_state=None, *, chunk: int = SSD_CHUNK
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(y, states, final_state)``: B9's body, each chunk's terms for all
+    chunks at once, then the state carried chunk by chunk from
+    ``initial_state`` (zeros if None). ``states[:, :, c]`` is the state at
+    the start of chunk ``c``, ``final_state`` the state after the last."""
     b, s, h, p, n = _dims(x, dt, A, Bm, Cm)
     wt = _work_dtype(x)
     lc = min(chunk, s)
@@ -145,22 +161,27 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = SSD_CHUNK
     w_last = torch.exp(g[..., -1:] - g)                   # (B, H, nc, L)
     s_chunk = (bc * w_last[..., None]).transpose(-1, -2) @ xf   # (B, H, nc, N, P)
     decay = torch.exp(g[..., -1])[..., None, None]        # (B, H, nc, 1, 1)
-    state = torch.zeros((b, h, n, p), dtype=wt, device=x.device)
+    state = _state(initial_state, b, h, n, p, "initial_state")
+    state = torch.zeros((b, h, n, p), dtype=wt, device=x.device) \
+        if state is None else state.to(wt)
     states = []
     for c in range(xc.shape[2]):
         states.append(state)
         state = state * decay[:, :, c] + s_chunk[:, :, c]
     states = torch.stack(states, dim=2)
     y = y + (cc * torch.exp(g)[..., None]) @ states
-    return _unchunk(y, s, x.dtype), states
+    return _unchunk(y, s, x.dtype), states, state
 
 
-def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, *, chunk: int = SSD_CHUNK
-                       ) -> Tuple[torch.Tensor, ...]:
-    """``(dx, ddt, dA, dB, dC)`` from the explicit formulas, as S2 computes
-    them. ``states`` is the forward's at the same chunk. First ``dS``, the
-    gradient of the state after each chunk, carried back chunk by chunk
-    (``dS_start = exp(g_L) dS_end + (C ⊙ exp(g))^T dy``); then every chunk's
+def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, d_final=None, *,
+                       with_initial: bool = False, chunk: int = SSD_CHUNK
+                       ) -> Tuple[Optional[torch.Tensor], ...]:
+    """``(dx, ddt, dA, dB, dC, d_initial)`` from the explicit formulas, as
+    S2 computes them. ``states`` is the forward's at the same chunk (its
+    first the initial state). First ``dS``, the gradient of the state after
+    each chunk, carried back chunk by chunk from ``d_final`` (zeros if None)
+    (``dS_start = exp(g_L) dS_end + (C ⊙ exp(g))^T dy``), the last step
+    giving ``d_initial`` (None unless ``with_initial``); then every chunk's
     terms at once. With ``M = C B^T ⊙ exp(g_t - g_j)`` (``j <= t``),
     ``G = dy xf^T ⊙ exp(g_t - g_j)`` and ``Q = G ⊙ C B^T`` (``j < t``)::
 
@@ -188,7 +209,9 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, *, chunk: int = SSD_CHUNK
     e_last = e[..., -1]                                    # (B, H, nc)
     w_last = torch.exp(g[..., -1:] - g)
     read = (cc * e[..., None]).transpose(-1, -2) @ dyc    # (B, H, nc, N, P)
-    d_end = torch.zeros((b, h, n, p), dtype=wt, device=x.device)
+    d_end = _state(d_final, b, h, n, p, "d_final")
+    d_end = torch.zeros((b, h, n, p), dtype=wt, device=x.device) \
+        if d_end is None else d_end.to(wt)
     d_ends = []
     for c in reversed(range(nc)):
         d_ends.append(d_end)
@@ -216,7 +239,7 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, *, chunk: int = SSD_CHUNK
     ddt = _unchunk(ddt[..., None], s, dt.dtype)[..., 0]
     db, dc = (_unchunk(t.sum(dim=1, keepdim=True), s, m_.dtype)[:, :, 0]
               for t, m_ in ((db, Bm), (dc, Cm)))
-    return dx, ddt, da_dt.to(A.dtype), db, dc
+    return dx, ddt, da_dt.to(A.dtype), db, dc, d_end if with_initial else None
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +249,8 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, *, chunk: int = SSD_CHUNK
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # batch, seq, heads, head_dim, state, chunk; S2: heads a block; bf16
 _SIGNATURES = {
-    "ssd_fwd": [_PTR] * 9 + [_INT] * 7,
-    "ssd_bwd": [_PTR] * 18 + [_INT] * 8,
+    "ssd_fwd": [_PTR] * 11 + [_INT] * 7,
+    "ssd_bwd": [_PTR] * 20 + [_INT] * 8,
 }
 
 # launches of each CUDA kernel since the last reset_launches()
@@ -322,27 +345,50 @@ def _f32(*shape, device) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=device)
 
 
-def ssd_scan_fwd(x, dt, A, Bm, Cm) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(y, states)`` through S1 on a CUDA tensor, the plain version on the
-    CPU. y is in x's dtype, states f32 ``(B, H, chunks, N, P)``."""
-    if not _route(x, dt, A, Bm, Cm):
-        return ssd_scan_plain(x, dt, A, Bm, Cm)
+def _state_input(t: Optional[torch.Tensor], dims, name: str) -> Optional[torch.Tensor]:
+    """A carried state (or its gradient) as the kernels take it: f32
+    ``(B, H, N, P)``, contiguous, on 16 bytes; None stays None."""
+    b, _, h, p, n = dims[:5]
+    if _state(t, b, h, n, p, name) is None:
+        return None
+    return build.on_16_bytes(t.float())[0]
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def ssd_scan_fwd(x, dt, A, Bm, Cm, initial_state=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(y, states, final_state)`` through S1 on a CUDA tensor, the plain
+    version on the CPU, from ``initial_state`` (zeros if None). y is in x's
+    dtype, states f32 ``(B, H, chunks, N, P)``, the final state f32 ``(B,
+    H, N, P)``."""
+    if not _route(x, dt, A, Bm, Cm, *(() if initial_state is None else (initial_state,))):
+        return ssd_scan_plain(x, dt, A, Bm, Cm, initial_state)
     ins, args = _kernel_inputs(x, dt, A, Bm, Cm)
     b, s, h, p, n, lc, _ = args
+    init = _state_input(initial_state, args, "initial_state")
     nc, dev = -(-s // lc), x.device
     y = torch.empty(x.shape, dtype=ins[0].dtype, device=dev)
-    states = _f32(b, h, nc, n, p, device=dev)
+    states, final = _f32(b, h, nc, n, p, device=dev), _f32(b, h, n, p, device=dev)
     # C B^T of every chunk, exp(g_L) of every chunk and head
     _, scratch = build.scratch(dev, b * nc * SSD_CHUNK ** 2, b * h * nc)
-    _launch("ssd_fwd", dev, *(t.data_ptr() for t in ins + (y, states)), *scratch, *args)
-    return y.to(x.dtype), states
+    _launch("ssd_fwd", dev, *(t.data_ptr() for t in ins + (y, states)), _ptr(init),
+            final.data_ptr(), *scratch, *args)
+    return y.to(x.dtype), states, final
 
 
-def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy) -> Tuple[torch.Tensor, ...]:
-    """``(dx, ddt, dA, dB, dC)`` through S2 on a CUDA tensor, the plain
-    version on the CPU; each gradient in its input's dtype."""
-    if not _route(x, dt, A, Bm, Cm, states, dy):
-        return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy)
+def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, d_final=None, *,
+                 with_initial: bool = False) -> Tuple[Optional[torch.Tensor], ...]:
+    """``(dx, ddt, dA, dB, dC, d_initial)`` through S2 on a CUDA tensor, the
+    plain version on the CPU, from the final state's gradient ``d_final``
+    (zeros if None); each gradient in its input's dtype, ``d_initial`` f32
+    ``(B, H, N, P)`` if ``with_initial``, else None."""
+    more = () if d_final is None else (d_final,)
+    if not _route(x, dt, A, Bm, Cm, states, dy, *more):
+        return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, d_final,
+                                  with_initial=with_initial)
     ins, args = _kernel_inputs(x, dt, A, Bm, Cm)
     b, s, h, p, n, lc, _ = args
     if states.shape != (b, h, -(-s // lc), n, p) or states.dtype != torch.float32:
@@ -350,72 +396,98 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy) -> Tuple[torch.Tensor, ...]:
                          f"{states.dtype} {tuple(states.shape)}")
     if dy.shape != x.shape:
         raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    d_fin = _state_input(d_final, args, "d_final")
     states, dy = build.on_16_bytes(states, dy.to(ins[0].dtype))
     nc, dev, hb = -(-s // lc), x.device, _heads_per_block(h)
     outs = (_f32(b, s, h, p, device=dev), _f32(b, s, h, device=dev), _f32(h, device=dev),
             _f32(b, s, n, device=dev), _f32(b, s, n, device=dev))
+    d_init = _f32(b, h, n, p, device=dev) if with_initial else None
     # C B^T of every chunk, dS, the groups' partials of dB and dC (each on
     # 16 bytes), then exp(g_L) and dA's partials of every chunk and head
     _, (cb, ds, db_part, dc_part, el, da_part) = build.scratch(
         dev, b * nc * SSD_CHUNK ** 2, b * h * nc * n * p, b * (h // hb) * s * n,
         b * (h // hb) * s * n, b * h * nc, b * h * nc)
-    _launch("ssd_bwd", dev, *(t.data_ptr() for t in ins + (states, dy) + outs),
+    _launch("ssd_bwd", dev, *(t.data_ptr() for t in ins + (states, dy)), _ptr(d_fin),
+            *(t.data_ptr() for t in outs), _ptr(d_init),
             cb, el, ds, da_part, db_part, dc_part, *args[:-1], hb, args[-1])
-    return tuple(g.to(t.dtype) for g, t in zip(outs, (x, dt, A, Bm, Cm)))
+    return tuple(g.to(t.dtype) for g, t in zip(outs, (x, dt, A, Bm, Cm))) + (d_init,)
 
 
 @torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
 def _fwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-            Bm: torch.Tensor, Cm: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            Bm: torch.Tensor, Cm: torch.Tensor, initial_state: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`ssd_scan_fwd` as one operator: a dispatch mode sees the call
     once (``OpCostModel`` prices it), and a fake tensor takes its shapes
     alone."""
-    return ssd_scan_fwd(x, dt, A, Bm, Cm)
+    return ssd_scan_fwd(x, dt, A, Bm, Cm, initial_state)
 
 
 @_fwd_op.register_fake
-def _(x, dt, A, Bm, Cm):
+def _(x, dt, A, Bm, Cm, initial_state):
     b, s, h, p = x.shape
+    n = Bm.shape[-1]
     nc = -(-s // min(SSD_CHUNK, s))
     return (torch.empty_like(x),
-            x.new_empty((b, h, nc, Bm.shape[-1], p), dtype=torch.float32))
+            x.new_empty((b, h, nc, n, p), dtype=torch.float32),
+            x.new_empty((b, h, n, p), dtype=torch.float32))
 
 
 @torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
 def _bwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             Bm: torch.Tensor, Cm: torch.Tensor, states: torch.Tensor,
-            dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                       torch.Tensor, torch.Tensor]:
-    """:func:`ssd_scan_bwd` as one operator (as :func:`_fwd_op`)."""
-    return ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy)
+            dy: torch.Tensor, d_final: Optional[torch.Tensor], with_initial: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan_bwd` as one operator (as :func:`_fwd_op`); without
+    ``with_initial`` its last output is empty."""
+    *grads, d_init = ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, d_final,
+                                  with_initial=with_initial)
+    if d_init is None:
+        d_init = x.new_empty((0,), dtype=torch.float32)
+    return (*grads, d_init)
 
 
 @_bwd_op.register_fake
-def _(x, dt, A, Bm, Cm, states, dy):
-    return tuple(torch.empty_like(t) for t in (x, dt, A, Bm, Cm))
+def _(x, dt, A, Bm, Cm, states, dy, d_final, with_initial):
+    b, _, h, p = x.shape
+    shape = (b, h, Bm.shape[-1], p) if with_initial else (0,)
+    return tuple(torch.empty_like(t) for t in (x, dt, A, Bm, Cm)) + (
+        x.new_empty(shape, dtype=torch.float32),)
 
 
 class _SsdScan(torch.autograd.Function):
-    """Saves the inputs and the chunk states, nothing larger."""
+    """Saves the inputs and the chunk states, nothing larger. A gradient
+    that does not reach y or the final state is zeros (none of the final
+    state's: S2 starts from zeros)."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm):
+    def forward(ctx, x, dt, A, Bm, Cm, initial_state):
         _route(x, dt, A, Bm, Cm)   # raises for a device without a route
-        y, states = _fwd_op(x, dt, A, Bm, Cm)
+        y, states, final = _fwd_op(x, dt, A, Bm, Cm, initial_state)
         ctx.save_for_backward(x, dt, A, Bm, Cm, states)
-        return y
+        ctx.initial = None if initial_state is None else initial_state.dtype
+        ctx.set_materialize_grads(False)
+        return y, final
 
     @staticmethod
-    def backward(ctx, dy):
-        return _bwd_op(*ctx.saved_tensors, dy)
+    def backward(ctx, dy, d_final):
+        saved = ctx.saved_tensors
+        with_initial = ctx.initial is not None and ctx.needs_input_grad[5]
+        if dy is None:
+            dy = torch.zeros_like(saved[0])
+        *grads, d_init = _bwd_op(*saved, dy, d_final, with_initial)
+        return (*grads, d_init.to(ctx.initial) if with_initial else None)
 
 
-def ssd_scan(x, dt, A, Bm, Cm) -> torch.Tensor:
+def ssd_scan(x, dt, A, Bm, Cm, initial_state=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The SSD scan of x ``(B, S, H, P)``, dt ``(B, S, H)``, A ``(H,)`` and
-    Bm, Cm ``(B, S, N)``, in x's dtype, from a zero state, differentiable
-    in all five. Replaces ``ssd_scan_pallas``, with a backward of its own.
-    Forward and backward are each one operator (``repro_torch::
+    Bm, Cm ``(B, S, N)`` from ``initial_state`` ``(B, H, N, P)`` (zeros if
+    None): ``(y, final_state)``, y in x's dtype, the final state f32,
+    differentiable in all six inputs (the reference's ``ssd_chunked`` at
+    the kernels' chunk). Replaces ``ssd_scan_pallas``, with a backward of its
+    own. Forward and backward are each one operator (``repro_torch::
     ssd_scan_fwd``, ``ssd_scan_bwd``), so that the GSPMD path runs them on
     each device's shards and its dry run on fake tensors."""
-    return _SsdScan.apply(x, dt, A, Bm, Cm)
+    return _SsdScan.apply(x, dt, A, Bm, Cm, initial_state)

@@ -26,10 +26,13 @@ records
     ``repro.models.ssm.ssd_chunked`` at the config's ``ssm_chunk``), which
     is what the reference's HLO counts (:func:`wkv6_flops`,
     :func:`ssd_flops`), and their backward as twice that: each product's
-    gradient to both of its operands;
+    gradient to both of its operands (a carried state changes no product;
+    flash attention at a query offset counts the pairs its mask lets
+    through there);
   * per-device bytes: every operand read once and the result written once
-    (PyTorch runs each operator alone, with nothing fused); views, aliases
-    and uninitialised allocations move none;
+    (PyTorch runs each operator alone, with nothing fused), the scans'
+    initial state, final state and their gradients among them; views,
+    aliases and uninitialised allocations move none;
   * collectives: their group size and per-device wire bytes by the
     reference's ring formulas (:func:`ring_wire`).
 
@@ -105,18 +108,20 @@ def ring_wire(kind: str, nbytes: float, g: int) -> float:
     return float(nbytes)    # collective-permute: one hop
 
 
-def visible_pairs(sq: int, skv: int, causal: bool, window: Optional[int]) -> int:
-    """(query, key) pairs flash attention's mask lets through."""
-    q = np.arange(sq, dtype=np.int64)
+def visible_pairs(sq: int, skv: int, causal: bool, window: Optional[int],
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs flash attention's mask lets through, query row
+    ``i`` at position ``i + q_offset``."""
+    q = np.arange(sq, dtype=np.int64) + q_offset
     hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
     lo = np.maximum(0, q - window + 1) if window else np.zeros(sq, np.int64)
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def attention_flops(name: str, q: torch.Tensor, k: torch.Tensor, causal: bool,
-                    window: Optional[int]) -> float:
+                    window: Optional[int], q_offset: int = 0) -> float:
     b, sq, hq, d = q.shape
-    pairs = visible_pairs(sq, k.shape[1], causal, window) * b * hq
+    pairs = visible_pairs(sq, k.shape[1], causal, window, q_offset) * b * hq
     if name == FA_FWD_OP:
         return 4.0 * d * pairs
     return 14.0 * d * pairs + 2.0 * b * sq * hq * d
@@ -346,8 +351,8 @@ class OpCostModel(TorchDispatchMode):
             raise NotImplementedError(f"no wire formula for {func}")
         if ns == "repro_torch" and name in (FA_FWD_OP, FA_BWD_OP):
             q, k = args[0], args[1]
-            causal, window = args[-2], args[-1]
-            row["flops"] = attention_flops(name, q, k, causal, window)
+            causal, window, q_offset = args[-3:]
+            row["flops"] = attention_flops(name, q, k, causal, window, q_offset)
         elif ns == "repro_torch" and name in WKV_OPS:
             row["flops"] = WKV_OPS[name] * wkv6_flops(*args[0].shape)
         elif ns == "repro_torch" and name in SSD_OPS:

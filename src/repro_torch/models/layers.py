@@ -161,7 +161,7 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
 
 
 def attention_reference(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0):
+                        window: Optional[int] = None, q_offset=0):
     """Dense O(S^2) attention. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D)."""
     sq, hq, d = q.shape[1], q.shape[2], q.shape[3]
     scale = 1.0 / math.sqrt(d)
@@ -180,7 +180,7 @@ def attention_reference(q, k, v, *, causal: bool = True,
 
 def attention_chunked(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None, chunk: int = 1024,
-                      q_offset: int = 0):
+                      q_offset=0):
     """Flash-style streaming attention: a loop over KV chunks with an online
     softmax, never more than (B, Sq, Hq, chunk) scores at once. Matches
     :func:`attention_reference` to float tolerance (tested)."""
@@ -217,30 +217,28 @@ def attention_chunked(q, k, v, *, causal: bool = True,
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-              q_offset: int = 0, chunk: int = 1024):
+              q_offset=0, chunk: int = 1024):
     """Dispatch. On the CPU as the reference: dense for short sequences,
     chunked-streaming for long. Any other device goes to the flash attention
-    kernels, which raise for a device other than CUDA; they take no
-    ``q_offset``, which no caller passes (serving prefills through
-    ``decode_step``, as the reference does). DTensors go to the flash
+    kernels, which raise for a device other than CUDA. ``q_offset`` (an int
+    or a 0-d integer tensor, the reference's ``int | jax.Array``) puts query
+    row ``i`` at position ``i + q_offset``: a block of queries that
+    continues a sequence whose keys come first. DTensors go to the flash
     attention of each shard on every device, laid out by
     :func:`attention_placements`; where the kv heads do not split over the
     ways the q heads do, k and v are first expanded to one head a q head,
     as the reference's GSPMD attention expands them."""
     if q.device.type != "cpu" or is_dtensor(q):
-        if q_offset != 0:
-            raise NotImplementedError(
-                "attention with q_offset != 0 has no kernel on the card; "
-                "serving prefills through decode_step and never passes one")
         if not is_dtensor(q):
-            return flash_attention(q, k, v, causal=causal, window=window)
+            return flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
         placements, kv_split = attention_placements(q, k.shape[2])
         if not kv_split:
             g = q.shape[2] // k.shape[2]
             k = torch.repeat_interleave(k, g, dim=2)
             v = torch.repeat_interleave(v, g, dim=2)
         return flash_attention(q, k, v, causal=causal, window=window,
-                               placements=placements)
+                               q_offset=q_offset, placements=placements)
     if k.shape[1] <= 2048:
         return attention_reference(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)

@@ -158,17 +158,21 @@ def _unheads(y: torch.Tensor) -> torch.Tensor:
                      y.device_mesh, yp, (yp,))(y)
 
 
-def _wkv_sharded(r, k, v, logw, u):
+def _wkv_sharded(r, k, v, logw, u, state=None):
     """:func:`wkv6` of DTensors, shard by shard: each device runs B8's
     operators on its batch rows and heads (``layers.attention_placements``'s
     layout: a sequence split moves to the heads, heads that do not divide
     are gathered), with the bonus u split as the heads; u's gradient is a
-    partial sum over the batch's mesh dims."""
+    partial sum over the batch's mesh dims. The state ``(B, H, P, P)``, in
+    (``state``, zeros if None) and out, is laid out as the batch rows and
+    heads are. Returns ``(y, final state)``."""
     rp, _ = attention_placements(r, r.shape[2])
     up = [Shard(0) if p.is_shard(2) else Replicate() for p in rp]
     ug = [Partial() if p.is_shard(0) else q for p, q in zip(rp, up)]
-    return on_shards(wkv6, r.device_mesh, rp, (rp,) * 4 + (up,),
-                     (rp,) * 4 + (ug,))(r, k, v, logw, u)
+    sp = [Shard(1) if p.is_shard(2) else p for p in rp]
+    sin = None if state is None else sp
+    return on_shards(wkv6, r.device_mesh, (rp, sp), (rp,) * 4 + (up, sin),
+                     (rp,) * 4 + (ug, sin))(r, k, v, logw, u, state)
 
 
 class Rwkv6LM(BaseModel):
@@ -225,9 +229,10 @@ class Rwkv6LM(BaseModel):
     def _time_mix(self, lp, h, *, shift_state=None, wkv_state=None,
                   decode: bool = False):
         """Returns (h_out, the shift state out, the WKV state out). In
-        decode the previous token's normed input is ``shift_state``; on
-        the card the training form goes through the kernels, which give no
-        final state (None)."""
+        decode the previous token's normed input is ``shift_state``.
+        Otherwise the WKV runs over the whole sequence from ``wkv_state``
+        (zeros if None) to its final state, and ``shift_state`` is not read:
+        the token shift starts from zeros, as the reference's does."""
         nh = h.shape[-1] // self.cfg.rwkv_head_dim
         x = whole_seq(L.rms_norm(h, lp["ln"]))
         x_prev = shift_state[:, None, :].to(x.dtype) if decode else _shift(x)
@@ -245,11 +250,12 @@ class Rwkv6LM(BaseModel):
             y, new_state = wkv6_decode_step(r, k, v, logw, lp["bonus_u"],
                                             wkv_state)
         elif is_dtensor(h):
-            y, new_state = _wkv_sharded(r, k, v, logw, lp["bonus_u"]), None
+            y, new_state = _wkv_sharded(r, k, v, logw, lp["bonus_u"], wkv_state)
         elif h.device.type == "cpu":
-            y, new_state = wkv6_chunked(r, k, v, logw, lp["bonus_u"])
+            y, new_state = wkv6_chunked(r, k, v, logw, lp["bonus_u"],
+                                        initial_state=wkv_state)
         else:
-            y, new_state = wkv6(r, k, v, logw, lp["bonus_u"]), None
+            y, new_state = wkv6(r, k, v, logw, lp["bonus_u"], wkv_state)
         y = _unheads(y).to(h.dtype)
         y = L.rms_norm(y, lp["gn"]) * F.silu(g)
         return h + L.project(y, lp["w_o"]), new_shift, new_state

@@ -197,10 +197,10 @@ def mamba2_block(cfg: ArchConfig, lp, h_in: torch.Tensor, *,
                  conv_state: Optional[torch.Tensor] = None,
                  decode: bool = False):
     """Returns (h_out, new_ssm_state, new_conv_state). ``decode``: one token
-    through :func:`ssd_decode_step` from ``ssm_state``. Otherwise, on the
-    card, the SSD goes through the kernels, which start from a zero state
-    and give no final state (None); nothing passes them a state (serving
-    prefills through ``decode_step``, as the reference does). DTensors take
+    through :func:`ssd_decode_step` from ``ssm_state``. Otherwise the whole
+    sequence from ``ssm_state`` and ``conv_state`` (zeros where None), as
+    the reference's: the SSD through :func:`ssd_chunked` on the CPU and the
+    kernels on the card, each giving the final state. DTensors take
     :func:`_mamba2_sharded`."""
     if is_dtensor(h_in):
         return _mamba2_sharded(cfg, lp, h_in, ssm_state=ssm_state,
@@ -222,12 +222,8 @@ def mamba2_block(cfg: ArchConfig, lp, h_in: torch.Tensor, *,
     elif xh.device.type == "cpu":
         y, new_state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
                                    initial_state=ssm_state)
-    elif ssm_state is not None:
-        raise NotImplementedError(
-            "the SSD from an initial state has no kernel on the card; "
-            "serving prefills through decode_step and never passes one")
     else:
-        y, new_state = ssd_scan(xh, dt, A, Bm, Cm), None
+        y, new_state = ssd_scan(xh, dt, A, Bm, Cm, ssm_state)
     y = y.float() + lp["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, s, din).to(h_in.dtype)
     y = L.rms_norm(y * F.silu(z), lp["gate_ln"])
@@ -244,8 +240,15 @@ def _mamba2_sharded(cfg: ArchConfig, lp, h_in, *, ssm_state=None,
     conv state it returns is the whole of it, and steps its heads' SSD
     state. ``in_proj`` and the conv's weights are gathered (their gradients
     partial sums), the per-head parameters taken as the heads are split.
-    The gate's norm and ``out_proj`` run on DTensors. On a one-rank mesh
-    every step is the plain route's."""
+    From a passed ``ssm_state`` or ``conv_state`` (training and prefill
+    that carry the states across calls; the other one zeros where None)
+    every channel is convolved too, as in decode, and the new conv state,
+    whole, is returned; without either, the device convolves its own
+    channels and no conv state is formed (None): the split products never
+    form the whole pre-conv row, and the reference's compiled step drops
+    that state as unused. The SSM state, in and out, is laid out by heads
+    as in decode. The gate's norm and ``out_proj`` run on DTensors. On a
+    one-rank mesh every step is the plain route's."""
     din, n, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     p = cfg.ssm_head_dim
     x = whole_seq(L.rms_norm(h_in, lp["ln"]))
@@ -266,8 +269,11 @@ def _mamba2_sharded(cfg: ArchConfig, lp, h_in, *, ssm_state=None,
     act_g = [r if r.is_shard() else Partial() if sp else r
              for r, sp in zip(rows, split)]
     (hl,), (lo,) = shard_of(mesh, heads, (nh,))
+    carry = ssm_state is not None or conv_state is not None
+    # every channel convolved: the conv state returned is all of them
+    whole_conv = decode or carry
 
-    def block(x, w, cw, cb, dt_bias, a_log, d_skip, *state):
+    def block(x, w, cw, cb, dt_bias, a_log, d_skip, ssm0=None, conv0=None):
         if hl == nh:
             z, xbc, dt = _split_in_proj(cfg, x @ w)
         else:
@@ -275,17 +281,24 @@ def _mamba2_sharded(cfg: ArchConfig, lp, h_in, *, ssm_state=None,
             x_cols = slice(din + lo * p, din + (lo + hl) * p)
             bc_cols = slice(2 * din, 2 * din + 2 * n)
             dt_cols = slice(2 * din + 2 * n + lo, 2 * din + 2 * n + lo + hl)
-            # decode convolves every channel: its conv state is all of them
-            xbc_cols = [slice(din, 2 * din + 2 * n)] if decode else [x_cols, bc_cols]
+            xbc_cols = [slice(din, 2 * din + 2 * n)] if whole_conv else [x_cols, bc_cols]
             cols = [z_cols] + xbc_cols + [dt_cols]
             z, xbc, dt = torch.split(
                 x @ torch.cat([w[:, c] for c in cols], dim=1),
                 [hl * p, sum(c.stop - c.start for c in xbc_cols), hl], dim=-1)
             cw = torch.cat([cw[:, c.start - din:c.stop - din] for c in xbc_cols], 1)
             cb = torch.cat([cb[c.start - din:c.stop - din] for c in xbc_cols])
-        xbc, new_conv = _causal_conv(xbc, cw, cb,
-                                     state=state[1] if decode else None)
-        if decode and hl != nh:
+        xbc, new_conv = _causal_conv(xbc, cw, cb, state=conv0)
+        if whole_conv and not decode and hl != nh:
+            # every device returns the whole conv state: its gradient goes
+            # back through the device's own channels alone (its heads' x;
+            # B and C on the first device), so that the head split's
+            # partial sums count each channel once
+            own = torch.zeros(xbc.shape[-1], dtype=torch.bool, device=xbc.device)
+            own[lo * p:(lo + hl) * p] = True
+            own[din:] = lo == 0
+            new_conv = torch.where(own, new_conv, new_conv.detach())
+        if whole_conv and hl != nh:
             xs, Bm, Cm = torch.split(xbc, [din, n, n], dim=-1)
             xs = xs[..., lo * p:(lo + hl) * p]
         else:
@@ -295,31 +308,33 @@ def _mamba2_sharded(cfg: ArchConfig, lp, h_in, *, ssm_state=None,
         b, s, _ = xs.shape
         xh = xs.reshape(b, s, hl, p)
         if decode:
-            y, new_state = ssd_decode_step(xh, dt, A, Bm, Cm, state[0])
+            y, new_state = ssd_decode_step(xh, dt, A, Bm, Cm, ssm0)
         else:
-            y = ssd_scan(xh, dt, A, Bm, Cm)
+            y, new_state = ssd_scan(xh, dt, A, Bm, Cm, ssm0)
         y = y.float() + d_skip.float()[None, None, :, None] * xh.float()
         y = y.reshape(b, s, hl * p).to(h_in.dtype) * F.silu(z)
-        return (y, new_state, new_conv) if decode else y
+        return (y, new_state, new_conv) if whole_conv else (y, new_state)
 
     out = [Shard(2) if sp else r for r, sp in zip(rows, split)]
+    state_p = [Shard(1) if sp else r for r, sp in zip(rows, split)]
     ins = [rows, whole, whole, whole, heads, heads, heads]
     args = [x, lp["in_proj"], lp["conv_w"], lp["conv_b"], lp["dt_bias"],
             lp["A_log"], lp["D"]]
     if decode:
-        state_p = [Shard(1) if sp else r for r, sp in zip(rows, split)]
         y, new_state, new_conv = on_shards(
             block, mesh, (out, state_p, rows), ins + [state_p, rows])(
             *args, ssm_state, conv_state)
     else:
-        if ssm_state is not None:
-            raise NotImplementedError(
-                "the SSD from an initial state has no kernel; serving "
-                "prefills through decode_step and never passes one")
-        new_state = new_conv = None
-        y = on_shards(block, mesh, out, ins,
-                      [act_g, summed, summed, summed, heads_g, heads_g, heads_g])(
-            *args)
+        # a state passed in takes the gradient of its layout; the conv
+        # state's is a partial sum over the head splits, as the activations'
+        grads = [act_g, summed, summed, summed, heads_g, heads_g, heads_g]
+        ins = ins + [None if ssm_state is None else state_p,
+                     None if conv_state is None else rows]
+        grads = grads + [None if ssm_state is None else state_p,
+                         None if conv_state is None else act_g]
+        res = on_shards(block, mesh, (out, state_p, rows) if carry else (out, state_p),
+                        ins, grads)(*args, ssm_state, conv_state)
+        y, new_state, new_conv = res if carry else (*res, None)
     y = L.rms_norm(y, lp["gate_ln"])
     return h_in + L.project(y, lp["out_proj"]), new_state, new_conv
 

@@ -221,8 +221,9 @@ def make_ring_train_step(model, optimizer: Optimizer, ring: LocalRing, *,
                 grads, ef_state, ring, fused=mode == "compressed-fused")
         else:
             reduced = reduce_grads(grads, ring, mode, n_buckets=n_buckets)
-        home = devices[0]
-        loss = torch.stack([l.to(home) for l in losses]).mean()
+        # the loss mean, a 4-byte psum over the ring divided by w, as the
+        # reference's pmean
+        loss = ring.psum(losses)[0] / ring.size
         new_params, new_opt = {}, {}
         for d in distinct_devices(devices):
             g = _unflatten(reduced[devices.index(d)])

@@ -11,9 +11,9 @@ to the reference's ``check_topology``, ``check_deadlock``,
 ``check_pricing`` and ``check_step_pricing`` with the reference's
 ``RING_VARIANTS`` / ``STEP_MODES`` entry of the same name. The reference
 cannot trace its own rings on this image (``AbstractMesh`` under jax 0.9.0,
-ROADMAP C1), but these functions are pure. One site is added, and named:
-the reference's step traces a 4-byte loss ``pmean`` that the port's step
-takes on the host (``LOSS_MEAN_PSUM``). On the fixtures, the reference's
+ROADMAP C1), but these functions are pure. The port's step takes the loss
+mean as the reference's ``pmean`` does, a 4-byte psum over the ring, so its
+records are judged as they are. On the fixtures, the reference's
 checks fire the axis the port's fire, except ``broken-branch-nested``: the
 reference's ``check_deadlock`` reads the ``lax.cond`` guards of a jaxpr, a
 recording has none, and that axis is held by the port's differential check
@@ -50,10 +50,6 @@ DEVICE = "cpu"
 WORLDS = (2, 3, 4)   # at least three world sizes, as the reference's tests
 DS = (96, 777)       # divisible and padded gradient sizes
 FIXTURES = {v.name: (v, axis) for v, axis in fix.broken_ring_variants()}
-# the reference step's loss pmean, which the port takes on the host
-LOSS_MEAN_PSUM = jcoll.CollectiveSite(primitive="psum", nbytes=4,
-                                      dtype="float32", perm=None, guards=(),
-                                      repeat=1)
 
 
 def _ref_sites(sites):
@@ -125,20 +121,19 @@ def test_reference_checks_accept_recorded_variant(name):
 
 @pytest.mark.parametrize("mode", RING_STEP_MODES)
 def test_reference_checks_accept_recorded_step(mode):
-    """Every step mode at worlds 2/3/4, its records plus the reference's
-    loss pmean: the reference's checks find nothing, and without that one
-    psum its step pricing finds exactly the missing loss mean."""
+    """Every step mode at worlds 2/3/4, its own records (the loss mean
+    among them, a 4-byte psum): the reference's checks find nothing, and
+    neither do the port's."""
     ref = REF_STEP_MODES[mode]
     for w in WORLDS:
         rec = coll.record_train_step(mode, w, device=DEVICE)
         sites = _ref_sites(rec.sites)
         msgs = (jcoll.check_topology(ref, sites, w)
                 + jcoll.check_deadlock(sites)
-                + jcoll.check_step_pricing(ref, sites + [LOSS_MEAN_PSUM], w,
-                                           rec.leaf_sizes))
+                + jcoll.check_step_pricing(ref, sites, w, rec.leaf_sizes))
         assert msgs == [], (w, msgs)
-        bare = jcoll.check_step_pricing(ref, sites, w, rec.leaf_sizes)
-        assert len(bare) == 1 and "psum" in bare[0], bare
+        assert coll.check_step_pricing(STEP_MODES[mode], rec.sites, w,
+                                       rec.leaf_sizes) == [], w
 
 
 @pytest.mark.parametrize("name", sorted(FIXTURES))

@@ -211,10 +211,10 @@ def test_other_devices_raise_and_cpu_launches_nothing():
     with pytest.raises(ValueError, match="meta"):
         fa.flash_attention(*meta)
     # the dense LM's attention off the CPU goes to the kernels, never to the
-    # plain forms; q_offset != 0 has no kernel yet
+    # plain forms, with a query offset too
     with pytest.raises(ValueError, match="meta"):
         L.attention(*meta)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="meta"):
         L.attention(*meta, q_offset=3)
     cpu = [torch.zeros(1, 8, 2, 32) for _ in range(3)]
     with pytest.raises(ValueError, match="devices"):

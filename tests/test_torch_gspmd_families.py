@@ -232,16 +232,14 @@ def mesh_kernels():
     saved = L.attention, rwkv.wkv6_chunked, ssm.ssd_chunked
 
     def attention(q, k, v, *, causal=True, window=None, q_offset=0, chunk=1024):
-        assert q_offset == 0
-        return fa.flash_attention(q, k, v, causal=causal, window=window)
+        return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
 
     def wkv(r, k, v, logw, u, initial_state=None):
-        assert initial_state is None
-        return wkv6(r, k, v, logw, u), None
+        return wkv6(r, k, v, logw, u, initial_state)
 
     def ssd(x, dt, A, Bm, Cm, chunk, initial_state=None):
-        assert initial_state is None
-        return ssd_scan(x, dt, A, Bm, Cm), None
+        return ssd_scan(x, dt, A, Bm, Cm, initial_state)
 
     L.attention, rwkv.wkv6_chunked, ssm.ssd_chunked = attention, wkv, ssd
     try:

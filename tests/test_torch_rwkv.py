@@ -162,9 +162,8 @@ def test_model_trains_through_the_wkv6_function(setup, monkeypatch, remat):
     calls = []
 
     def through_function(r, k, v, logw, u, initial_state=None):
-        assert initial_state is None
         calls.append(r.shape)
-        return W.wkv6(r, k, v, logw, u), None
+        return W.wkv6(r, k, v, logw, u, initial_state)
 
     monkeypatch.setattr(rwkv, "wkv6_chunked", through_function)
     model = build_model(dataclasses.replace(model.cfg, remat=remat))

@@ -113,7 +113,7 @@ def test_constants():
     pytest.param(64, 150, "weak", id="64-150-weak")])
 def test_plain_forward_matches_pallas_and_reference(chunk, s, decay):
     arrs = ssd_inputs(chunk + s, s=s, decay=decay)
-    y, states = S.ssd_scan_plain(*torch_of(arrs), chunk=chunk)
+    y, states, _ = S.ssd_scan_plain(*torch_of(arrs), chunk=chunk)
     lc = min(chunk, s)
     assert y.shape == (2, s, 3, 16) and y.dtype == torch.float32
     assert states.shape == (2, 3, -(-s // lc), 8, 16)
@@ -138,8 +138,8 @@ def test_weak_decay_keeps_the_carried_state():
     x, dt, A, Bm, Cm = torch_of(arrs)
     g_l = (dt[:, :64] * A).sum(dim=1)
     assert 0.4 < float(torch.exp(g_l).min()) and float(torch.exp(g_l).max()) < 0.95
-    y, states = S.ssd_scan_plain(x, dt, A, Bm, Cm)
-    alone, _ = S.ssd_scan_plain(*(t[:, 64:128] if t.dim() > 1 else t
+    y, states, _ = S.ssd_scan_plain(x, dt, A, Bm, Cm)
+    alone, _, _ = S.ssd_scan_plain(*(t[:, 64:128] if t.dim() > 1 else t
                                   for t in (x, dt, A, Bm, Cm)))
     gap = (y[:, 64:128] - alone).abs().max() / y[:, 64:128].abs().max()
     assert gap > 0.3 and states[:, :, 1].abs().max() > 1
@@ -148,7 +148,7 @@ def test_weak_decay_keeps_the_carried_state():
 def test_plain_states_match_reference_prefix_states():
     """``states[:, :, c]`` is the oracle's state after ``c * L`` steps."""
     arrs = ssd_inputs(5, s=96, decay="weak")
-    _, states = S.ssd_scan_plain(*torch_of(arrs), chunk=32)
+    _, states, _ = S.ssd_scan_plain(*torch_of(arrs), chunk=32)
     for c in (1, 2):
         _, want = ssd_reference(*jax_of(prefix(arrs, 32 * c)))
         assert_close_to_max(states[:, :, c].numpy(), want, 1e-5)
@@ -169,7 +169,7 @@ def test_plain_states_match_reference_prefix_states():
 def test_plain_backward_matches_jax_vjp(b, s, h, p, n, chunk, decay):
     arrs = ssd_inputs(3 * s + p, b=b, s=s, h=h, p=p, n=n, decay=decay)
     dy = np.random.default_rng(s).standard_normal((b, s, h, p)).astype(np.float32)
-    _, states = S.ssd_scan_plain(*torch_of(arrs), chunk=chunk)
+    _, states, _ = S.ssd_scan_plain(*torch_of(arrs), chunk=chunk)
     got = S.ssd_scan_bwd_plain(*torch_of(arrs), states, torch.from_numpy(dy),
                                chunk=chunk)
     for oracle in (lambda *a: jax_ssd_chunked(*a, chunk=32)[0],
@@ -186,8 +186,8 @@ def test_autograd_function_uses_the_plain_versions():
     dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 80, 3, 16)).astype(np.float32))
     leaves = [t.requires_grad_(True) for t in torch_of(arrs)]
-    y = S.ssd_scan(*leaves)
-    want_y, states = S.ssd_scan_plain(*torch_of(arrs))
+    y, _ = S.ssd_scan(*leaves)
+    want_y, states, _ = S.ssd_scan_plain(*torch_of(arrs))
     np.testing.assert_array_equal(y.detach().numpy(), want_y.numpy())
     y.backward(dy)
     wants = S.ssd_scan_bwd_plain(*torch_of(arrs), states, dy)
@@ -254,7 +254,7 @@ def test_other_devices_raise_and_cpu_launches_nothing():
     with pytest.raises(ValueError, match="devices"):
         S.ssd_scan(*cpu[:4], meta[4])
     S.reset_launches()
-    S.ssd_scan(*[t.requires_grad_(True) for t in cpu]).sum().backward()
+    S.ssd_scan(*[t.requires_grad_(True) for t in cpu])[0].sum().backward()
     assert set(S.LAUNCHES) == {"ssd_fwd", "ssd_bwd"}
     assert not any(S.LAUNCHES.values())
 

@@ -264,9 +264,9 @@ def test_model_trains_through_the_ssd_function(setup, jax_sequential_ssd,
     calls = []
 
     def through_function(x, dt, A, Bm, Cm, chunk, initial_state=None):
-        assert initial_state is None and chunk == model.cfg.ssm_chunk
+        assert chunk == model.cfg.ssm_chunk
         calls.append(x.shape)
-        return S.ssd_scan(x, dt, A, Bm, Cm), None
+        return S.ssd_scan(x, dt, A, Bm, Cm, initial_state)
 
     monkeypatch.setattr(ssm, "ssd_chunked", through_function)
     model = build_model(dataclasses.replace(model.cfg, remat=remat))
@@ -279,15 +279,14 @@ def test_model_trains_through_the_ssd_function(setup, jax_sequential_ssd,
 
 def test_mamba2_block_off_the_cpu():
     """Off the CPU the SSD goes to the kernels' wrapper, which raises for a
-    device other than CUDA; an initial state there raises first (nothing
-    passes one: serving prefills through decode_step)."""
+    device other than CUDA, from an initial state too."""
     cfg = get_arch(ARCH).reduced()
     specs = ssm.mamba2_specs(cfg, 1)
     lp = {k: torch.zeros(s.shape[1:], device="meta") for k, s in specs.items()}
     h = torch.zeros((1, 8, cfg.d_model), device="meta")
     state = torch.zeros((1, cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
                         device="meta")
-    with pytest.raises(NotImplementedError, match="serving"):
+    with pytest.raises(ValueError, match="no SSD kernel for device meta"):
         ssm.mamba2_block(cfg, lp, h, ssm_state=state)
     with pytest.raises(ValueError, match="no SSD kernel for device meta"):
         ssm.mamba2_block(cfg, lp, h)

@@ -108,7 +108,7 @@ def test_constants_match_reference():
     pytest.param(32, 64, 256, True, id="32-64-256-weak")])
 def test_plain_forward_matches_pallas_and_reference(chunk, p, s, weak):
     arrs = wkv_inputs(p + s + chunk, s=s, p=p, weak=weak)
-    y, states = W.wkv6_plain(*torch_of(arrs), chunk=chunk)
+    y, states, _ = W.wkv6_plain(*torch_of(arrs), chunk=chunk)
     lc = min(chunk, s)
     assert y.shape == (2, s, 3, p) and y.dtype == torch.float32
     assert states.shape == (2, 3, -(-s // lc), p, p)
@@ -129,7 +129,7 @@ def test_plain_forward_matches_pallas_and_reference(chunk, p, s, weak):
 def test_plain_states_match_reference_prefix_states():
     """``states[:, :, c]`` is the oracle's state after ``c * L`` steps."""
     arrs = wkv_inputs(5, s=96, p=32)
-    _, states = W.wkv6_plain(*torch_of(arrs))
+    _, states, _ = W.wkv6_plain(*torch_of(arrs))
     for c in (1, 2):
         _, want = wkv6_reference(*(jnp.asarray(a[:, :32 * c]) if a.ndim == 4
                                    else jnp.asarray(a) for a in arrs))
@@ -141,7 +141,7 @@ def test_plain_states_match_reference_prefix_states():
 @settings(max_examples=10, deadline=None)
 def test_plain_forward_shape_sweep(s, h, p, chunk):
     arrs = wkv_inputs(s, b=1, s=s, h=h, p=p)
-    y, _ = W.wkv6_plain(*torch_of(arrs), chunk=chunk)
+    y, _, _ = W.wkv6_plain(*torch_of(arrs), chunk=chunk)
     pallas = wkv6_pallas(*jax_of(arrs), chunk=chunk, interpret=True)
     ref, _ = wkv6_reference(*jax_of(arrs))
     for want in (pallas, ref):
@@ -163,7 +163,7 @@ def test_plain_forward_shape_sweep(s, h, p, chunk):
 def test_plain_backward_matches_jax_vjp(b, s, h, p, weak):
     arrs = wkv_inputs(3 * s + p, b=b, s=s, h=h, p=p, weak=weak)
     dy = np.random.default_rng(s).standard_normal((b, s, h, p)).astype(np.float32)
-    _, states = W.wkv6_plain(*torch_of(arrs))
+    _, states, _ = W.wkv6_plain(*torch_of(arrs))
     got = W.wkv6_bwd_plain(*torch_of(arrs), states, torch.from_numpy(dy))
     for oracle in (lambda *a: jax_wkv6_chunked(*a)[0],
                    lambda *a: wkv6_reference(*a)[0]):
@@ -179,8 +179,8 @@ def test_autograd_function_uses_the_plain_backward():
     dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 40, 3, 16)).astype(np.float32))
     leaves = [t.requires_grad_(True) for t in torch_of(arrs)]
-    y = W.wkv6(*leaves)
-    _, states = W.wkv6_plain(*torch_of(arrs))
+    y, _ = W.wkv6(*leaves)
+    _, states, _ = W.wkv6_plain(*torch_of(arrs))
     np.testing.assert_array_equal(y.detach().numpy(),
                                   W.wkv6_plain(*torch_of(arrs))[0].numpy())
     y.backward(dy)
@@ -234,7 +234,7 @@ def test_other_devices_raise_and_cpu_launches_nothing():
     with pytest.raises(ValueError, match="devices"):
         W.wkv6(*cpu[:4], meta_u)
     W.reset_launches()
-    W.wkv6(*[t.requires_grad_(True) for t in cpu]).sum().backward()
+    W.wkv6(*[t.requires_grad_(True) for t in cpu])[0].sum().backward()
     assert set(W.LAUNCHES) == {"wkv6_fwd", "wkv6_bwd"}
     assert not any(W.LAUNCHES.values())
 

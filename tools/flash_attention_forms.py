@@ -96,7 +96,8 @@ class Inputs:
         self.want = (fa.bwd_dq_plain(*self.ins, **opts), *fa.bwd_dkdv_plain(*self.ins, **opts))
         self.want_fwd = (o, lse)
         self.ptrs = [t.data_ptr() for t in self.ins]
-        self.args = fa._kernel_args(self.q, self.k, self.v, causal, window)
+        # the dimension arguments, then the query offset (0)
+        self.args = fa._kernel_args(self.q, self.k, self.v, causal, window) + [0]
         self.dq, self.dk, self.dv, self.o = (torch.empty_like(t)
                                              for t in (self.q, self.k, self.v, self.q))
         self.lse = torch.empty_like(lse)

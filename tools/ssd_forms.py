@@ -113,13 +113,18 @@ class Inputs:
                       for k in (SSD._heads_per_block(h),) + BWD_HEADS}
 
     def fwd(self, lib):
-        ptrs = [t.data_ptr() for t in self.ins[:5] + (self.y, self.states, self.cb, self.el)]
+        # from a zero state, the final state not formed (null pointers)
+        ptrs = ([t.data_ptr() for t in self.ins[:5] + (self.y, self.states)] + [None, None]
+                + [self.cb.data_ptr(), self.el.data_ptr()])
         err = lib.ssd_fwd(*ptrs, *self.args, torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
 
     def bwd(self, lib, heads):
-        ptrs = [t.data_ptr() for t in self.ins + self.grads
-                + (self.cb, self.el, self.ds, self.da) + self.parts[heads]]
+        # no final state's gradient, the initial state's not formed
+        ptrs = ([t.data_ptr() for t in self.ins] + [None]
+                + [t.data_ptr() for t in self.grads] + [None]
+                + [t.data_ptr() for t in (self.cb, self.el, self.ds, self.da)
+                   + self.parts[heads]])
         err = lib.ssd_bwd(*ptrs, *self.args[:-1], heads, self.args[-1],
                           torch.cuda.current_stream().cuda_stream)
         assert err == 0, err

@@ -146,13 +146,17 @@ class Inputs:
         self.ds, self.el, self.du_part = f32(b, h, nc, p, p), f32(b, h, nc, p), f32(b, h, nc, p)
 
     def fwd(self, lib):
-        ptrs = [t.data_ptr() for t in self.ins + (self.y, self.y_states, self.el)]
+        # from a zero state, the final state not formed (null pointers)
+        ptrs = ([t.data_ptr() for t in self.ins + (self.y, self.y_states)]
+                + [None, None, self.el.data_ptr()])
         err = lib.wkv6_fwd(*ptrs, *self.args, torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
 
     def bwd(self, lib):
-        ptrs = [t.data_ptr() for t in self.ins + (self.states, self.dy) + self.grads
-                + (self.ds, self.el, self.du_part)]
+        # no final state's gradient, the initial state's not formed
+        ptrs = ([t.data_ptr() for t in self.ins + (self.states, self.dy)] + [None]
+                + [t.data_ptr() for t in self.grads] + [None]
+                + [t.data_ptr() for t in (self.ds, self.el, self.du_part)])
         err = lib.wkv6_bwd(*ptrs, *self.args, torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
 

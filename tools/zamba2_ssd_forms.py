@@ -46,13 +46,22 @@ def first_losses(model, data) -> dict:
              for k, v in data.batch(0).items()}
     kernel = ssm_model.ssd_scan
 
+    # each route takes ssd_scan's arguments, the state last (None here), and
+    # gives (y, final state)
     def chunked(chunk):
-        return lambda *a: ssm_model.ssd_chunked(*a, chunk)[0]
+        return lambda *a, state=None: ssm_model.ssd_chunked(*a, chunk,
+                                                            initial_state=state)
+
+    def plain_f64(chunk):
+        def route(*a, state=None):
+            y, _, final = C.SSD.ssd_scan_plain(*(t.double() for t in a), state,
+                                               chunk=chunk)
+            return y.float(), final.float()
+        return route
 
     routes = {"kernels": kernel, "ssd_chunked 256": chunked(cfg.ssm_chunk),
               "ssd_chunked 128": chunked(128), "ssd_chunked 64": chunked(64),
-              **{f"plain f64 {c}": lambda *a, c=c: C.SSD.ssd_scan_plain(
-                  *(t.double() for t in a), chunk=c)[0].float()
+              **{f"plain f64 {c}": plain_f64(c)
                  for c in (C.SSD.SSD_CHUNK, cfg.ssm_chunk)}}
     out = {}
     try:
@@ -69,8 +78,8 @@ def slot_values(model, data, plain: bool) -> dict:
     through the plain ``ssd_chunked``; its losses, and B9's launches."""
     kernel = ssm_model.ssd_scan
     if plain:
-        ssm_model.ssd_scan = lambda x, dt, A, Bm, Cm: ssm_model.ssd_chunked(
-            x, dt, A, Bm, Cm, model.cfg.ssm_chunk)[0]
+        ssm_model.ssd_scan = lambda x, dt, A, Bm, Cm, state=None: ssm_model.ssd_chunked(
+            x, dt, A, Bm, Cm, model.cfg.ssm_chunk, initial_state=state)
     try:
         trainer, _, evals, seconds, _, launches = C.ring_slot(model, data)
     finally:
