@@ -27,6 +27,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch.spans import span
+
 
 def _ring_perm(w: int, reverse: bool = False):
     """ppermute pairs for a unidirectional ring (src, dst); mirrors the
@@ -63,7 +65,9 @@ class LocalRing:
     device. ``messages[r]`` and ``bytes[r]``
     count what rank r sent on the ring, ``directions`` the ring
     permutations the hops used, and ``psums[r]`` the psum collectives rank
-    r joined, which are no ring hops.
+    r joined, which are no ring hops. Under a profiler each permute is the
+    span ``ring.hop`` (:mod:`repro_torch.spans`), carrying the bytes it adds
+    to ``bytes``.
     """
 
     def __init__(self, devices: Sequence):
@@ -87,12 +91,13 @@ class LocalRing:
         if len(perm) != w:
             raise ValueError(f"permute needs one (src, dst) pair per rank "
                              f"({w}), got {len(perm)}")
+        sizes = [sends[src].numel() * sends[src].element_size() for src, _ in perm]
         recvs: List[torch.Tensor] = [None] * w
-        for src, dst in perm:
-            msg = sends[src]
-            recvs[dst] = msg.to(self.devices[dst], copy=True)
-            self.messages[src] += 1
-            self.bytes[src] += msg.numel() * msg.element_size()
+        with span("ring.hop", sum(sizes)):
+            for (src, dst), nbytes in zip(perm, sizes):
+                recvs[dst] = sends[src].to(self.devices[dst], copy=True)
+                self.messages[src] += 1
+                self.bytes[src] += nbytes
         return recvs
 
     def hop(self, sends: Sequence[torch.Tensor], *, reverse: bool = False

@@ -38,6 +38,7 @@ import torch
 from repro_torch.dist.collectives import LocalRing
 from repro_torch.dist.registry import STEP_MODES
 from repro_torch.models.module import params_from_reference, tree_map
+from repro_torch.spans import span
 from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.training.optimizer import Optimizer
 from repro_torch.training.train_step import (
@@ -266,6 +267,15 @@ class ElasticTrainer:
         self.params = self.group.reshard(self.params)
         self.opt_state = self.group.reshard(self.opt_state)
 
+    def _form(self, workers: int, form: Callable[[int], int]) -> int:
+        """Form the ring with ``form`` (the group's ``form`` or ``re_ring``)
+        and reshard the state onto it, inside the span ``slot.form``;
+        returns the ring's size."""
+        with span("slot.form"):
+            w = form(workers)
+            self._reshard_state()
+        return w
+
     def _save(self) -> None:
         save_checkpoint(self.checkpoint_dir,
                         params=next(iter(self.params.values())),
@@ -278,14 +288,15 @@ class ElasticTrainer:
         Keys: ``steps`` (executed), ``loss`` (last), ``workers`` (initial
         clamped ring size), ``worker_steps`` (sum of ring size over executed
         steps), ``timings`` (ring size -> best warm wall seconds/step),
-        ``re_rings`` (mid-slot re-rings).
+        ``re_rings`` (mid-slot re-rings). Under a profiler each formation of
+        the ring is the span ``slot.form``, each step the span ``step`` and
+        its batch ``step.batch`` (:mod:`repro_torch.spans`).
         """
         if plan.workers <= 0:
             if self.checkpoint_dir:
                 self._save()
             return {"steps": 0, "loss": float("nan")}
-        w = self.group.form(plan.workers)
-        self._reshard_state()
+        w = self._form(plan.workers, self.group.form)
         self.resharding_events += 1
 
         segments: List[Tuple[int, int]] = [(w, plan.steps)]
@@ -301,18 +312,19 @@ class ElasticTrainer:
         timings: Dict[int, float] = {}
         for idx, (seg_w, seg_steps) in enumerate(segments):
             if idx > 0:
-                seg_w = self.group.re_ring(seg_w)
-                self._reshard_state()
+                seg_w = self._form(seg_w, self.group.re_ring)
                 self.re_ring_events += 1
                 re_rings += 1
             for _ in range(seg_steps):
-                shards = self.group.shard_batch(self.data.batch(self.step))
-                was_warm = self.group.warm
-                t0 = time.perf_counter()
-                self.params, self.opt_state, metrics = self.group.step(
-                    self.params, self.opt_state, shards)
-                loss = float(metrics["loss"])  # sync: timing covers the step
-                dt = time.perf_counter() - t0
+                with span("step"):
+                    with span("step.batch"):
+                        shards = self.group.shard_batch(self.data.batch(self.step))
+                    was_warm = self.group.warm
+                    t0 = time.perf_counter()
+                    self.params, self.opt_state, metrics = self.group.step(
+                        self.params, self.opt_state, shards)
+                    loss = float(metrics["loss"])  # sync: timing covers the step
+                    dt = time.perf_counter() - t0
                 if was_warm:  # a cold step times first-use set-up, not the ring
                     timings[seg_w] = min(timings.get(seg_w, float("inf")), dt)
                 self.losses.append(loss)

@@ -18,6 +18,10 @@ process drives the w ranks of a :class:`~repro_torch.dist.collectives.LocalRing`
   4. the optimizer runs once per distinct device of the ring, on that
      device's replica (once on one card).
 
+Under a profiler, each rank's gradients, the reduction and the update are
+the spans ``step.grads``, ``step.reduce`` and ``step.update``
+(:mod:`repro_torch.spans`).
+
 Parameters and optimizer state are *replicated*: a dict mapping each
 distinct device of the ring to its own tree. The error-feedback residual
 is per rank: a list with one flat ``{path: residual}`` dict per rank.
@@ -46,6 +50,7 @@ from repro_torch.dist.overlap import (
 from repro_torch.dist.registry import STEP_MODES
 from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models.module import _flatten, _unflatten
+from repro_torch.spans import span
 from repro_torch.training.optimizer import Optimizer
 
 Replicas = Dict[torch.device, dict]
@@ -102,7 +107,8 @@ def rank_grads(model, params: Replicas, shards, devices
     """Each rank's loss and flat ``{path: grad}`` on its own batch shard."""
     losses, grads = [], []
     for shard, d in zip(shards, devices):
-        loss, g = value_and_grad(model.loss, params[d], shard)
+        with span("step.grads"):
+            loss, g = value_and_grad(model.loss, params[d], shard)
         losses.append(loss)
         grads.append(dict(_flatten(g)))
     return losses, grads
@@ -116,18 +122,19 @@ def reduce_grads(grads: Grads, ring: LocalRing, mode: str, *,
     count by default)."""
     check_mode(mode)
     w = ring.size
-    if mode == OVERLAP_MODE:
-        n = STEP_MODES[mode].n_buckets if n_buckets is None else int(n_buckets)
-        summed = bucketed_ring_reduce([_unflatten(g) for g in grads], ring,
-                                      variant="int8-fused", n_buckets=n)
-        return [{p: s[p] / w for p in g} for g, s in zip(grads, summed)]
-    collective = LEAF_COLLECTIVES[mode]
-    out: Grads = [{} for _ in range(w)]
-    for path in list(grads[0]):
-        reduced = collective([g.pop(path) for g in grads], ring)
-        for r in range(w):
-            out[r][path] = reduced[r] / w
-    return out
+    with span("step.reduce"):
+        if mode == OVERLAP_MODE:
+            n = STEP_MODES[mode].n_buckets if n_buckets is None else int(n_buckets)
+            summed = bucketed_ring_reduce([_unflatten(g) for g in grads], ring,
+                                          variant="int8-fused", n_buckets=n)
+            return [{p: s[p] / w for p in g} for g, s in zip(grads, summed)]
+        collective = LEAF_COLLECTIVES[mode]
+        out: Grads = [{} for _ in range(w)]
+        for path in list(grads[0]):
+            reduced = collective([g.pop(path) for g in grads], ring)
+            for r in range(w):
+                out[r][path] = reduced[r] / w
+        return out
 
 
 def ef_reduce_grads(grads: Grads, ef_state: Grads, ring: LocalRing, *,
@@ -137,13 +144,14 @@ def ef_reduce_grads(grads: Grads, ef_state: Grads, ring: LocalRing, *,
     w = ring.size
     out: Grads = [{} for _ in range(w)]
     new_ef: Grads = [{} for _ in range(w)]
-    for path in list(grads[0]):
-        reduced, residual = ef_compressed_all_reduce(
-            [g.pop(path) for g in grads], [e[path] for e in ef_state], ring,
-            fused=fused)
-        for r in range(w):
-            out[r][path] = reduced[r] / w
-            new_ef[r][path] = residual[r]
+    with span("step.reduce"):
+        for path in list(grads[0]):
+            reduced, residual = ef_compressed_all_reduce(
+                [g.pop(path) for g in grads], [e[path] for e in ef_state], ring,
+                fused=fused)
+            for r in range(w):
+                out[r][path] = reduced[r] / w
+                new_ef[r][path] = residual[r]
     return out, new_ef
 
 
@@ -225,10 +233,11 @@ def make_ring_train_step(model, optimizer: Optimizer, ring: LocalRing, *,
         # reference's pmean
         loss = ring.psum(losses)[0] / ring.size
         new_params, new_opt = {}, {}
-        for d in distinct_devices(devices):
-            g = _unflatten(reduced[devices.index(d)])
-            new_params[d], new_opt[d] = optimizer.update(
-                g, opt_state[d], params[d], lr=lr)
+        with span("step.update"):
+            for d in distinct_devices(devices):
+                g = _unflatten(reduced[devices.index(d)])
+                new_params[d], new_opt[d] = optimizer.update(
+                    g, opt_state[d], params[d], lr=lr)
         metrics = {"loss": loss}
         if ef_state is not None:
             return new_params, new_opt, metrics, new_ef
