@@ -44,7 +44,13 @@ non-zero and prints no result. Phases, each raising on failure:
      and B9's from a random initial state with a random final-state
      gradient (y, the chunk states, the final state, every gradient with
      the initial state's), each against its plain version within its
-     kernel's limits and timed beside the zero-state row. Every kernel and
+     kernel's limits and timed beside the zero-state row; hold AdamW's leaf
+     kernel (``adamw.cu``, no TPU counterpart) bit for bit against its plain
+     version in p', m' and v' at every leaf shape of rwkv6-7b at 4 layers
+     and phi3.5-moe-42b at 1 (the benchmark's configurations), and with
+     bf16 parameters or gradients at ragged lengths and off 16 bytes, and
+     time it at each one's largest leaf beside its byte bound and its plain
+     version (no library call computes the same arrangement). Every kernel and
      library call timed is also timed on the device alone (``device_ms``: the summed
      durations of the CUDA kernels one call launches, from
      ``torch.profiler``, its inputs evicted from the L2 first) and every
@@ -79,7 +85,8 @@ non-zero and prints no result. Phases, each raising on failure:
   6. the RWKV6 path: ``ElasticTrainer`` on rwkv6-7b at full width (d_model
      4096, 64 heads of 64, d_ff 14336, vocab 65536) with the depth cut to 4
      layers, ``PLAN`` in the f32 ``ring`` mode; B8's launches held to the
-     model's schedule (with remat W1 2*L*w times a step, W2 L*w times),
+     model's schedule (with remat W1 2*L*w times a step, W2 L*w times), and
+     AdamW's to one a leaf a step (as in phases 7 and 10),
      every step's loss and a held-out loss against the same slot with the
      time-mix through the plain recurrence on the card, warm steps, peak
      memory, and B8's share of one rank's forward and backward;
@@ -230,6 +237,7 @@ from repro_torch.dist.compression import (  # noqa: E402
 )
 from repro_torch.dist.overlap import plan_bucket_sizes, plan_buckets, tree_leaves  # noqa: E402
 from repro_torch.dist.registry import STEP_MODES  # noqa: E402
+from repro_torch.kernels import adamw as AD  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant_ring as qr  # noqa: E402
@@ -602,6 +610,15 @@ GSPMD_FAMILIES = {MOE_ARCH: (MOE_LAYERS, SEQ, GLOBAL_BATCH),
                   ZAMBA_ARCH: (None, SEQ, GLOBAL_BATCH)}
 VERIFIER_FUSED = {"int8-fused": "compressed-fused", "bf16-fused": "bf16-fused",
                   "fp8-fused": "fp8-fused", "ef-int8-fused": "compressed-fused"}
+# AdamW's leaf update (phase 3): held at every leaf shape of the benchmark's
+# two configurations (f32), and with bf16 parameters or gradients at ragged
+# (elements, offset) pairs: on 16 bytes (whole vectors) or one or three
+# elements past them (every element one by one); timed at each
+# configuration's largest leaf
+ADAMW_SOURCE = "src/repro_torch/kernels/csrc/adamw.cu"
+ADAMW_CONFIGS = ((RWKV_ARCH, RWKV_LAYERS), (MOE_ARCH, MOE_LAYERS))
+ADAMW_RAGGED = ((1, 0), (3, 0), (4097, 0), (1_000_003, 0), (4097, 1), (1_000_003, 3))
+ADAMW_HYPER = dict(lr=LR, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 
 
 def log(msg: str) -> None:
@@ -1555,6 +1572,96 @@ def check_state_forms(rows: dict) -> None:
     free_cuda()
 
 
+def adamw_inputs(shape, p_dtype, g_dtype, step: int, gen, offset: int = 0):
+    """``(p, g, m, v, bc1, bc2)`` of one leaf, each tensor ``offset``
+    elements past the start of its allocation: weights and gradients of a
+    model's size, every seventh gradient 0, a few gradients far outside
+    their spread, moments of a few steps' size with every eleventh second
+    moment 0; the bias corrections of ``step`` as ``adamw_update`` forms
+    them."""
+    n = math.prod(shape)
+
+    def draw(scale, dtype=torch.float32):
+        x = torch.randn(n + offset, generator=gen, device=DEVICE) * scale
+        return x.to(dtype)[offset:].view(shape)
+
+    p, g, m, v = draw(0.02, p_dtype), draw(1e-3, g_dtype), draw(1e-3), draw(1.0)
+    v.square_().mul_(1e-6)
+    flat_g, flat_v = g.view(-1), v.view(-1)
+    flat_g[::7] = 0.0
+    flat_v[::11] = 0.0
+    flat_g[1::1009] = 3e4
+    flat_g[2::1013] = -1e-20
+    t = torch.tensor(step, dtype=torch.int32, device=DEVICE).float()
+    return p, g, m, v, 1.0 - 0.9 ** t, 1.0 - 0.95 ** t
+
+
+def adamw_bound_ms(numel: int, p_dtype, g_dtype) -> float:
+    """p, g, m and v read once, p', m' and v' written once, at the HBM rate
+    (the few operations an element are far below the line)."""
+    size = {torch.float32: 4, torch.bfloat16: 2}
+    return numel * (2 * size[p_dtype] + size[g_dtype] + 16) / HBM_BYTES_PER_S * 1e3
+
+
+def check_adamw() -> dict:
+    """AdamW's kernel against its plain version, bit for bit in p', m' and
+    v', at every leaf shape of ADAMW_CONFIGS (f32) and at ADAMW_RAGGED with
+    each pairing of f32 and bf16 parameters and gradients; timed at each
+    configuration's largest leaf beside its bound and its plain version.
+    No PyTorch call computes this arrangement (``torch.optim``'s fused
+    AdamW orders its operations otherwise): no library column."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    row = {"name": "adamw_leaf", "route": "cuda", "source": ADAMW_SOURCE,
+           "replaces": None, "library_ms": None, "library_device_ms": None,
+           "timed": {}}
+    largest, cases = {}, []
+    for arch, layers in ADAMW_CONFIGS:
+        specs = build_model(dataclasses.replace(get_arch(arch), n_layers=layers)
+                            ).param_specs()
+        shapes = sorted({tuple(spec.shape) for _, spec in _flatten(specs)})
+        largest[arch] = max(shapes, key=math.prod)
+        cases += [(shape, torch.float32, torch.float32, 0) for shape in shapes]
+    pairs = [(a, b) for a in AD.DTYPES for b in AD.DTYPES]
+    cases += [((n,), p_dt, g_dt, off) for n, off in ADAMW_RAGGED for p_dt, g_dt in pairs]
+    for i, (shape, p_dt, g_dt, off) in enumerate(sorted(set(cases), key=str)):
+        ins = adamw_inputs(shape, p_dt, g_dt, 1 + i % 5, gen, off)
+        outs = AD.adamw_leaf(*ins, **ADAMW_HYPER)
+        refs = AD.adamw_leaf_plain(*ins, **ADAMW_HYPER)
+        if not all(same_bits(a, b) for a, b in zip(outs, refs)):
+            errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(outs, refs)]
+            raise AssertionError(f"adamw_leaf {shape} p {p_dt} g {g_dt} offset {off}: "
+                                 f"kernel differs from its plain version (p', m', v' "
+                                 f"max abs err {errs})")
+        del ins, outs, refs
+    free_cuda()
+    log(f"adamw_leaf bit-exact against its plain version at {len(set(cases))} "
+        f"shapes and layouts (every leaf shape of {[a for a, _ in ADAMW_CONFIGS]})")
+    for arch, shape in largest.items():
+        ins = adamw_inputs(shape, torch.float32, torch.float32, 3, gen)
+        kernel = lambda: AD.adamw_leaf(*ins, **ADAMW_HYPER)  # noqa: E731
+        plain = lambda: AD.adamw_leaf_plain(*ins, **ADAMW_HYPER)  # noqa: E731
+        timed = dict(shape=list(shape), ms=cuda_ms(kernel),
+                     plain_ms=cuda_ms(plain, samples=5, calls=3),
+                     plain_device_ms=device_ms(plain, samples=5),
+                     bound_ms=adamw_bound_ms(math.prod(shape), torch.float32,
+                                             torch.float32),
+                     bound_by="bytes", **timings(kernel, None))
+        row["timed"][arch] = timed
+        log(f"adamw_leaf {arch} largest leaf {shape} ({card_line()}): {timed['ms']:.5g} "
+            f"ms, plain {timed['plain_ms']:.5g} ms, library none, bound "
+            f"{timed['bound_ms']:.5g} ms (bytes); device alone "
+            f"{timed['device_ms']:.5g} ms ({100 * timed['bound_ms'] / timed['device_ms']:.4g}% "
+            f"of its roofline), plain {timed['plain_device_ms']:.5g} ms, host "
+            f"{timed['host_us']:.4g} us")
+        del ins, kernel, plain
+        free_cuda()
+    row.update(row["timed"][MOE_ARCH], seconds=time.perf_counter() - t0)
+    log(f"adamw_leaf checked and timed in {row['seconds']:.3f} s")
+    return {"adamw_leaf": row}
+
+
 def fa_expected(n_layers: int, rings, remat: bool) -> dict:
     """B4's launches over steps at the ring sizes ``rings``: per step and
     layer each of the w ranks runs the forward (twice with remat: again in
@@ -1965,7 +2072,9 @@ def ring_slot(model, data, mode: str = "ring"):
     ``model.init(0)``; returns
     ``(trainer, run_slot's result, {"heldout", "first_batch"}: each loss
     before and after, slot seconds, peak bytes, every kernel's launches)``,
-    the counters set to 0 just before the slot and read just after."""
+    the counters set to 0 just before the slot and read just after. AdamW's
+    launches are held to one a leaf a step (the result's
+    ``adamw_launches``)."""
     trainer = ElasticTrainer(model, make_optimizer("adamw"), data,
                              global_batch=GLOBAL_BATCH, base_lr=LR,
                              mode=mode, device=DEVICE)
@@ -1973,11 +2082,18 @@ def ring_slot(model, data, mode: str = "ring"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
+    AD.reset_launches()
     t0 = time.perf_counter()
     res = trainer.run_slot(PLAN)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = all_launches()
+    # one AdamW launch a leaf a step: every rank's replica is on the one card
+    leaves = len(list(_flatten(model.param_specs())))
+    res["adamw_launches"] = AD.LAUNCHES["adamw_leaf"]
+    if res["adamw_launches"] != leaves * PLAN.steps:
+        raise AssertionError(f"{model.cfg.name}: {res['adamw_launches']} AdamW launches, "
+                             f"not {leaves} leaves x {PLAN.steps} steps")
     peak = torch.cuda.max_memory_allocated()
     after = slot_evals(trainer)
     evals = {"heldout": (before[0], after[0]), "first_batch": (before[1], after[1])}
@@ -2044,7 +2160,7 @@ def rwkv_path(cfg) -> dict:
                              f"slot {plain_values} (B8 launched {plain_launches})")
     del plain
     free_cuda()
-    return {"launches": launches, "summary": {
+    return {"launches": {**launches, "adamw_leaf": res["adamw_launches"]}, "summary": {
         "arch": cfg.name, "n_layers": cfg.n_layers,
         "params": n_params(model.param_specs()), "losses": losses,
         "heldout": list(heldout), "first_batch": list(first), "slot_s": seconds,
@@ -2154,7 +2270,7 @@ def zamba_path(cfg) -> dict:
     calls = ssd_calls_against_plain(model, trainer, data)
     del trainer
     free_cuda()
-    return {"launches": launches, "summary": {
+    return {"launches": {**launches, "adamw_leaf": res["adamw_launches"]}, "summary": {
         "arch": cfg.name, "n_layers": cfg.n_layers,
         "params": n_params(model.param_specs()), "losses": losses,
         "heldout": list(heldout), "first_batch": list(first), "slot_s": seconds,
@@ -3529,7 +3645,8 @@ def moe_path() -> dict:
     del trainer, params
     free_cuda()
     small = moe_reduced_against_cpu()
-    return {"launches": {k: v for k, v in got.items() if v}, "summary": {
+    return {"launches": {**{k: v for k, v in got.items() if v},
+                         "adamw_leaf": res["adamw_launches"]}, "summary": {
         "arch": cfg.name, "n_layers": cfg.n_layers, "mode": MOE_MODE,
         "params": n_params(model.param_specs()), "losses": losses,
         "heldout": list(heldout), "first_batch": list(first), "slot_s": seconds,
@@ -4547,6 +4664,7 @@ def main() -> int:
     rows.update(check_flash_attention())
     rows.update(check_wkv6())
     rows.update(check_ssd())
+    rows.update(check_adamw())
     check_state_forms(rows)
     for mode in MODE_KERNELS:
         check_small_against_cpu(mode)

@@ -724,6 +724,11 @@ def _instantiations() -> List[Tuple[str, str, str, Tuple[int, ...], int]]:
                     continue   # no dtype in its template: once is enough
                 out.append((fmt.format(p=p, t=TYPES[bool(bf16)]), "wkv6", fn,
                             (which, p, bf16), smem[which]))
+    # AdamW's leaf update, in adamw_launch_config's order
+    for which, (tp, tg) in enumerate(((False, False), (False, True),
+                                      (True, False), (True, True))):
+        out.append((f"adamw_kernel<{TYPES[tp]}, {TYPES[tg]}>", "adamw",
+                    "adamw_kernel", (which,), 0))
     f = source_formulas("ssd_scan")
     for i, (n, p) in enumerate(ssd_shapes()):
         sums = FLOAT_BYTES * f["sum_floats"](n, p)

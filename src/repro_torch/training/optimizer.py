@@ -2,10 +2,12 @@
 of ``repro.training.optimizer``).
 
 Functional like the reference: ``update`` returns new parameter and state
-trees and changes none of its inputs. State trees mirror the parameter
-tree, with a scalar int32 ``step``; Adafactor's ``stats`` hold, at each
-parameter's path, ``{"vr", "vc"}`` (the row and column statistics of its
-last two axes) or ``{"v"}`` for a leaf of one axis.
+trees and changes none of its inputs. AdamW updates each leaf in one
+operator (``kernels/adamw.py``: one CUDA kernel a leaf on the card). State
+trees mirror the parameter tree, with a scalar int32 ``step``; Adafactor's
+``stats`` hold, at each parameter's path, ``{"vr", "vc"}`` (the row and
+column statistics of its last two axes) or ``{"v"}`` for a leaf of one
+axis.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.dist.sharding import is_dtensor, like, on_shards
+from repro_torch.kernels.adamw import adamw_leaf
 from repro_torch.models.module import _flatten, _unflatten, tree_map
 
 
@@ -50,14 +53,9 @@ def adamw_update(grads, state, params, *, lr: float, b1: float = 0.9,
         dict(_flatten(state["v"]))
     new_p, new_m, new_v = {}, {}, {}
     for path, p in _flatten(params):
-        g = g_flat[path].float()
-        m = b1 * m_flat[path] + (1 - b1) * g
-        v = b2 * v_flat[path] + (1 - b2) * g * g
-        mh = m / bc1
-        vh = v / bc2
-        delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
-        new_p[path] = (p.float() - lr * delta).to(p.dtype)
-        new_m[path], new_v[path] = m, v
+        new_p[path], new_m[path], new_v[path] = adamw_leaf(
+            *(x.contiguous() for x in (p, g_flat[path], m_flat[path], v_flat[path])),
+            bc1, bc2, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     return _unflatten(new_p), {"m": _unflatten(new_m), "v": _unflatten(new_v),
                                "step": step}
 

@@ -115,7 +115,7 @@ def test_constants_and_launch_bounds_read_from_sources():
     quant = akern.source_constants("quant_ring")
     assert quant["kRowThreads"] == 256 and quant["kWarps"] == 8
     assert akern.source_constants("flash_attention")["kMmaThreads"] == 128
-    for name in ("quant_ring", "flash_attention", "wkv6", "ssd_scan"):
+    for name in ("quant_ring", "flash_attention", "wkv6", "ssd_scan", "adamw"):
         text = (akern.CSRC / f"{name}.cu").read_text()
         bounds = akern.launch_bounds(name)
         assert len(bounds) == len(set(re.findall(
@@ -131,7 +131,7 @@ def test_every_launch_is_a_queried_instantiation():
     """The launches each spec makes are among the instantiations the card
     query reports, with the dynamic bytes the checker expects there."""
     inst = {name: (fn, smem) for name, _, fn, _, smem in akern._instantiations()}
-    assert len(inst) == 85
+    assert len(inst) == 89
     specs = [akern.KernelSpec(4, 128, kernel=k) for k in
              ("quantize_pack", "dequant_fp8", "cast_pack_bf16", "bf16_upcast")]
     for bf16 in (False, True):

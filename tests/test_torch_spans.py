@@ -3,8 +3,9 @@
 rings of 2 and 4 ranks, in the f32 ``ring`` and the fused int8 mode.
 
 Under ``torch.profiler`` each span appears as often as the step does its
-part, nested as ``repro_torch.spans`` lists them; the hops' bytes, their
-one counter, add up to what ``LocalRing`` counted; no span is
+part, nested as ``repro_torch.spans`` lists them, with AdamW's operator
+(``repro_torch::adamw_leaf``) once a leaf inside ``step.update``; the hops'
+bytes, their one counter, add up to what ``LocalRing`` counted; no span is
 a user annotation (which a trace of the card would mirror onto the device);
 and a profiled slot leaves the same bits as one run without a profiler. The
 error-feedback reduction, which no trainer mode takes, is one ``step.reduce``
@@ -72,9 +73,12 @@ def test_slot_spans_nest_and_count(mode, w):
     events = _profiled(lambda: tr.run_slot(SlotPlan(w, STEPS)))
     counts = Counter(_short(e) for e in events)
     hops = [e for e in events if _short(e) == "ring.hop"]
+    leaves = len(list(_flatten(tr.model.param_specs())))
+    # beside the spans, AdamW's operator, once a leaf a step
     assert counts == {"slot.form": 1, "step": STEPS, "step.batch": STEPS,
                       "step.grads": STEPS * w, "step.reduce": STEPS,
-                      "step.update": STEPS, "ring.hop": len(hops)}
+                      "step.update": STEPS, "ring.hop": len(hops),
+                      "adamw_leaf": STEPS * leaves}
     assert hops
     parents = defaultdict(set)
     for e in events:
@@ -83,6 +87,7 @@ def test_slot_spans_nest_and_count(mode, w):
     for name in INSIDE_STEP:
         assert parents[name] == {"step"}, name
     assert parents["ring.hop"] == {"step.reduce"}
+    assert parents["adamw_leaf"] == {"step.update"}
     inputs = defaultdict(list)
     for e in events:
         inputs[_short(e)].append(list(e.concrete_inputs))
