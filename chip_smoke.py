@@ -203,6 +203,7 @@ non-zero and prints no result. Phases, each raising on failure:
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -415,6 +416,27 @@ SSD_SHAPES = [
 ]
 SSD_TIMED = "main w=4"
 ZAMBA_ARCH = "zamba2-1.2b"
+
+# Zamba2-7B's kernels (check_zamba2_7b_kernels): B4 at head_dim 224 with the
+# shared attention's scale, (label, (B, Sq, Skv, Hq, Hkv, D), causal,
+# window, dtype): one rank's call in the benchmark's cell (seq 4096, one
+# row), a ragged length, bf16; B9 with two B/C groups, (label, (B, S, H, P,
+# N, G), dtype, decay): the cell's call, a weak decay, a ragged length, the
+# reduced widths and bf16. Each timed at its first shape.
+ZAMBA2_7B_SCALE = (224 / 2) ** -0.5
+FA_224_SHAPES = [
+    ("zamba2-7b w=4", (1, 4096, 4096, 32, 32, 224), True, None, torch.float32),
+    ("zamba2-7b ragged 1000", (2, 1000, 1000, 8, 8, 224), True, None, torch.float32),
+    ("zamba2-7b gqa ragged 33", (1, 33, 33, 8, 2, 224), True, None, torch.float32),
+    ("zamba2-7b bf16", (1, 1024, 1024, 8, 8, 224), True, None, torch.bfloat16),
+]
+SSD_GROUP_SHAPES = [
+    ("zamba2-7b w=4", (1, 4096, 112, 64, 64, 2), torch.float32, "init"),
+    ("zamba2-7b weak decay", (1, 1024, 112, 64, 64, 2), torch.float32, "weak"),
+    ("ragged 1000 G=2", (2, 1000, 16, 64, 64, 2), torch.float32, "init"),
+    ("reduced G=2", (2, 40, 8, 32, 16, 2), torch.float32, "weak"),
+    ("bf16 G=2", (1, 1024, 112, 64, 64, 2), torch.bfloat16, "init"),
+]
 
 # B4, B8 and B9 in their state-carrying forms, at the main shapes: B4 at
 # query offset CARRY_CUT, q the last CARRY_CUT of SEQ rows against all SEQ
@@ -981,22 +1003,23 @@ def within(overs) -> bool:
     return all(math.isfinite(x) and x <= 1 for x in overs)
 
 
-def sdpa(q, k, v, causal: bool):
-    """The library call B4 is timed beside: (B, S, H, D) in and out."""
+def sdpa(q, k, v, causal: bool, scale=None):
+    """The library call B4 is timed beside: (B, S, H, D) in and out, the
+    scores at ``scale`` (SDPA's 1/sqrt(D) if None)."""
     out = torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=causal, enable_gqa=True)
+        is_causal=causal, enable_gqa=True, scale=scale)
     return out.transpose(1, 2)
 
 
-def sdpa_kernel_names(q, k, v, do, causal: bool) -> dict:
+def sdpa_kernel_names(q, k, v, do, causal: bool, scale=None) -> dict:
     """The CUDA kernels one SDPA forward and one backward launch, read once
     with ``torch.profiler`` (each name cut to 96 characters)."""
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     names = {}
-    out = sdpa(*leaves, causal)
-    for part, fn in (("forward", lambda: sdpa(*leaves, causal)),
+    out = sdpa(*leaves, causal, scale)
+    for part, fn in (("forward", lambda: sdpa(*leaves, causal, scale)),
                      ("backward", lambda: torch.autograd.grad(out, leaves, do,
                                                               retain_graph=True))):
         torch.cuda.synchronize()
@@ -1079,12 +1102,14 @@ def time_flash_attention(rows, q, k, v, do, o, lse, delta, dims, causal, window)
         f"its largest value)")
 
 
-def check_flash_attention(shapes=None, q_offset: int = 0, rows=None) -> dict:
+def check_flash_attention(shapes=None, q_offset: int = 0, rows=None,
+                          scale=None) -> dict:
     """B4's kernels against their plain versions, each on the same inputs,
     at every shape of ``shapes`` (FA_SHAPES) with query row i at position i +
-    ``q_offset``; every kernel run twice gives the same bits; timed at
-    FA_TIMED, or with an offset at the first shape (``time_state_form``).
-    ``rows`` (new ones by default) take the errors."""
+    ``q_offset`` and the scores at ``scale`` (B4's 1/sqrt(D) if None); every
+    kernel run twice gives the same bits; timed at FA_TIMED, or with an
+    offset at the first shape (``time_state_form``). ``rows`` (new ones by
+    default) take the errors."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1 + q_offset)
     if rows is None:
@@ -1119,7 +1144,8 @@ def check_flash_attention(shapes=None, q_offset: int = 0, rows=None) -> dict:
         # (an offset only where one is asked for: tools/kernel_times.py runs
         # this over a parent's package too)
         opts = dict(causal=causal, window=window, **(
-            {"q_offset": q_offset} if q_offset else {}))
+            {"q_offset": q_offset} if q_offset else {}), **(
+            {"scale": scale} if scale is not None else {}))
         o, lse = fa.flash_attention_plain(q, k, v, **opts)
         delta = fa.bwd_preprocess_plain(o, do)
         errs = {
@@ -1144,7 +1170,8 @@ def check_flash_attention(shapes=None, q_offset: int = 0, rows=None) -> dict:
         if not within(bwd_over(a, r) for a, r in pairs):
             raise AssertionError(f"backward {label}: dq dk dv error {whole}")
         log(f"B4 {label} {dims} causal={causal} window={window} {dtype}"
-            f"{f' q_offset={q_offset}' if q_offset else ''}: errors {errs}, "
+            f"{f' q_offset={q_offset}' if q_offset else ''}"
+            f"{f' scale={scale}' if scale is not None else ''}: errors {errs}, "
             f"whole backward {whole}; bits identical run to run")
         if q_offset and i == 0:
             time_state_form(rows, f"q_offset {q_offset}", {
@@ -1418,7 +1445,7 @@ def ssd_bound(name: str, dims, dtype, tensor_cores: bool = False, state: bool = 
             best, max(t_bytes, yard / F32_OPS_PER_S) * 1e3)
 
 
-def ssd_inputs(dims, dtype, decay: str, gen):
+def ssd_inputs(dims, dtype, decay: str, gen, groups: int = 0):
     """``(x, dt, A, Bm, Cm, dy)`` on the card, as the model gives them at
     init: x, B, C and dy unit normals, dt = softplus(N(0, 1)) (dt_bias 0),
     and A by ``decay``: "init" the model's -e (A_log 1), where g falls about
@@ -1430,7 +1457,9 @@ def ssd_inputs(dims, dtype, decay: str, gen):
         return torch.randn(shape, generator=gen, device=DEVICE)
     b, s, h, p, n = dims
     x, dy = normal((b, s, h, p)), normal((b, s, h, p))
-    bm, cm = normal((b, s, n)), normal((b, s, n))
+    # ``groups`` B/C groups, (B, S, G, N); 0: the (B, S, N) layout
+    bc_shape = (b, s, groups, n) if groups else (b, s, n)
+    bm, cm = normal(bc_shape), normal(bc_shape)
     dt = torch.nn.functional.softplus(normal((b, s, h)))
     A = {"init": lambda: torch.full((h,), -math.e, device=DEVICE),
          "weak": lambda: -0.01 * torch.exp(normal((h,)))}[decay]()
@@ -1504,6 +1533,119 @@ def check_ssd() -> dict:
     for row in rows.values():
         row["chunk_decay_span"] = spans
     return rows
+
+
+def check_zamba2_7b_kernels() -> dict:
+    """Zamba2-7B's kernels: B4 at head_dim 224 with the shared attention's
+    scale (FA_224_SHAPES) and B9 with two B/C groups (SSD_GROUP_SHAPES),
+    each against its plain versions within B4's and B9's limits, the same
+    bits run to run, each at its first shape timed on the device beside its
+    bound on the tensor cores and with each instantiation's registers and
+    spill bytes, and beside SDPA at the same shape and scale (its forward for
+    F1, its backward alone for F3 and F4, and forward and backward through
+    autograd against B4's); B9 at G = 1 in the (B, S, G, N) layout bit for
+    bit as the (B, S, N) one."""
+    out = {"b4": check_flash_attention(FA_224_SHAPES, scale=ZAMBA2_7B_SCALE)}
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    label, dims, causal, window, dtype = FA_224_SHAPES[0]
+    b, sq, skv, hq, hkv, d = dims
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE)
+                   for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                                 (b, sq, hq, d)))
+    opts = dict(causal=causal, window=window, scale=ZAMBA2_7B_SCALE)
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    delta = fa.bwd_preprocess(o, do)
+    # SDPA's backward alone, from one saved output: the library time of the
+    # whole B4 backward, given to F3 and F4, as at the other head dims
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    saved = sdpa(*leaves, causal, ZAMBA2_7B_SCALE)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(saved, leaves, do, retain_graph=True)
+
+    library = {FA_FWD: lambda: sdpa(q, k, v, causal, ZAMBA2_7B_SCALE),
+               FA_BWD[0]: lambda: torch.linalg.vecdot(o, do),
+               FA_BWD[1]: sdpa_bwd, FA_BWD[2]: sdpa_bwd}
+    for name, kernel in ((FA_FWD, lambda: fa.flash_attention_fwd(q, k, v, **opts)),
+                         (FA_BWD[0], lambda: fa.bwd_preprocess(o, do)),
+                         (FA_BWD[1], lambda: fa.bwd_dkdv(q, k, v, do, lse, delta, **opts)),
+                         (FA_BWD[2], lambda: fa.bwd_dq(q, k, v, do, lse, delta, **opts))):
+        tc_ms, tc_by = fa_bound(name, dims, causal, window, dtype, tensor_cores=True)
+        res = (ctypes.c_int * 7)()
+        which = list(fa._SIGNATURES).index(name)
+        fa._lib().flash_attention_launch_config(which, d, 0, ctypes.addressof(res))
+        row = out["b4"][name]
+        row.update(timed_shape=list(dims), ms_224=cuda_ms(kernel), bound_tc_ms_224=tc_ms,
+                   bound_tc_by_224=tc_by, registers_224=res[0], local_bytes_224=res[2],
+                   dynamic_smem_224=res[5], blocks_per_sm_224=res[6],
+                   library_ms_224=cuda_ms(library[name]),
+                   **{f"{key}_224": val for key, val in timings(kernel, library[name]).items()})
+        log(f"B4 {name} {label} {dims}: {row['ms_224']:.5g} ms, device alone "
+            f"{row['device_ms_224']:.5g} ms, library {row['library_ms_224']:.5g} ms, "
+            f"device alone {row['library_device_ms_224']:.5g} ms, bound on the tensor "
+            f"cores {tc_ms:.5g} ms ({tc_by}); {res[0]} registers, {res[2]} local bytes, "
+            f"{res[5]} dynamic shared bytes, {res[6]} blocks an SM")
+
+    def kernel_fwd_bwd():
+        return torch.autograd.grad(fa.flash_attention(*leaves, **opts), leaves, do)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(*leaves, causal, ZAMBA2_7B_SCALE), leaves, do)
+
+    gap = rel_max(sdpa(q, k, v, causal, ZAMBA2_7B_SCALE), o)
+    row = out["b4"][FA_FWD]
+    row.update(fwd_bwd_ms_224=cuda_ms(kernel_fwd_bwd),
+               library_fwd_bwd_ms_224=cuda_ms(sdpa_fwd_bwd),
+               fwd_bwd_device_ms_224=device_ms(kernel_fwd_bwd),
+               library_fwd_bwd_device_ms_224=device_ms(sdpa_fwd_bwd),
+               library_bwd_ms_224=cuda_ms(sdpa_bwd), library_gap_224=gap,
+               library_kernels_224=sdpa_kernel_names(q, k, v, do, causal,
+                                                     ZAMBA2_7B_SCALE))
+    log(f"B4 forward+backward {label} {dims}: kernels {row['fwd_bwd_ms_224']:.5g} ms, "
+        f"sdpa {row['library_fwd_bwd_ms_224']:.5g} ms; on the device alone "
+        f"{row['fwd_bwd_device_ms_224']:.5g} and "
+        f"{row['library_fwd_bwd_device_ms_224']:.5g} ms; sdpa's backward alone "
+        f"{row['library_bwd_ms_224']:.5g} ms (sdpa's O against B4's: {gap:.3g} of "
+        f"its largest value); sdpa's CUDA kernels {row['library_kernels_224']}")
+    del q, k, v, do, o, lse, delta, leaves, saved
+    free_cuda()
+
+    rows = {name: {"name": name, "route": "cuda", "source": SSD_SOURCE,
+                   "replaces": SSD_REPLACES, "max_abs_err": 0.0,
+                   "max_rel_err": 0.0, "max_of_limit": 0.0}
+            for name in (SSD_FWD, SSD_BWD)}
+    check = scan_check(rows)
+    for i, (label, dims, dtype, decay) in enumerate(SSD_GROUP_SHAPES):
+        ins, dy = ssd_inputs(dims[:5], dtype, decay, gen, groups=dims[5])
+        y_states = SSD.ssd_scan_plain(*ins)
+        states = y_states[1]
+        grads = SSD.ssd_scan_bwd_plain(*ins, states, dy)
+        fwd = check(SSD_FWD, label, lambda: SSD.ssd_scan_fwd(*ins), y_states,
+                    rel_max, wkv_fwd_over)
+        bwd = check(SSD_BWD, label, lambda: SSD.ssd_scan_bwd(*ins, states, dy),
+                    grads, rel_norm, bwd_over)
+        # one group in the grouped layout: the ungrouped launch, bit for bit
+        one = [ins[0], ins[1], ins[2], ins[3][:, :, :1], ins[4][:, :, :1]]
+        flat = one[:3] + [one[3][:, :, 0], one[4][:, :, 0]]
+        for a, c in zip(SSD.ssd_scan_fwd(*one), SSD.ssd_scan_fwd(*flat)):
+            if not same_bits(a, c):
+                raise AssertionError(f"B9 {label}: G = 1 grouped differs from (B, S, N)")
+        log(f"B9 {label} {dims} {dtype} {decay}: y, states, final state errors {fwd}; "
+            f"dx ddt dA dB dC errors {bwd}; G = 1 in the grouped layout bit for bit")
+        if i == 0:
+            for name, kernel in ((SSD_FWD, lambda: SSD.ssd_scan_fwd(*ins)),
+                                 (SSD_BWD, lambda: SSD.ssd_scan_bwd(*ins, states, dy))):
+                tc_ms, tc_by = ssd_bound(name, dims[:5], dtype, tensor_cores=True)[:2]
+                rows[name].update(shape=list(dims), ms=cuda_ms(kernel), bound_tc_ms=tc_ms,
+                                  bound_tc_by=tc_by, **timings(kernel, None))
+                log(f"B9 {name} G=2 {dims}: {rows[name]['ms']:.5g} ms, device alone "
+                    f"{rows[name]['device_ms']:.5g} ms, bound on the tensor cores "
+                    f"{tc_ms:.5g} ms ({tc_by}, B and C counted once)")
+        del ins, dy, y_states, states, grads
+        free_cuda()
+    out["b9"] = rows
+    return out
 
 
 def check_state_forms(rows: dict) -> None:
@@ -4258,7 +4400,7 @@ def start_dryruns(cfg) -> dict:
         "from repro_torch.launch import dryrun\n"
         "from repro_torch.launch.mesh import mesh_of, start_fake_world\n"
         "start_fake_world(1)\n"
-        f"cfg = ArchConfig(**json.loads({json.dumps(dataclasses.asdict(cfg))!r}))\n"
+        f"cfg = ArchConfig(**json.loads({json.dumps(cfg.as_dict())!r}))\n"
         f"rec = dryrun.run_cell(cfg, ShapeConfig('chip', {SEQ}, "
         f"{GLOBAL_BATCH}, 'train'), multi_pod=False, out_dir=None, verbose=False, "
         "mesh=mesh_of((1, 1), ('data', 'model')), param_dtype=torch.float32)\n"
@@ -4666,6 +4808,8 @@ def main() -> int:
     rows.update(check_ssd())
     rows.update(check_adamw())
     check_state_forms(rows)
+    zamba2_7b = check_zamba2_7b_kernels()
+    log(f"zamba2-7b kernels {json.dumps(zamba2_7b)}")
     for mode in MODE_KERNELS:
         check_small_against_cpu(mode)
     check_rwkv_small_against_cpu()

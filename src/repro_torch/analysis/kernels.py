@@ -13,7 +13,7 @@ makes for a given shape, checked without a device:
     on an H100;
   * **grid** — ``x`` at most 2^31 - 1, ``y`` and ``z`` at most 65,535;
   * **dispatch** — B4's head dim one that ``flash_attention.cu``'s
-    ``DISPATCH`` instantiates (32, 64, 80, 128), B8's one of ``wkv6.cu``'s,
+    ``DISPATCH`` instantiates (32, 64, 80, 128, 224), B8's one of ``wkv6.cu``'s,
     B9's ``(state, head_dim)`` one of ``ssd_scan.cu``'s; a quantized
     kernel's row count one that ``quant_ring._rows`` accepts;
   * **scale-trailer consistency** — the int8/fp8 hop message (payload ++
@@ -359,6 +359,8 @@ class FlashSpec:
         tiles = _ceil(self.seq, k["kMmaRows"])
         q_blocks = tiles * self.heads * self.batch
         rows_per_block = k["kThreads"] // WARP
+        # F3: a pair of kv tiles a block, one above kDkdvPairMaxDim
+        kv_tiles = tiles if d > k["kDkdvPairMaxDim"] else _ceil(tiles, 2)
         return [
             Launch(f"F1 fwd_kernel<{d}, {t}>", "flash_attention",
                    "fwd_kernel", (q_blocks, 1, 1), k["kMmaThreads"],
@@ -369,8 +371,8 @@ class FlashSpec:
                     1, 1), k["kThreads"], 0),
             Launch(f"F3 bwd_dkdv_kernel<{d}, {t}>", "flash_attention",
                    "bwd_dkdv_kernel",
-                   (_ceil(tiles, 2) * hkv * self.batch, 1, 1),
-                   k["kDkdvGroups"] * k["kMmaThreads"], f["dkdv_smem"](d)),
+                   (kv_tiles * hkv * self.batch, 1, 1),
+                   k["kDkdvGroups"] * k["kMmaThreads"], f["dkdv_launch_smem"](d)),
             Launch(f"F4 bwd_dq_kernel<{d}, {t}>", "flash_attention",
                    "bwd_dq_kernel", (q_blocks, 1, 1), k["kMmaThreads"],
                    f["dq_smem"](d)),
@@ -708,7 +710,7 @@ def _instantiations() -> List[Tuple[str, str, str, Tuple[int, ...], int]]:
            for i, name in enumerate(LAUNCHES)]
     f = source_formulas("flash_attention")
     for d in flash_head_dims():
-        smem = (f["fwd_smem"](d), 0, f["dkdv_smem"](d), f["dq_smem"](d))
+        smem = (f["fwd_smem"](d), 0, f["dkdv_launch_smem"](d), f["dq_smem"](d))
         for bf16 in (0, 1):
             for which, (fmt, fn) in enumerate(_FA_QUERY):
                 out.append((fmt.format(d=d, t=TYPES[bool(bf16)]),

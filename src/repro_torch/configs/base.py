@@ -9,9 +9,12 @@ sub-quadratic archs) is encoded in :meth:`ArchConfig.supported_shapes`.
 from __future__ import annotations
 
 import dataclasses
+from dataclasses import InitVar
 from typing import Dict, List, Optional, Tuple
 
 _REGISTRY: Dict[str, "ArchConfig"] = {}
+# ArchConfig's init-only settings, in their order
+_INIT_ONLY = ("ssm_groups", "hybrid_layers", "n_shared_blocks", "adapter_rank", "norm_eps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +76,48 @@ class ArchConfig:
     fsdp: bool = False               # shard params over the data axis (ZeRO-3)
     sequence_parallel: bool = False  # shard activations on seq (train too)
     notes: str = ""
+    # Mamba2's B/C groups and the published Zamba2 block (Zamba2-7B,
+    # modeling_zamba2.py; models/ssm.py's Zamba2LM): init-only variables,
+    # kept as attributes by __post_init__ and carried by dataclasses.replace,
+    # but not fields, so that the registered configs' fields stay the JAX
+    # package's one for one (``as_dict``, ``==``, ``hash`` and ``repr`` take
+    # them in). With ``hybrid_layers`` (the published ids) a shared block is
+    # used before each of those Mamba layers, ``n_shared_blocks`` of them in
+    # turn, reading concat(h, embedding) (attention width 2 d_model), its
+    # output through the use's own LoRA and ``linear`` added to that Mamba
+    # layer's input before its norm, not to the residual; () keeps
+    # ``attn_every``'s block (zamba2-1.2b).
+    ssm_groups: InitVar[int] = 1           # head h reads B/C group h // (heads / groups)
+    hybrid_layers: InitVar[Tuple[int, ...]] = ()
+    n_shared_blocks: InitVar[int] = 1      # shared blocks, used in turn (num_mem_blocks)
+    adapter_rank: InitVar[int] = 0         # per-use LoRA rank on the shared MLP's gate and up
+    norm_eps: InitVar[float] = 1e-6        # RMS norms' epsilon (Mamba2 and Zamba2 models)
+
+    def __post_init__(self, ssm_groups, hybrid_layers, n_shared_blocks,
+                      adapter_rank, norm_eps):
+        for name, value in zip(_INIT_ONLY, (ssm_groups, hybrid_layers, n_shared_blocks,
+                                            adapter_rank, norm_eps)):
+            object.__setattr__(self, name, value)
+
+    def as_dict(self) -> Dict[str, object]:
+        """Every setting, the init-only ones too: ``ArchConfig(**c.as_dict())
+        == c`` (``dataclasses.asdict`` leaves them out)."""
+        return {**dataclasses.asdict(self), **{k: getattr(self, k) for k in _INIT_ONLY}}
+
+    def _key(self) -> tuple:
+        return tuple((k, tuple(v) if isinstance(v, list) else v)
+                     for k, v in self.as_dict().items())
+
+    def __eq__(self, other):
+        if other.__class__ is not self.__class__:
+            return NotImplemented
+        return self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __repr__(self):
+        return "ArchConfig(" + ", ".join(f"{k}={v!r}" for k, v in self.as_dict().items()) + ")"
 
     # -- derived -----------------------------------------------------------
     @property
@@ -89,6 +134,12 @@ class ArchConfig:
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def attn_width(self) -> int:
+        """The shared block's input width: concat(h, embedding) in the
+        published Zamba2 block, else d_model."""
+        return 2 * self.d_model if self.hybrid_layers else self.d_model
 
     @property
     def attention_free(self) -> bool:

@@ -11,12 +11,14 @@
 //   flash_attention_bwd_dq           F4  dQ
 // Layout (B, S, H, D) for q, k, v, O, dO and the gradients, contiguous; lse
 // and delta (B, Hq, S) f32. Inputs f32 or bf16 (all of one dtype), outputs
-// in that dtype, all arithmetic in f32. head_dim 32, 64, 80 or 128: the dims
-// of the registered dense configs. GQA reads k/v at head hq / (Hq / Hkv), as
-// the Pallas index map does (:112-115): no repeated k/v is ever formed.
+// in that dtype, all arithmetic in f32. head_dim 32, 64, 80 or 128, the dims
+// of the registered dense configs, or 224, Zamba2-7B's shared attention. GQA
+// reads k/v at head hq / (Hq / Hkv), as the Pallas index map does
+// (:112-115): no repeated k/v is ever formed.
 //
-// What it computes, as B4 does: s = (f32(q) * scale) . f32(k), scale =
-// 1/sqrt(D); s = -1e30 where the key is masked (kpos >= Skv, kpos > qpos when
+// What it computes, as B4 does: s = (f32(q) * scale) . f32(k), scale the
+// caller's (B4's 1/sqrt(D) by default; Zamba2's shared attention takes
+// 1/sqrt(D/2)); s = -1e30 where the key is masked (kpos >= Skv, kpos > qpos when
 // causal, qpos - kpos >= window), query row i sitting at qpos = i + q_offset
 // (the reference's attention(q_offset=): a query block that continues a
 // sequence whose keys come first; 0 for training); over kv tiles in order the
@@ -83,6 +85,15 @@
 // F4's block has 4 warps, 101,376 bytes and 179 registers at D = 128: two
 // blocks an SM. F1's has 4 warps and 67,584 bytes at D = 128 (q, and two
 // stages of k and v).
+//   At D = 224 F3's pair of tiles would take 350.7 KB of shared memory and
+// its dK and dV 224 accumulator registers a thread, over an SM's 227 KB and
+// 255 registers. There its block holds one kv tile (175,360 bytes, one block
+// an SM) and splits the two sums between its groups: group 0 forms P^T and
+// dV, group 1 P^T, dP^T, dS^T and dK, each from the same staged tiles, 112
+// accumulator registers a thread (255 in all, 32 bytes spilled; narrower
+// operand blocks or other unrolls spill as much and run slower, PERF.md).
+// Each group forms S^T itself, a quarter more products than the pair's. F1 (116,736 bytes) and F4 (175,104 bytes)
+// keep their form at 224, one block an SM.
 //
 // F2 is a warp per row, on FMAs.
 //
@@ -158,6 +169,7 @@ constexpr int kMmaThreads = 128;  // 4 warps, 16 resident rows each
 constexpr int kMmaRows = 64;      // resident rows of a block: F1's and F4's q tile, F3's kv tile
 constexpr int kStage = 16;        // streamed rows a stage: F3's q rows, F4's kv rows
 constexpr int kDkdvGroups = 2;    // F3: kv tiles a block, one a group of kMmaThreads
+constexpr int kDkdvPairMaxDim = 128;  // F3 above this head dim: one kv tile a block, dK and dV split
 
 // x rounded to TF32 (10 mantissa bits, to nearest, ties away), as f32 bits:
 // cvt.rna.tf32.f32's rounding for every finite x, in two integer operations:
@@ -347,6 +359,13 @@ __device__ __forceinline__ void store_row(T* dst, const float (&c)[D / 8][4], in
   }
 }
 
+// F1's and F4's unroll of mma_nt's blocks of columns: in full up to
+// kDkdvPairMaxDim; above it two at a time, which at D = 224 takes F4 from
+// 12.9 to 11.6 ms and F1 from 8.49 to 8.35 at the benchmark's shape, each
+// still at 255 registers with 16 to 40 bytes of spill (PERF.md).
+template <int D>
+__host__ __device__ constexpr int q_unroll() { return D > kDkdvPairMaxDim ? 2 : D / 32 + 1; }
+
 // Asynchronous copies to shared memory; `full` false fills zeros.
 __device__ __forceinline__ void cp_async16(float* dst, const void* src, bool full) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -498,7 +517,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int buf = i & 1, k0 = (st_lo + i) * kStage;
     if (tile_sees(qr0, 16, k0, kStage, d)) {
       float s[2][4] = {};  // S, then P: q rows x kv columns
-      mma_nt<D, 2, kExact, D / 32 + 1>(s, qs + 16 * warp * P, ks + buf * kStage * P, lane);
+      mma_nt<D, 2, kExact, q_unroll<D>()>(s, qs + 16 * warp * P, ks + buf * kStage * P, lane);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -558,6 +577,116 @@ __host__ __device__ constexpr int dkdv_floats() {
   return 2 * kMmaRows * (D + 4) + 4 * kStage * (D + 4) + 4 * kStage;
 }
 
+// F3 above kDkdvPairMaxDim: one block per (kv tile, kv head, batch), both
+// groups of 4 warps on the tile's kv rows (16 a warp), the q rows of the kv
+// head's group of q heads streaming by in stages of kStage, double-buffered,
+// staged by both groups (group 0 q and lse, group 1 dO and delta). Group 0
+// sums dV = P^T dO, group 1 dK = dS^T q, each in its own D / 8 accumulator
+// tiles; both form S^T and P^T.
+template <int D, typename T>
+__device__ __forceinline__ void dkdv_one_tile(const T* __restrict__ q, const T* __restrict__ k,
+                                              const T* __restrict__ v,
+                                              const T* __restrict__ dout,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ delta,
+                                              T* __restrict__ dk, T* __restrict__ dv,
+                                              const Dims& d) {
+  constexpr int P = D + 4, NT = D / 8;
+  constexpr bool kExact = sizeof(T) == 2;
+  const int grp = threadIdx.x / kMmaThreads, tid = threadIdx.x % kMmaThreads;
+  const int heads = d.hkv * d.batch;
+  const int kt = blockIdx.x / heads, rest = blockIdx.x - kt * heads;
+  const int hk = rest % d.hkv, b = rest / d.hkv;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + kMmaRows * P;
+  float* qs = vs + kMmaRows * P;      // [2][kStage * P]
+  float* dos = qs + 2 * kStage * P;   // [2][kStage * P]
+  float* lses = dos + 2 * kStage * P; // [2][kStage]
+  float* deltas = lses + 2 * kStage;  // [2][kStage]
+  const int k0 = kt * kMmaRows, group = d.hq / d.hkv;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int kr0 = k0 + 16 * warp;  // the warp's kv rows
+
+  // the q stages that see a key of this tile, as bwd_dkdv_kernel's
+  const int nst = (d.sq + kStage - 1) / kStage;
+  const int k_last = min(k0 + kMmaRows, d.skv) - 1;
+  const int w_last = k_last + d.window - 1 - d.q_offset;
+  const int st_lo = d.causal ? min(nst, max(0, k0 - d.q_offset) / kStage) : 0;
+  const int st_hi = d.window <= 0 ? nst : w_last < 0 ? 0 : min(nst, w_last / kStage + 1);
+  const int n_st = max(0, st_hi - st_lo), items = group * n_st;
+
+  float acc[NT][4];  // group 0: dV; group 1: dK
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  auto issue = [&](int i) {  // item i: q head hk * group + i / n_st, stage st_lo + i % n_st
+    const int buf = i & 1, h = hk * group + i / n_st, q0 = (st_lo + i % n_st) * kStage;
+    if (grp == 0) {
+      stage_rows<D, kStage>(qs + buf * kStage * P, q, b, q0, d.sq, h, d.hq, tid);
+      stage_vals(lses + buf * kStage, lse, b, h, q0, d.sq, d.hq, tid, 0);
+    } else {
+      stage_rows<D, kStage>(dos + buf * kStage * P, dout, b, q0, d.sq, h, d.hq, tid);
+      stage_vals(deltas + buf * kStage, delta, b, h, q0, d.sq, d.hq, tid, 0);
+    }
+  };
+  if (items > 0) {
+    stage_rows<D, kMmaRows>(grp == 0 ? ks : vs, grp == 0 ? k : v, b, k0, d.skv, hk, d.hkv, tid);
+    issue(0);
+    cp_commit();
+  }
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) {
+      issue(i + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // stage i is in shared memory for every thread
+    const int buf = i & 1, q0 = (st_lo + i % n_st) * kStage;
+    const float* qb = qs + buf * kStage * P;
+    const float* dob = dos + buf * kStage * P;
+    const float* lb = lses + buf * kStage;
+    const float* db = deltas + buf * kStage;
+    if (tile_sees(q0, kStage, kr0, 16, d)) {
+      float st[2][4] = {};  // S^T, then P^T, then (group 1) dS^T: kv rows x q columns
+      mma_nt<D, 2, kExact, 2>(st, ks + 16 * warp * P, qb, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = kr0 + g + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+          const int qpos = q0 + col;
+          st[j][e] = qpos < d.sq && visible(qpos, kpos, d)
+                         ? expf(st[j][e] * d.scale - lb[col]) : 0.f;
+        }
+      if (grp == 0) {
+        mma_rn<D, kExact>(acc, st, dob, lane);
+      } else {
+        float dpt[2][4] = {};
+        mma_nt<D, 2, kExact, 2>(dpt, vs + 16 * warp * P, dob, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[j][e] = st[j][e] * (dpt[j][e] - db[8 * j + 2 * t + (e & 1)]);
+        mma_rn<D, kExact>(acc, st, qb, lane);
+      }
+    }
+    __syncthreads();  // every read of buffer buf is done before it is refilled
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kpos = kr0 + g + 8 * half;
+    if (kpos >= d.skv) continue;
+    const int64_t off = row_offset<D>(b, kpos, hk, d.skv, d.hkv);
+    store_row<D>((grp == 0 ? dv : dk) + off, acc, half, t, grp == 0 ? 1.f : d.scale);
+  }
+}
+
 // F3: one block per (pair of kv tiles, kv head, batch), a group of 4 warps
 // on each tile of the pair: kv tiles kt and nk - 1 - kt, so that under the
 // causal mask every block has the same work (the middle tile of an odd count
@@ -569,6 +698,10 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                 Dims d) {
+  if constexpr (D > kDkdvPairMaxDim) {
+    dkdv_one_tile<D, T>(q, k, v, dout, lse, delta, dk, dv, d);
+    return;
+  }
   constexpr int P = D + 4, NT = D / 8;
   constexpr bool kExact = sizeof(T) == 2;
   const int grp = threadIdx.x / kMmaThreads, tid = threadIdx.x % kMmaThreads;
@@ -728,8 +861,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const float* vb = vs + buf * kStage * P;
     if (tile_sees(qr0, 16, k0, kStage, d)) {
       float s[2][4] = {}, dp[2][4] = {};  // S and dP, then dS: q rows x kv columns
-      mma_nt<D, 2, kExact, D / 32 + 1>(s, qs + 16 * warp * P, kb, lane);
-      mma_nt<D, 2, kExact, D / 32 + 1>(dp, dos + 16 * warp * P, vb, lane);
+      mma_nt<D, 2, kExact, q_unroll<D>()>(s, qs + 16 * warp * P, kb, lane);
+      mma_nt<D, 2, kExact, q_unroll<D>()>(dp, dos + 16 * warp * P, vb, lane);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -756,6 +889,12 @@ template <int D>
 constexpr size_t fwd_smem() { return fwd_floats<D>() * sizeof(float); }
 template <int D>
 constexpr size_t dkdv_smem() { return kDkdvGroups * dkdv_floats<D>() * sizeof(float); }
+template <int D>
+constexpr size_t dkdv_one_smem() { return dkdv_floats<D>() * sizeof(float); }
+template <int D>
+constexpr size_t dkdv_launch_smem() {  // F3's form at D
+  return D > kDkdvPairMaxDim ? dkdv_one_smem<D>() : dkdv_smem<D>();
+}
 template <int D>
 constexpr size_t dq_smem() {  // q, dO tiles; two stages of k, v
   return (2 * kMmaRows * (D + 4) + 4 * kStage * (D + 4)) * sizeof(float);
@@ -808,10 +947,12 @@ int preprocess(const void* o, const void* dout, void* delta, int batch, int sq, 
 template <int D, typename T>
 int dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
          const void* delta, void* dk, void* dv, Dims d, void* stream) {
+  // a pair of kv tiles a block, or one above kDkdvPairMaxDim
+  const int n_tiles = D > kDkdvPairMaxDim ? tiles(d.skv) : (tiles(d.skv) + 1) / 2;
   unsigned blocks;
-  if (int err = flat_grid((tiles(d.skv) + 1) / 2, d.hkv, d.batch, &blocks)) return err;
-  return launch(bwd_dkdv_kernel<D, T>, dim3(blocks), kDkdvGroups * kMmaThreads, dkdv_smem<D>(),
-                stream,
+  if (int err = flat_grid(n_tiles, d.hkv, d.batch, &blocks)) return err;
+  return launch(bwd_dkdv_kernel<D, T>, dim3(blocks), kDkdvGroups * kMmaThreads,
+                dkdv_launch_smem<D>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -839,7 +980,7 @@ int launch_config(int which, int* out) {
     case 1: return launch_resources(bwd_preprocess_kernel<D, T>, kThreads, 0, out);
     case 2:
       return launch_resources(bwd_dkdv_kernel<D, T>, kDkdvGroups * kMmaThreads,
-                              dkdv_smem<D>(), out);
+                              dkdv_launch_smem<D>(), out);
     case 3: return launch_resources(bwd_dq_kernel<D, T>, kMmaThreads, dq_smem<D>(), out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -854,6 +995,7 @@ int launch_config(int which, int* out) {
       case 64: return bf16 ? FN<64, __nv_bfloat16>(__VA_ARGS__) : FN<64, float>(__VA_ARGS__);   \
       case 80: return bf16 ? FN<80, __nv_bfloat16>(__VA_ARGS__) : FN<80, float>(__VA_ARGS__);   \
       case 128: return bf16 ? FN<128, __nv_bfloat16>(__VA_ARGS__) : FN<128, float>(__VA_ARGS__); \
+      case 224: return bf16 ? FN<224, __nv_bfloat16>(__VA_ARGS__) : FN<224, float>(__VA_ARGS__); \
       default: return static_cast<int>(cudaErrorInvalidValue);                   \
     }                                                                            \
   } while (0)

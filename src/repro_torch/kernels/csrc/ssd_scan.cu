@@ -10,14 +10,16 @@
 //   ssd_bwd   S2  dx, d(dt), dA, dB and dC, from the final state's gradient
 //                 (or zeros), and the initial state's gradient
 // Layout: x, y, dy, dx (B, S, H, P); dt, d(dt) (B, S, H) f32; A, dA (H,)
-// f32; Bm, Cm, dB, dC (B, S, N), B and C shared by the heads (ngroups = 1);
+// f32; Bm, Cm, dB, dC (B, S, G, N), G groups of B and C, head h reading
+// group h / (H / G) (Mamba2's ngroups; G = 1, B and C shared by the heads,
+// is the (B, S, N) layout);
 // states (B, H, chunks, N, P) f32; the initial and final states and their
 // gradients (B, H, N, P) f32; all contiguous, x, Bm, Cm, dy, the states and
 // their gradients on 16 bytes. x, Bm, Cm, dy f32 or bf16 (all of one dtype), y in that
 // dtype, gradients f32, all arithmetic in f32 but g's (f64). (N, P) is (16, 32) or
-// (64, 64): the reduced and the full zamba2-1.2b. The scratch (C B^T of
-// every chunk, e_L of every chunk and head, S2's dS and partial sums) is the
-// caller's: these functions allocate nothing.
+// (64, 64): the reduced and the full zamba2-1.2b (and Zamba2-7B's). The
+// scratch (C B^T of every chunk and group, e_L of every chunk and head, S2's
+// dS and partial sums) is the caller's: these functions allocate nothing.
 //
 // What it computes, as B9 does, per chunk of L <= 64 steps (rows past S read
 // as zeros, which leaves the decay flat over the pad): g = cumsum(dt A) down
@@ -50,12 +52,13 @@
 // states[0], which the backward reads as it reads every chunk's state.
 //
 // Design: a chunk-parallel scan, each stage a grid over (chunk, batch row,
-// group of heads), as Mamba2's own chunked SSD is split:
+// group of heads), as Mamba2's own chunked SSD is split; a block's heads
+// lie in one B/C group, whose B and C it reads:
 //   S1  1. chunk_sum_kernel: each chunk's summary (B exp(g_L - g))^T xf, an
 //          (N x L)(L x P) product, into the states slot of the next chunk
 //          (the last chunk's into the final state), and e_L = exp(g_L); one
-//          more block per (batch row, chunk) forms C B^T once for all the
-//          heads (ngroups = 1) into scratch;
+//          more block per (batch row, chunk, B/C group) forms C B^T once
+//          for all the group's heads into scratch;
 //       2. pass_kernel: states[0] = S_0, states[c] = e_L[c-1] states[c-1] +
 //          states[c], in place, a float4 a thread walking the chunks, and
 //          the final state e_L[nc-1] states[nc-1] + its summary;
@@ -71,8 +74,11 @@
 //          term from states[c] and dS[c]: dx, d(dt), dA's partial a (batch
 //          row, head, chunk), and dB and dC summed over the group's heads in
 //          order in registers;
-//       4. finish_kernel: dB and dC summed over the groups, dA over the
-//          batch and the chunks, each in a fixed order.
+//       4. finish_kernel: dB and dC summed over the head groups of each B/C
+//          group, dA over the batch and the chunks, each in a fixed order.
+// One launch of each stage covers every B/C group: nothing is sliced by
+// group, and G = 1 is the ungrouped arithmetic, launch for launch and bit
+// for bit.
 // At the main shape (B 2, S 1024, H 64, P 64, N 64) that is 2,048 chunk
 // summaries (4 heads a block), 512 blocks of S1's output stage (4 heads a
 // block, 3 blocks an SM) and 128 of S2's chunk-local stage (16 heads a
@@ -145,7 +151,24 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 struct Dims {
   int batch, seq, heads, chunk, nc, group;  // group: heads a block
+  int ngroups;                              // B/C groups, each of heads / ngroups heads
 };
+
+// Offset of element (b, t, gi, 0) of B or C, (B, S, ngroups, N).
+template <int N>
+__device__ __forceinline__ int64_t bc_offset(const Dims& d, int b, int t, int gi) {
+  return ((static_cast<int64_t>(b) * d.seq + t) * d.ngroups + gi) * N;
+}
+
+// The B/C group of the heads of block z (each of `group` heads).
+__device__ __forceinline__ int bc_group(const Dims& d, int z) {
+  return z * d.group / (d.heads / d.ngroups);
+}
+
+// Offset of chunk c's C B^T of group gi for batch row b, (B, ngroups, chunks, L, L).
+__device__ __forceinline__ int64_t cb_offset(const Dims& d, int b, int gi, int c) {
+  return ((static_cast<int64_t>(b) * d.ngroups + gi) * d.nc + c) * kL * kL;
+}
 
 // ---------------------------------------------------------------------------
 // split TF32 on the tensor cores (flash_attention.cu's form)
@@ -342,14 +365,14 @@ __host__ __device__ constexpr int sum_floats() {
              : 2 * kL * (N + 4);
 }
 
-// Grid (chunk, batch row, head group + 1). Blocks of the head groups: per
+// Grid (chunk, batch row, head group + B/C group). Blocks of the head groups: per
 // head h of the group, out[slot] = (U exp-weighted)^T V over the chunk's
 // rows, an N x P product: S1 (kBwd false) (B exp(g_L - g))^T (x dt) into
 // states[b, h, c + 1]; S2 (C exp(g))^T dy into dS[b, h, c - 1]; the edge
 // chunk's (S1's last, S2's first), which has no such slot, into edge[b, h]
-// where edge is given; and el[b, h, c] = exp(g_L). The last block of each
-// (chunk, batch row) forms C B^T of the chunk (its lower triangle, zeros
-// above) into cb[b, c].
+// where edge is given; and el[b, h, c] = exp(g_L). The last ngroups blocks
+// of each (chunk, batch row) form C B^T of the chunk of each B/C group gi
+// (its lower triangle, zeros above) into cb[b, gi, c].
 template <int N, int P, typename T, bool kBwd>
 __global__ void __launch_bounds__(kThreads)
     chunk_sum_kernel(const T* __restrict__ v, const float* __restrict__ dt,
@@ -362,15 +385,18 @@ __global__ void __launch_bounds__(kThreads)
   float* smem = reinterpret_cast<float*>(smem4);
   const int c = blockIdx.x, b = blockIdx.y, t0 = c * d.chunk;
   const int rows = min(d.chunk, d.seq - t0);
-  const int64_t bc0 = (static_cast<int64_t>(b) * d.seq + t0) * N;  // (b, t0, 0) of B, C
+  const int head_blocks = gridDim.z - d.ngroups;
+  const int gi = blockIdx.z >= head_blocks ? blockIdx.z - head_blocks : bc_group(d, blockIdx.z);
+  const int64_t bc0 = bc_offset<N>(d, b, t0, gi);  // (b, t0, gi, 0) of B, C
+  const int64_t bc_pitch = static_cast<int64_t>(d.ngroups) * N;
   const int rs = warp_slice(), ch = warp_half();
 
-  if (blockIdx.z == gridDim.z - 1) {
+  if (blockIdx.z >= head_blocks) {
     constexpr int SN = N + 4, NT = kL / 16;
     float* sc = smem;
     float* sb = sc + kL * SN;
-    stage<N, SN>(sc, cm + bc0, N, rows);
-    stage<N, SN>(sb, bm + bc0, N, rows);
+    stage<N, SN>(sc, cm + bc0, bc_pitch, rows);
+    stage<N, SN>(sb, bm + bc0, bc_pitch, rows);
     __syncthreads();
     const int row0 = 16 * rs, col0 = ch * (kL / 2);
     float acc[NT][4] = {};
@@ -378,7 +404,7 @@ __global__ void __launch_bounds__(kThreads)
         acc, 0, N, lower_tiles<NT>(rs, col0),
         [&](int r, int k) { return sc[(row0 + r) * SN + k]; },
         [&](int k, int j) { return sb[(col0 + j) * SN + k]; });
-    store_tile<NT>(cb + (static_cast<int64_t>(b) * d.nc + c) * kL * kL, kL, acc, row0, col0, kL);
+    store_tile<NT>(cb + cb_offset(d, b, gi, c), kL, acc, row0, col0, kL);
     return;
   }
 
@@ -391,7 +417,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sw = se + kL;
   const bool at_edge = kBwd ? c == 0 : c + 1 == d.nc;  // no slot: the edge's
   const bool wanted = !at_edge || edge != nullptr;      // whether the summary goes somewhere
-  if (wanted) stage<N, SU>(su, (kBwd ? cm : bm) + bc0, N, rows);
+  if (wanted) stage<N, SU>(su, (kBwd ? cm : bm) + bc0, bc_pitch, rows);
   const int row0 = 16 * rs, col0 = ch * (P / 2);
   for (int i = 0; i < d.group; ++i) {
     const int h = blockIdx.z * d.group + i;
@@ -501,8 +527,9 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(d.chunk, d.seq - t0);
   const int rs = warp_slice(), ch = warp_half();
   const int row0 = 16 * rs, col0 = ch * (P / 2);
-  stage<kL, SA>(scb, cb + (static_cast<int64_t>(b) * d.nc + c) * kL * kL, kL, kL);
-  stage<N, SC>(sc, cm + (static_cast<int64_t>(b) * d.seq + t0) * N, N, rows);
+  const int gi = bc_group(d, blockIdx.z);
+  stage<kL, SA>(scb, cb + cb_offset(d, b, gi, c), kL, kL);
+  stage<N, SC>(sc, cm + bc_offset<N>(d, b, t0, gi), static_cast<int64_t>(d.ngroups) * N, rows);
   for (int i = 0; i < d.group; ++i) {
     const int h = blockIdx.z * d.group + i;
     const int64_t row_dt = (static_cast<int64_t>(b) * d.seq + t0) * d.heads + h;
@@ -626,7 +653,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rs = warp_slice(), ch = warp_half(), row0 = 16 * rs;
   const int colL = ch * (kL / 2), colP = ch * (P / 2), colN = ch * (N / 2);
-  const int64_t bc0 = (static_cast<int64_t>(b) * d.seq + t0) * N;
+  const int gi = bc_group(d, blockIdx.z);
+  const int64_t bc0 = bc_offset<N>(d, b, t0, gi), bc_pitch = static_cast<int64_t>(d.ngroups) * N;
   const int h0 = blockIdx.z * d.group;
   auto row_of = [&](int h) {  // (b, t0, h) of a (B, S, H) tensor
     return (static_cast<int64_t>(b) * d.seq + t0) * d.heads + h;
@@ -647,9 +675,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     decays(dk, reinterpret_cast<double*>(dk + kL), dk + 3 * kL, dk + 4 * kL, dt,
            row_of(h0 + i), d.heads, rows, A[h0 + i]);
   };
-  stage<kL, SA>(scb, cb + (static_cast<int64_t>(b) * d.nc + c) * kL * kL, kL, kL);
-  stage<N, SN>(sb, bm + bc0, N, rows);
-  stage<N, SN>(sc, cm + bc0, N, rows);
+  stage<kL, SA>(scb, cb + cb_offset(d, b, gi, c), kL, kL);
+  stage<N, SN>(sb, bm + bc0, bc_pitch, rows);
+  stage<N, SN>(sc, cm + bc0, bc_pitch, rows);
   fetch(0);
   if (warp == 1) form_decays(0);
   float dc_sum[NTN][4] = {}, db_sum[NTN][4] = {};
@@ -847,20 +875,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 // stage 4 of S2: the sums over head groups, batch rows and chunks
 // ---------------------------------------------------------------------------
 
-// dB and dC (B, S, N): the groups' partials summed in order; dA (H): the
-// (batch row, chunk) partials summed in order.
+// dB and dC (B, S, ngroups, N): the partials of each B/C group's head
+// groups (B, groups, S, N) summed in order; dA (H): the (batch row, chunk)
+// partials summed in order.
 __global__ void __launch_bounds__(kThreads)
     finish_kernel(const float* __restrict__ db_part, const float* __restrict__ dc_part,
                   const float* __restrict__ da_part, float* __restrict__ dB,
                   float* __restrict__ dC, float* __restrict__ dA, Dims d, int state,
                   int groups) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t sn = static_cast<int64_t>(d.seq) * state;
-  if (i < d.batch * sn) {
-    const int64_t b = i / sn, rest = i - b * sn;
+  const int64_t sgn = static_cast<int64_t>(d.seq) * d.ngroups * state;
+  if (i < d.batch * sgn) {
+    const int64_t b = i / sgn, rest = i - b * sgn;  // rest: (s, gi, n)
+    const int64_t s = rest / (static_cast<int64_t>(d.ngroups) * state);
+    const int n = static_cast<int>(rest % state);
+    const int gi = static_cast<int>(rest / state % d.ngroups), per = groups / d.ngroups;
     float sb = 0.f, sc = 0.f;
-    for (int z = 0; z < groups; ++z) {
-      const int64_t at = (b * groups + z) * sn + rest;
+    for (int z = gi * per; z < (gi + 1) * per; ++z) {
+      const int64_t at = ((b * groups + z) * d.seq + s) * state + n;
       sb += db_part[at];
       sc += dc_part[at];
     }
@@ -902,10 +934,11 @@ inline int group_of(int heads, int most) {
 }
 
 // The dimensions for the launches, or false if the kernels do not take them.
-inline bool dims(int batch, int seq, int heads, int chunk, Dims* d) {
-  if (chunk < 1 || chunk > kL || seq < 1 || batch < 1 || heads < 1 || batch > 65535)
+inline bool dims(int batch, int seq, int heads, int chunk, int ngroups, Dims* d) {
+  if (chunk < 1 || chunk > kL || seq < 1 || batch < 1 || heads < 1 || batch > 65535 ||
+      ngroups < 1 || heads % ngroups != 0)
     return false;
-  *d = Dims{batch, seq, heads, chunk, (seq + chunk - 1) / chunk, 1};
+  *d = Dims{batch, seq, heads, chunk, (seq + chunk - 1) / chunk, 1, ngroups};
   return true;
 }
 
@@ -919,9 +952,10 @@ int fwd(const void* x, const void* dt, const void* A, const void* bm, const void
   float *st = static_cast<float*>(states), *cbf = static_cast<float*>(cb),
         *elf = static_cast<float*>(el);
   Dims dsum = d;
-  dsum.group = group_of(d.heads, kSumHeads);
+  dsum.group = group_of(d.heads / d.ngroups, kSumHeads);
   int err = launch(chunk_sum_kernel<N, P, T, false>,
-                   dim3(d.nc, d.batch, d.heads / dsum.group + 1), sum_floats<N, P>(), stream, xt,
+                   dim3(d.nc, d.batch, d.heads / dsum.group + d.ngroups), sum_floats<N, P>(),
+                   stream, xt,
                    dtf, af, bt, ct, st, static_cast<float*>(final_state), elf, cbf, dsum);
   if (err) return err;
   err = launch(pass_kernel<false>, dim3(d.batch * d.heads, (N * P / 4 + kThreads - 1) / kThreads),
@@ -929,7 +963,7 @@ int fwd(const void* x, const void* dt, const void* A, const void* bm, const void
                static_cast<float*>(final_state), d.nc, N * P);
   if (err) return err;
   Dims dout = d;
-  dout.group = group_of(d.heads, kFwdHeads);
+  dout.group = group_of(d.heads / d.ngroups, kFwdHeads);
   return launch(fwd_out_kernel<N, P, T>, dim3(d.nc, d.batch, d.heads / dout.group),
                 fwd_floats<N, P>(), stream, xt, dtf, af, ct, static_cast<const float*>(st),
                 static_cast<const float*>(cbf), static_cast<T*>(y), dout);
@@ -940,7 +974,7 @@ int bwd(const void* x, const void* dt, const void* A, const void* bm, const void
         const void* states, const void* dy, const void* d_final, void* dx, void* ddt, void* dA,
         void* dB, void* dC, void* d_initial, void* cb, void* el, void* ds, void* da_part,
         void* db_part, void* dc_part, int group, Dims d, void* stream) {
-  if (group < 1 || d.heads % group != 0 || d.heads / group > 65535)
+  if (group < 1 || (d.heads / d.ngroups) % group != 0 || d.heads / group > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const T *xt = static_cast<const T*>(x), *bt = static_cast<const T*>(bm),
           *ct = static_cast<const T*>(cm), *dyt = static_cast<const T*>(dy);
@@ -948,9 +982,9 @@ int bwd(const void* x, const void* dt, const void* A, const void* bm, const void
   float *cbf = static_cast<float*>(cb), *elf = static_cast<float*>(el),
         *dsf = static_cast<float*>(ds);
   Dims dsum = d;
-  dsum.group = group_of(d.heads, kSumHeads);
+  dsum.group = group_of(d.heads / d.ngroups, kSumHeads);
   int err = launch(chunk_sum_kernel<N, P, T, true>,
-                   dim3(d.nc, d.batch, d.heads / dsum.group + 1), sum_floats<N, P>(), stream,
+                   dim3(d.nc, d.batch, d.heads / dsum.group + d.ngroups), sum_floats<N, P>(), stream,
                    dyt, dtf, af, bt, ct, dsf, static_cast<float*>(d_initial), elf, cbf, dsum);
   if (err) return err;
   err = launch(pass_kernel<true>, dim3(d.batch * d.heads, (N * P / 4 + kThreads - 1) / kThreads),
@@ -966,7 +1000,7 @@ int bwd(const void* x, const void* dt, const void* A, const void* bm, const void
                static_cast<float*>(dx), static_cast<float*>(ddt), static_cast<float*>(da_part),
                static_cast<float*>(db_part), static_cast<float*>(dc_part), dloc);
   if (err) return err;
-  const int64_t items = static_cast<int64_t>(d.batch) * d.seq * N;
+  const int64_t items = static_cast<int64_t>(d.batch) * d.seq * d.ngroups * N;
   const int64_t most = items > d.heads ? items : d.heads;
   return launch(finish_kernel, dim3(static_cast<unsigned>((most + kThreads - 1) / kThreads)), 0,
                 stream, static_cast<const float*>(db_part), static_cast<const float*>(dc_part),
@@ -1008,29 +1042,34 @@ int launch_config(int which, int* out) {
 
 extern "C" {
 
-// S1, from initial (null: zeros), into final (null: not formed). Scratch:
-// cb (B, chunks, 64, 64) f32, el (B, H, chunks) f32.
+// S1, from initial (null: zeros), into final (null: not formed), B and C in
+// ngroups groups. Scratch: cb (B, ngroups, chunks, 64, 64) f32, el (B, H,
+// chunks) f32.
 int ssd_fwd(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
             void* y, void* states, const void* initial, void* final_state, void* cb, void* el,
-            int batch, int seq, int heads, int head_dim, int state, int chunk, int bf16,
-            void* stream) {
+            int batch, int seq, int heads, int head_dim, int state, int chunk, int ngroups,
+            int bf16, void* stream) {
   Dims d;
-  if (!dims(batch, seq, heads, chunk, &d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!dims(batch, seq, heads, chunk, ngroups, &d))
+    return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(state, head_dim, bf16, fwd, x, dt, A, bm, cm, y, states, initial, final_state, cb, el,
            d, stream);
 }
 
 // S2, from d_final (null: zeros), into d_initial (null: not formed), with
 // heads_per_block heads a block of its chunk-local stage (a divisor of
-// heads). Scratch: cb and el as S1's, ds (B, H, chunks, N, P) f32, da_part
-// (B, H, chunks) f32, db_part and dc_part (B, H / heads_per_block, S, N) f32.
+// heads / ngroups). Scratch: cb and el as S1's, ds (B, H, chunks, N, P) f32,
+// da_part (B, H, chunks) f32, db_part and dc_part (B, H / heads_per_block, S,
+// N) f32.
 int ssd_bwd(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
             const void* states, const void* dy, const void* d_final, void* dx, void* ddt,
             void* dA, void* dB, void* dC, void* d_initial, void* cb, void* el, void* ds,
             void* da_part, void* db_part, void* dc_part, int batch, int seq, int heads,
-            int head_dim, int state, int chunk, int heads_per_block, int bf16, void* stream) {
+            int head_dim, int state, int chunk, int ngroups, int heads_per_block, int bf16,
+            void* stream) {
   Dims d;
-  if (!dims(batch, seq, heads, chunk, &d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!dims(batch, seq, heads, chunk, ngroups, &d))
+    return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(state, head_dim, bf16, bwd, x, dt, A, bm, cm, states, dy, d_final, dx, ddt, dA, dB,
            dC, d_initial, cb, el, ds, da_part, db_part, dc_part, heads_per_block, d, stream);
 }

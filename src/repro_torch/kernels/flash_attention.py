@@ -2,8 +2,9 @@
 ``repro.kernels.flash_attention``).
 
 Causal, sliding-window and GQA attention over ``(B, S, H, D)`` tensors, as
-``flash_attention_pallas`` computes it: scores ``(f32(q) * 1/sqrt(D)) .
-f32(k)``, masked to ``NEG_INF = -1e30`` (keys past ``Skv``, above the
+``flash_attention_pallas`` computes it: scores ``(f32(q) * scale) .
+f32(k)``, ``scale`` the caller's or ``1/sqrt(D)`` (B4's; Zamba2's shared
+attention takes ``1/sqrt(D/2)``), masked to ``NEG_INF = -1e30`` (keys past ``Skv``, above the
 diagonal when causal, ``qpos - kpos >= window``; query row ``i`` at
 position ``qpos = i + q_offset``, the reference's ``attention(q_offset=)``),
 an online softmax over kv
@@ -55,8 +56,13 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 # what the CUDA kernels take
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128, 224)
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _scale(d: int, scale: Optional[float]) -> float:
+    """The scores' scale: the caller's, or B4's ``1/sqrt(D)``."""
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
 
 
 def _work_dtype(x: torch.Tensor) -> torch.dtype:
@@ -127,7 +133,7 @@ def _kv_blocks(k: torch.Tensor, block_k: int, wt: torch.dtype):
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None, block_k: int = 128,
-                          q_offset: int = 0
+                          q_offset: int = 0, scale: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(O, lse)``: B4's online softmax over kv blocks of ``block_k``
     (capped at ``Skv``). Rows are independent, so B4's q blocking changes
@@ -135,7 +141,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     b, sq, skv, hq, hkv, d = _dims(q, k, v)
     wt = _work_dtype(q)
     block_k = min(block_k, skv)
-    qg = _grouped(q, hkv, wt) * (1.0 / math.sqrt(d))
+    qg = _grouped(q, hkv, wt) * _scale(d, scale)
     qpos = _positions(sq, query_offset(q_offset), q.device)
     m = torch.full(qg.shape[:-1], NEG_INF, dtype=wt, device=q.device)
     l = torch.zeros_like(m)
@@ -172,14 +178,14 @@ def _block_grads(qg, dog, kj, vj, lse, delta, qpos, kpos, skv, causal, window):
     return p, p * (dp - delta[..., None])
 
 
-def _bwd_blocks(q, k, v, do, lse, delta, causal, window, q_offset):
+def _bwd_blocks(q, k, v, do, lse, delta, causal, window, q_offset, scale):
     """Shared set-up of F3's and F4's plain versions: per kv block of 128
     keys, its start, its k block and ``(P, dS)``; and the scaled grouped
     queries and dO."""
     b, sq, skv, hq, hkv, d = _dims(q, k, v)
     wt = _work_dtype(q)
     block_k = min(128, skv)
-    qg = _grouped(q, hkv, wt) * (1.0 / math.sqrt(d))
+    qg = _grouped(q, hkv, wt) * _scale(d, scale)
     dog = _grouped(do, hkv, wt)
     g = hq // hkv
     lse_g = lse.to(wt).reshape(b, hkv, g, sq)
@@ -196,12 +202,13 @@ def _bwd_blocks(q, k, v, do, lse, delta, causal, window, q_offset):
 
 
 def bwd_dkdv_plain(q, k, v, do, lse, delta, *, causal: bool = True,
-                   window: Optional[int] = None, q_offset: int = 0
+                   window: Optional[int] = None, q_offset: int = 0,
+                   scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """F3's ``dK = dS^T (scale * q)`` and ``dV = P^T dO``, kv block by kv
     block, summed over each kv head's group of q heads."""
     qg, dog, blocks = _bwd_blocks(q, k, v, do, lse, delta, causal, window,
-                                  q_offset)
+                                  q_offset, scale)
     dks, dvs = [], []
     for _, _, (p, ds) in blocks:
         dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, dog))
@@ -212,24 +219,26 @@ def bwd_dkdv_plain(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 def bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True,
-                 window: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
+                 window: Optional[int] = None, q_offset: int = 0,
+                 scale: Optional[float] = None) -> torch.Tensor:
     """F4's ``dQ = scale * dS K``, accumulated over kv blocks."""
     qg, _, blocks = _bwd_blocks(q, k, v, do, lse, delta, causal, window,
-                                q_offset)
+                                q_offset, scale)
     dq = torch.zeros_like(qg)
     for _, kj, (_, ds) in blocks:
         dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, kj)
     b, sq, hq, d = q.shape
-    dq = dq * (1.0 / math.sqrt(d))
+    dq = dq * _scale(d, scale)
     return dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              window: Optional[int] = None, q_offset: int = 0
+                              window: Optional[int] = None, q_offset: int = 0,
+                              scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dQ, dK, dV)`` from the explicit formulas (not autograd), as F2-F4
     compute them."""
-    opts = dict(causal=causal, window=window, q_offset=q_offset)
+    opts = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
     delta = bwd_preprocess_plain(o, do)
     dk, dv = bwd_dkdv_plain(q, k, v, do, lse, delta, **opts)
     dq = bwd_dq_plain(q, k, v, do, lse, delta, **opts)
@@ -319,7 +328,8 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
-def _kernel_args(q, k, v, causal: bool, window: Optional[int], q_offset: int = 0):
+def _kernel_args(q, k, v, causal: bool, window: Optional[int], q_offset: int = 0,
+                 scale: Optional[float] = None):
     """Check what the CUDA kernels take and return their dimension
     arguments but the query offset, which the kernels take last; raise on
     anything else."""
@@ -347,18 +357,19 @@ def _kernel_args(q, k, v, causal: bool, window: Optional[int], q_offset: int = 0
     if max(q.numel(), k.numel()) >= 2 ** 62:
         raise ValueError("tensor too large")
     return [b, sq, skv, hq, hkv, d, int(causal), window or 0,
-            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16)]
+            _scale(d, scale), int(q.dtype == torch.bfloat16)]
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0
+                        window: Optional[int] = None, q_offset: int = 0,
+                        scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(O, lse)`` through F1 on a CUDA tensor, the plain version on the CPU."""
     q_offset = query_offset(q_offset)
     if not _route(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
-    args = _kernel_args(q, k, v, causal, window, q_offset)
+                                     q_offset=q_offset, scale=scale)
+    args = _kernel_args(q, k, v, causal, window, q_offset, scale)
     q, k, v = build.on_16_bytes(q, k, v)
     o = torch.empty_like(q)
     b, sq, hq = q.shape[0], q.shape[1], q.shape[2]
@@ -388,10 +399,10 @@ def bwd_preprocess(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return delta
 
 
-def _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset=0):
+def _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset=0, scale=None):
     """Check the backward kernels' inputs; their dimension arguments and
     the inputs made contiguous."""
-    args = _kernel_args(q, k, v, causal, window, q_offset)
+    args = _kernel_args(q, k, v, causal, window, q_offset, scale)
     b, sq, hq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO must be {tuple(q.shape)} {q.dtype}, got "
@@ -404,15 +415,16 @@ def _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset=0):
 
 
 def bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
-             window: Optional[int] = None, q_offset: int = 0
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             window: Optional[int] = None, q_offset: int = 0,
+             scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dK, dV)`` through F3 on a CUDA tensor, the plain version on the
     CPU."""
     q_offset = query_offset(q_offset)
     if not _route(q, k, v, do, lse, delta):
         return bwd_dkdv_plain(q, k, v, do, lse, delta, causal=causal,
-                              window=window, q_offset=q_offset)
-    args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset)
+                              window=window, q_offset=q_offset, scale=scale)
+    args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset,
+                            scale)
     dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
     _launch("flash_attention_bwd_dkdv", q.device, *(t.data_ptr() for t in ins),
             dk.data_ptr(), dv.data_ptr(), *args, q_offset)
@@ -420,13 +432,15 @@ def bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 def bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
-           window: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
+           window: Optional[int] = None, q_offset: int = 0,
+           scale: Optional[float] = None) -> torch.Tensor:
     """``dQ`` through F4 on a CUDA tensor, the plain version on the CPU."""
     q_offset = query_offset(q_offset)
     if not _route(q, k, v, do, lse, delta):
         return bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
-                            window=window, q_offset=q_offset)
-    args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset)
+                            window=window, q_offset=q_offset, scale=scale)
+    args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset,
+                            scale)
     dq = torch.empty_like(ins[0])
     _launch("flash_attention_bwd_dq", q.device, *(t.data_ptr() for t in ins),
             dq.data_ptr(), *args, q_offset)
@@ -434,11 +448,13 @@ def bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0
+                        window: Optional[int] = None, q_offset: int = 0,
+                        scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dQ, dK, dV)`` through F2, F3 and F4 on a CUDA tensor, the plain
     versions on the CPU."""
-    opts = dict(causal=causal, window=window, q_offset=query_offset(q_offset))
+    opts = dict(causal=causal, window=window, q_offset=query_offset(q_offset),
+                scale=scale)
     if not _route(q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, **opts)
     if o.shape != q.shape or o.dtype != q.dtype:
@@ -452,17 +468,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
 def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: Optional[int], q_offset: int
+            window: Optional[int], q_offset: int, scale: Optional[float] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_fwd` as one operator: a dispatch mode sees the
     call once (``OpCostModel`` prices it), and a fake tensor takes its
     shapes alone."""
     return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
+                               q_offset=q_offset, scale=scale)
 
 
 @_fwd_op.register_fake
-def _(q, k, v, causal, window, q_offset):
+def _(q, k, v, causal, window, q_offset, scale=None):
     b, sq, hq = q.shape[0], q.shape[1], q.shape[2]
     return torch.empty_like(q), q.new_empty((b, hq, sq), dtype=torch.float32)
 
@@ -470,15 +486,15 @@ def _(q, k, v, causal, window, q_offset):
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
 def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
             lse: torch.Tensor, do: torch.Tensor, causal: bool,
-            window: Optional[int], q_offset: int
+            window: Optional[int], q_offset: int, scale: Optional[float] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_bwd` as one operator (as :func:`_fwd_op`)."""
     return flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
-                               q_offset=q_offset)
+                               q_offset=q_offset, scale=scale)
 
 
 @_bwd_op.register_fake
-def _(q, k, v, o, lse, do, causal, window, q_offset):
+def _(q, k, v, o, lse, do, causal, window, q_offset, scale=None):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -486,39 +502,41 @@ class _FlashAttention(torch.autograd.Function):
     """Saves ``q, k, v, O`` and ``lse``, nothing larger."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
+    def forward(ctx, q, k, v, causal, window, q_offset, scale=None):
         _route(q, k, v)     # raises for a device without a route (meta too)
-        o, lse = _fwd_op(q, k, v, causal, window, q_offset)
+        o, lse = _fwd_op(q, k, v, causal, window, q_offset, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = (causal, window, q_offset)
+        ctx.opts = (causal, window, q_offset, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _bwd_op(q, k, v, o, lse, do, *ctx.opts)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset=0,
-                    placements=None) -> torch.Tensor:
+                    placements=None, scale: Optional[float] = None) -> torch.Tensor:
     """Attention of ``q (B, Sq, Hq, D)`` over ``k, v (B, Skv, Hkv, D)``, in
     ``q``'s dtype, differentiable in ``q``, ``k`` and ``v``, query row ``i``
     at position ``i + q_offset``. Replaces ``flash_attention_pallas``, with a
     backward of its own. ``q_offset`` is an int or a 0-d integer tensor (the
     reference's ``int | jax.Array``), read once, on the host: a CUDA tensor
-    is synchronized with. DTensors run shard by shard: q, k and v
+    is synchronized with. ``scale`` multiplies the scores (``1/sqrt(D)``
+    if None). DTensors run shard by shard: q, k and v
     redistributed to ``placements`` (one a mesh dim, which the caller
     chooses: the sequence whole on every device), then each shard's local
     tensors through :class:`_FlashAttention`."""
     q_offset = query_offset(q_offset)
     if placements is None:
-        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset, scale)
     from torch.distributed.tensor.experimental import local_map
 
     return local_map(
-        lambda q, k, v: _FlashAttention.apply(q, k, v, causal, window, q_offset),
+        lambda q, k, v: _FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                              scale),
         out_placements=placements,
         in_placements=(placements, placements, placements),
         device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v)

@@ -2,7 +2,9 @@
 ``repro.kernels.ssd_scan``).
 
 For one head, with x ``(S, P)``, dt ``(S,)``, the scalar decay rate A < 0,
-and B, C ``(S, N)`` shared by all heads (ngroups = 1)::
+and B, C ``(S, N)`` of its group (Mamba2's ngroups G: B and C ``(B, S, G,
+N)``, head h reading group ``h // (H / G)``; ``(B, S, N)`` is G = 1, shared
+by all heads)::
 
     S_t = exp(A dt_t) S_{t-1} + B_t (x) (dt_t x_t),    S_0 given or 0
     y_t = C_t . S_t
@@ -29,7 +31,7 @@ product, as B4's kernels):
     f32, from an initial state (the reference's ``ssd_chunked(
     initial_state=)``; none is zeros). Three kernels: every chunk's summary
     ``(B ⊙ exp(g_L - g))^T xf`` and ``C B^T`` once per batch row and chunk
-    (B and C are shared by the heads); the short pass that carries the
+    (B and C are shared by a group's heads); the short pass that carries the
     states across the chunks from the initial state, and one step past the
     last to the final state; every chunk's outputs;
   * ``ssd_bwd`` (S2) — dx, d(dt), dA, dB and dC, from the final state's
@@ -47,6 +49,10 @@ of every chunk and head, S2's ``dS`` and partial sums) with ``torch.empty``.
 At the main shape the function's fewest operations bound it on f32 FMAs,
 and its bytes once its products run on the tensor cores
 (``chip_smoke.ssd_bound``).
+
+Each entry point is one launch of each of its kernels whatever G: no
+``(B, S, H / G, P)`` slice is copied out. G = 1, in either layout, is the
+ungrouped arithmetic, bit for bit.
 
 The kernels take chunks of :data:`SSD_CHUNK` = 64 steps, not B9's 128 or
 the model's 256: S2's tiles at 64 (with two buffers of a head's) take 214
@@ -86,6 +92,8 @@ def _work_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 def _dims(x, dt, A, Bm, Cm):
+    """``(B, S, H, P, N)``; B and C ``(B, S, N)`` or ``(B, S, G, N)`` with G
+    dividing H (:func:`_groups`)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
     b, s, h, p = x.shape
@@ -93,10 +101,26 @@ def _dims(x, dt, A, Bm, Cm):
         raise ValueError(f"dt must be (B, S, H) = {(b, s, h)}, got {tuple(dt.shape)}")
     if tuple(A.shape) != (h,):
         raise ValueError(f"A must be (H,) = {(h,)}, got {tuple(A.shape)}")
-    if Bm.dim() != 3 or tuple(Bm.shape[:2]) != (b, s) or Cm.shape != Bm.shape:
-        raise ValueError(f"Bm and Cm must be one (B, S, N) shape with (B, S) = "
-                         f"{(b, s)}; got {tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    if Bm.dim() not in (3, 4) or tuple(Bm.shape[:2]) != (b, s) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"Bm and Cm must be one (B, S, N) or (B, S, G, N) shape "
+                         f"with (B, S) = {(b, s)}; got {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}")
+    _groups(Bm, h)
     return b, s, h, p, Bm.shape[-1]
+
+
+def _groups(Bm: torch.Tensor, h: int) -> int:
+    """B's (and C's) groups G: 1 for ``(B, S, N)``; G must divide H."""
+    g = Bm.shape[2] if Bm.dim() == 4 else 1
+    if g < 1 or h % g:
+        raise ValueError(f"{g} B/C groups do not divide {h} heads")
+    return g
+
+
+def _grouped(m: torch.Tensor) -> torch.Tensor:
+    """B or C as ``(B, S, G, N)``: a ``(B, S, N)`` one as one group."""
+    return m if m.dim() == 4 else m[:, :, None]
 
 
 def _chunks(x: torch.Tensor, lc: int, wt: torch.dtype) -> torch.Tensor:
@@ -115,10 +139,14 @@ def _unchunk(x: torch.Tensor, s: int, dtype: torch.dtype) -> torch.Tensor:
 
 def _chunk_all(x, dt, A, Bm, Cm, lc: int, wt: torch.dtype):
     """x ``(B, H, nc, L, P)``, dt ``(B, H, nc, L)``, B and C
-    ``(B, 1, nc, L, N)``, and ``g = cumsum(dt A)`` down each chunk."""
+    ``(B, 1, nc, L, N)`` (one group, for every head) or ``(B, H, nc, L, N)``
+    (each head its group's), and ``g = cumsum(dt A)`` down each chunk."""
     xc = _chunks(x, lc, wt)
     dtc = _chunks(dt[..., None], lc, wt)[..., 0]
-    bc, cc = (_chunks(m[:, :, None], lc, wt) for m in (Bm, Cm))
+    bc, cc = (_chunks(_grouped(m), lc, wt) for m in (Bm, Cm))
+    if bc.shape[1] > 1:
+        bc, cc = (t.repeat_interleave(x.shape[2] // t.shape[1], dim=1)
+                  for t in (bc, cc))
     g = torch.cumsum(dtc * A.to(wt)[None, :, None, None], dim=-1)
     return xc, dtc, bc, cc, g
 
@@ -131,6 +159,14 @@ def _pair_decay(g: torch.Tensor) -> torch.Tensor:
     lower = torch.tril(torch.ones(lc, lc, dtype=torch.bool, device=g.device))
     gap = g[..., :, None] - g[..., None, :]
     return torch.where(lower, torch.exp(torch.where(lower, gap, 0.0)), 0.0)
+
+
+def _group_sum(t: torch.Tensor, g: int) -> torch.Tensor:
+    """``(B, H, ...)`` summed over each of ``g`` groups' heads: ``(B, g,
+    ...)``."""
+    if g == 1:
+        return t.sum(dim=1, keepdim=True)
+    return t.reshape(t.shape[0], g, t.shape[1] // g, *t.shape[2:]).sum(dim=2)
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +229,11 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, d_final=None, *,
               exp(g_L) <S, dS> + sum R
         da  = reverse cumsum of dg;  ddt = da A + rowsum(dxf ⊙ x);
         dx  = dxf dt;  dA = sum da dt
+
+    dB and dC are summed over each group's heads, in B's and C's layout.
     """
     b, s, h, p, n = _dims(x, dt, A, Bm, Cm)
+    ng = _groups(Bm, h)
     wt = _work_dtype(x)
     lc = min(chunk, s)
     xc, dtc, bc, cc, g = _chunk_all(x, dt, A, Bm, Cm, lc, wt)
@@ -237,7 +276,7 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, d_final=None, *,
     da_dt = (da * dtc).sum(dim=(0, 2, 3))
     dx = _unchunk(dxf * dtc[..., None], s, x.dtype)
     ddt = _unchunk(ddt[..., None], s, dt.dtype)[..., 0]
-    db, dc = (_unchunk(t.sum(dim=1, keepdim=True), s, m_.dtype)[:, :, 0]
+    db, dc = (_unchunk(_group_sum(t, ng), s, m_.dtype).reshape(m_.shape)
               for t, m_ in ((db, Bm), (dc, Cm)))
     return dx, ddt, da_dt.to(A.dtype), db, dc, d_end if with_initial else None
 
@@ -247,10 +286,11 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, d_final=None, *,
 # ---------------------------------------------------------------------------
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# batch, seq, heads, head_dim, state, chunk; S2: heads a block; bf16
+# batch, seq, heads, head_dim, state, chunk, B/C groups; S2: heads a block;
+# bf16
 _SIGNATURES = {
-    "ssd_fwd": [_PTR] * 11 + [_INT] * 7,
-    "ssd_bwd": [_PTR] * 20 + [_INT] * 8,
+    "ssd_fwd": [_PTR] * 11 + [_INT] * 8,
+    "ssd_bwd": [_PTR] * 20 + [_INT] * 9,
 }
 
 # launches of each CUDA kernel since the last reset_launches()
@@ -335,10 +375,10 @@ def _kernel_inputs(x, dt, A, Bm, Cm):
     return (xk, dtk, ak, bk, ck), [b, s, h, p, n, lc, int(wire == torch.bfloat16)]
 
 
-def _heads_per_block(h: int) -> int:
-    """Heads a block of S2's chunk-local stage: the largest divisor of
-    ``h`` up to :data:`SSD_BWD_HEADS`."""
-    return max(k for k in range(1, SSD_BWD_HEADS + 1) if h % k == 0)
+def _heads_per_block(h: int, g: int = 1) -> int:
+    """Heads a block of S2's chunk-local stage: the largest divisor of a
+    group's ``h / g`` heads up to :data:`SSD_BWD_HEADS`."""
+    return max(k for k in range(1, SSD_BWD_HEADS + 1) if (h // g) % k == 0)
 
 
 def _f32(*shape, device) -> torch.Tensor:
@@ -367,15 +407,16 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm, initial_state=None
     if not _route(x, dt, A, Bm, Cm, *(() if initial_state is None else (initial_state,))):
         return ssd_scan_plain(x, dt, A, Bm, Cm, initial_state)
     ins, args = _kernel_inputs(x, dt, A, Bm, Cm)
-    b, s, h, p, n, lc, _ = args
+    b, s, h, p, n, lc, bf16 = args
+    g = _groups(Bm, h)
     init = _state_input(initial_state, args, "initial_state")
     nc, dev = -(-s // lc), x.device
     y = torch.empty(x.shape, dtype=ins[0].dtype, device=dev)
     states, final = _f32(b, h, nc, n, p, device=dev), _f32(b, h, n, p, device=dev)
-    # C B^T of every chunk, exp(g_L) of every chunk and head
-    _, scratch = build.scratch(dev, b * nc * SSD_CHUNK ** 2, b * h * nc)
+    # C B^T of every chunk and group, exp(g_L) of every chunk and head
+    _, scratch = build.scratch(dev, b * g * nc * SSD_CHUNK ** 2, b * h * nc)
     _launch("ssd_fwd", dev, *(t.data_ptr() for t in ins + (y, states)), _ptr(init),
-            final.data_ptr(), *scratch, *args)
+            final.data_ptr(), *scratch, *args[:-1], g, bf16)
     return y.to(x.dtype), states, final
 
 
@@ -390,7 +431,8 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, d_final=None, *,
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, d_final,
                                   with_initial=with_initial)
     ins, args = _kernel_inputs(x, dt, A, Bm, Cm)
-    b, s, h, p, n, lc, _ = args
+    b, s, h, p, n, lc, bf16 = args
+    g = _groups(Bm, h)
     if states.shape != (b, h, -(-s // lc), n, p) or states.dtype != torch.float32:
         raise ValueError(f"states must be f32 {(b, h, -(-s // lc), n, p)}, got "
                          f"{states.dtype} {tuple(states.shape)}")
@@ -398,18 +440,19 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, d_final=None, *,
         raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
     d_fin = _state_input(d_final, args, "d_final")
     states, dy = build.on_16_bytes(states, dy.to(ins[0].dtype))
-    nc, dev, hb = -(-s // lc), x.device, _heads_per_block(h)
+    nc, dev, hb = -(-s // lc), x.device, _heads_per_block(h, g)
     outs = (_f32(b, s, h, p, device=dev), _f32(b, s, h, device=dev), _f32(h, device=dev),
-            _f32(b, s, n, device=dev), _f32(b, s, n, device=dev))
+            _f32(*Bm.shape, device=dev), _f32(*Cm.shape, device=dev))
     d_init = _f32(b, h, n, p, device=dev) if with_initial else None
-    # C B^T of every chunk, dS, the groups' partials of dB and dC (each on
-    # 16 bytes), then exp(g_L) and dA's partials of every chunk and head
+    # C B^T of every chunk and group, dS, the head groups' partials of dB
+    # and dC (each on 16 bytes), then exp(g_L) and dA's partials of every
+    # chunk and head
     _, (cb, ds, db_part, dc_part, el, da_part) = build.scratch(
-        dev, b * nc * SSD_CHUNK ** 2, b * h * nc * n * p, b * (h // hb) * s * n,
+        dev, b * g * nc * SSD_CHUNK ** 2, b * h * nc * n * p, b * (h // hb) * s * n,
         b * (h // hb) * s * n, b * h * nc, b * h * nc)
     _launch("ssd_bwd", dev, *(t.data_ptr() for t in ins + (states, dy)), _ptr(d_fin),
             *(t.data_ptr() for t in outs), _ptr(d_init),
-            cb, el, ds, da_part, db_part, dc_part, *args[:-1], hb, args[-1])
+            cb, el, ds, da_part, db_part, dc_part, *args[:-1], g, hb, bf16)
     return tuple(g.to(t.dtype) for g, t in zip(outs, (x, dt, A, Bm, Cm))) + (d_init,)
 
 
@@ -483,7 +526,7 @@ class _SsdScan(torch.autograd.Function):
 def ssd_scan(x, dt, A, Bm, Cm, initial_state=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The SSD scan of x ``(B, S, H, P)``, dt ``(B, S, H)``, A ``(H,)`` and
-    Bm, Cm ``(B, S, N)`` from ``initial_state`` ``(B, H, N, P)`` (zeros if
+    Bm, Cm ``(B, S, N)`` or ``(B, S, G, N)`` from ``initial_state`` ``(B, H, N, P)`` (zeros if
     None): ``(y, final_state)``, y in x's dtype, the final state f32,
     differentiable in all six inputs (the reference's ``ssd_chunked`` at
     the kernels' chunk). Replaces ``ssd_scan_pallas``, with a backward of its

@@ -161,10 +161,12 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
 
 
 def attention_reference(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset=0):
-    """Dense O(S^2) attention. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D)."""
+                        window: Optional[int] = None, q_offset=0,
+                        scale: Optional[float] = None):
+    """Dense O(S^2) attention. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D); the
+    scores scaled by ``scale`` (``1/sqrt(D)`` if None)."""
     sq, hq, d = q.shape[1], q.shape[2], q.shape[3]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     k = _expand_kv(k, hq)
     v = _expand_kv(v, hq)
     qs = (q * scale).to(q.dtype)
@@ -180,7 +182,7 @@ def attention_reference(q, k, v, *, causal: bool = True,
 
 def attention_chunked(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None, chunk: int = 1024,
-                      q_offset=0):
+                      q_offset=0, scale: Optional[float] = None):
     """Flash-style streaming attention: a loop over KV chunks with an online
     softmax, never more than (B, Sq, Hq, chunk) scores at once. Matches
     :func:`attention_reference` to float tolerance (tested)."""
@@ -192,7 +194,7 @@ def attention_chunked(q, k, v, *, causal: bool = True,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     k = _expand_kv(k, hq)
     v = _expand_kv(v, hq)
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qs = (q * scale).to(q.dtype).float()
     qpos = torch.arange(sq, device=q.device) + q_offset
     m = torch.full((b, sq, hq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -217,13 +219,14 @@ def attention_chunked(q, k, v, *, causal: bool = True,
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-              q_offset=0, chunk: int = 1024):
+              q_offset=0, chunk: int = 1024, scale: Optional[float] = None):
     """Dispatch. On the CPU as the reference: dense for short sequences,
     chunked-streaming for long. Any other device goes to the flash attention
     kernels, which raise for a device other than CUDA. ``q_offset`` (an int
     or a 0-d integer tensor, the reference's ``int | jax.Array``) puts query
     row ``i`` at position ``i + q_offset``: a block of queries that
-    continues a sequence whose keys come first. DTensors go to the flash
+    continues a sequence whose keys come first. ``scale`` multiplies the
+    scores (``1/sqrt(D)`` if None). DTensors go to the flash
     attention of each shard on every device, laid out by
     :func:`attention_placements`; where the kv heads do not split over the
     ways the q heads do, k and v are first expanded to one head a q head,
@@ -231,19 +234,20 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     if q.device.type != "cpu" or is_dtensor(q):
         if not is_dtensor(q):
             return flash_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset, scale=scale)
         placements, kv_split = attention_placements(q, k.shape[2])
         if not kv_split:
             g = q.shape[2] // k.shape[2]
             k = torch.repeat_interleave(k, g, dim=2)
             v = torch.repeat_interleave(v, g, dim=2)
         return flash_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, placements=placements)
+                               q_offset=q_offset, placements=placements,
+                               scale=scale)
     if k.shape[1] <= 2048:
         return attention_reference(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset, scale=scale)
     return attention_chunked(q, k, v, causal=causal, window=window,
-                             chunk=chunk, q_offset=q_offset)
+                             chunk=chunk, q_offset=q_offset, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, cur_index, *,

@@ -1,6 +1,12 @@
 """Mamba2 (SSD) blocks and the Zamba2 hybrid, a Mamba2 backbone with one
 *shared* attention block applied every ``attn_every`` layers (the
-counterpart of ``repro.models.ssm``).
+counterpart of ``repro.models.ssm``), or, with ``cfg.hybrid_layers``, the
+published Zamba2 block of ``transformers``' ``modeling_zamba2.py``
+(Zamba2-7B; :class:`Zamba2LM`).
+
+Mamba2 takes ``cfg.ssm_groups`` B/C groups (``mamba_ngroups``): head h
+reads group ``h // (heads / groups)``, and the gated RMS norm runs over each
+group's ``d_inner / groups`` channels.
 
 The SSD runs the chunked algorithm (Dao & Gu, 2024): a dense intra-chunk
 term with per-head scalar decay plus an inter-chunk ``(N, P)`` state, every
@@ -70,6 +76,7 @@ from repro_torch.models.model import (
 )
 from repro_torch.models.module import ParamSpec
 from repro_torch.models.transformer import ACT, _attn_specs, _mlp_specs, unstack
+from repro_torch.spans import span
 
 CONV_K = 4  # mamba2 depthwise conv kernel width
 
@@ -82,11 +89,24 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
                 initial_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x ``(B, S, H, P)``, dt ``(B, S, H)`` (softplus'd), A ``(H,)``
-    (negative), Bm and Cm ``(B, S, N)``, the state ``(B, H, N, P)``.
+    (negative), Bm and Cm ``(B, S, N)`` or ``(B, S, G, N)`` (G groups, each
+    read by its ``H / G`` heads), the state ``(B, H, N, P)``.
     Returns f32 y ``(B, S, H, P)`` and the final state. The pairwise decay
     masks its exponent before ``exp`` (the reference masks after it), so
     no ``inf`` reaches autograd's ``0 * inf`` when ``g`` spans more than
-    88 over a chunk."""
+    88 over a chunk. G groups are G calls over their heads."""
+    if Bm.dim() == 4:
+        g = Bm.shape[2]
+        if g > 1:
+            hg = x.shape[2] // g
+            parts = [ssd_chunked(
+                x[:, :, i * hg:(i + 1) * hg], dt[..., i * hg:(i + 1) * hg],
+                A[i * hg:(i + 1) * hg], Bm[:, :, i], Cm[:, :, i], chunk,
+                None if initial_state is None
+                else initial_state[:, i * hg:(i + 1) * hg]) for i in range(g)]
+            return (torch.cat([y for y, _ in parts], dim=2),
+                    torch.cat([st for _, st in parts], dim=1))
+        Bm, Cm = Bm[:, :, 0], Cm[:, :, 0]
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     lc = min(chunk, s)
@@ -149,7 +169,7 @@ def ssd_decode_step(x, dt, A, Bm, Cm, state):
 def mamba2_specs(cfg: ArchConfig, nl: int) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     din = cfg.d_inner
-    n = cfg.ssm_state
+    n = cfg.ssm_groups * cfg.ssm_state    # B's (and C's) channels, every group
     h = cfg.n_ssm_heads
     conv_dim = din + 2 * n
     d_in_proj = 2 * din + 2 * n + h
@@ -170,7 +190,7 @@ def mamba2_specs(cfg: ArchConfig, nl: int) -> Dict[str, ParamSpec]:
 
 
 def _split_in_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
-    din, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    din, n, h = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.n_ssm_heads
     z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * n, h], dim=-1)
     return z, xbc, dt
 
@@ -192,30 +212,50 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out), new_state
 
 
+def _gated_norm(u: torch.Tensor, w: torch.Tensor, groups: int,
+                eps: float) -> torch.Tensor:
+    """The RMS norm of ``u`` over each of ``groups`` equal parts of its last
+    dim, times ``w`` (``Zamba2RMSNormGated``'s, after its gate)."""
+    if groups == 1:
+        return L.rms_norm(u, w, eps)
+    dt = u.dtype
+    x = u.float().reshape(*u.shape[:-1], groups, u.shape[-1] // groups)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x.reshape(u.shape) * w.float()).to(dt)
+
+
 def mamba2_block(cfg: ArchConfig, lp, h_in: torch.Tensor, *,
                  ssm_state: Optional[torch.Tensor] = None,
                  conv_state: Optional[torch.Tensor] = None,
-                 decode: bool = False):
+                 decode: bool = False, h_add: Optional[torch.Tensor] = None):
     """Returns (h_out, new_ssm_state, new_conv_state). ``decode``: one token
     through :func:`ssd_decode_step` from ``ssm_state``. Otherwise the whole
     sequence from ``ssm_state`` and ``conv_state`` (zeros where None), as
     the reference's: the SSD through :func:`ssd_chunked` on the CPU and the
-    kernels on the card, each giving the final state. DTensors take
-    :func:`_mamba2_sharded`."""
+    kernels on the card, each giving the final state. ``h_add`` (the
+    published Zamba2 block's shared output) joins the input before its norm
+    and not the residual: ``h_out = h_in + mamba(norm(h_in + h_add))``.
+    DTensors take :func:`_mamba2_sharded`."""
     if is_dtensor(h_in):
+        if h_add is not None:
+            raise NotImplementedError("the published Zamba2 block on DTensors")
         return _mamba2_sharded(cfg, lp, h_in, ssm_state=ssm_state,
                                conv_state=conv_state, decode=decode)
     din, n, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    p = cfg.ssm_head_dim
-    x = L.rms_norm(h_in, lp["ln"])
+    p, ng = cfg.ssm_head_dim, cfg.ssm_groups
+    x = L.rms_norm(h_in if h_add is None else h_in + h_add, lp["ln"], cfg.norm_eps)
     zxbcdt = x @ lp["in_proj"]
     z, xbc, dt = _split_in_proj(cfg, zxbcdt)
     xbc, new_conv = _causal_conv(xbc, lp["conv_w"], lp["conv_b"],
                                  state=conv_state)
-    xs, Bm, Cm = torch.split(xbc, [din, n, n], dim=-1)
+    xs, Bm, Cm = torch.split(xbc, [din, ng * n, ng * n], dim=-1)
     dt = F.softplus(dt.float() + lp["dt_bias"].float())
     A = -torch.exp(lp["A_log"].float())
     b, s, _ = xs.shape
+    if ng > 1:
+        if decode:
+            raise NotImplementedError("Mamba2 decode takes one B/C group")
+        Bm, Cm = Bm.reshape(b, s, ng, n), Cm.reshape(b, s, ng, n)
     xh = xs.reshape(b, s, nh, p)
     if decode:
         y, new_state = ssd_decode_step(xh, dt, A, Bm, Cm, ssm_state)
@@ -226,7 +266,7 @@ def mamba2_block(cfg: ArchConfig, lp, h_in: torch.Tensor, *,
         y, new_state = ssd_scan(xh, dt, A, Bm, Cm, ssm_state)
     y = y.float() + lp["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, s, din).to(h_in.dtype)
-    y = L.rms_norm(y * F.silu(z), lp["gate_ln"])
+    y = _gated_norm(y * F.silu(z), lp["gate_ln"], ng, cfg.norm_eps)
     return h_in + y @ lp["out_proj"], new_state, new_conv
 
 
@@ -248,10 +288,14 @@ def _mamba2_sharded(cfg: ArchConfig, lp, h_in, *, ssm_state=None,
     form the whole pre-conv row, and the reference's compiled step drops
     that state as unused. The SSM state, in and out, is laid out by heads
     as in decode. The gate's norm and ``out_proj`` run on DTensors. On a
-    one-rank mesh every step is the plain route's."""
+    one-rank mesh every step is the plain route's. One B/C group only."""
+    if cfg.ssm_groups != 1:
+        raise NotImplementedError(
+            f"Mamba2 on DTensors takes one B/C group; {cfg.name} has "
+            f"{cfg.ssm_groups}")
     din, n, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     p = cfg.ssm_head_dim
-    x = whole_seq(L.rms_norm(h_in, lp["ln"]))
+    x = whole_seq(L.rms_norm(h_in, lp["ln"], cfg.norm_eps))
     mesh = x.device_mesh
     rows = [Shard(0) if q.is_shard(0) else Replicate() for q in x.placements]
     split = [q.is_shard(1) and not r.is_shard() for q, r in
@@ -335,22 +379,29 @@ def _mamba2_sharded(cfg: ArchConfig, lp, h_in, *, ssm_state=None,
         res = on_shards(block, mesh, (out, state_p, rows) if carry else (out, state_p),
                         ins, grads)(*args, ssm_state, conv_state)
         y, new_state, new_conv = res if carry else (*res, None)
-    y = L.rms_norm(y, lp["gate_ln"])
+    y = L.rms_norm(y, lp["gate_ln"], cfg.norm_eps)
     return h_in + L.project(y, lp["out_proj"]), new_state, new_conv
 
 
-def _mamba_layer(cfg: ArchConfig, lp, h):
-    return constrain(mamba2_block(cfg, lp, h)[0], ACT)
+def _mamba_layer(cfg: ArchConfig, lp, h, index: int, h_add=None):
+    """Mamba layer ``index`` in the span ``mamba.layer`` (which a remat
+    recompute enters again, on the autograd engine's thread)."""
+    with span("mamba.layer", index):
+        return constrain(mamba2_block(cfg, lp, h, h_add=h_add)[0], ACT)
 
 
-def _mamba_layers(cfg: ArchConfig, layers, h):
-    """The Mamba layers in turn, each recomputed in backward under
-    ``cfg.remat``."""
-    for lp in layers:
-        if cfg.remat:
-            h = checkpoint(_mamba_layer, cfg, lp, h, use_reentrant=False)
-        else:
-            h = _mamba_layer(cfg, lp, h)
+def _mamba_step(cfg: ArchConfig, lp, h, index: int, h_add=None):
+    """One Mamba layer, recomputed in backward under ``cfg.remat``."""
+    if cfg.remat:
+        return checkpoint(_mamba_layer, cfg, lp, h, index, h_add,
+                          use_reentrant=False)
+    return _mamba_layer(cfg, lp, h, index, h_add)
+
+
+def _mamba_layers(cfg: ArchConfig, layers, h, first: int = 0):
+    """The Mamba layers in turn (``first`` the index of the first)."""
+    for i, lp in enumerate(layers):
+        h = _mamba_step(cfg, lp, h, first + i)
     return h
 
 
@@ -373,7 +424,7 @@ class Mamba2LM(BaseModel):
         cfg = self.cfg
         h = constrain(L.embed(params["embed"], batch["tokens"]), ACT)
         h = _mamba_layers(cfg, unstack(params["mamba"]), h)
-        h = L.rms_norm(h, params["ln_f"])
+        h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
         return constrain(logits, LOGITS), {}
 
@@ -390,7 +441,7 @@ class Mamba2LM(BaseModel):
                                      conv_state=cache["conv"][li], decode=True)
             new_ssm.append(s2)
             new_conv.append(c2)
-        h = L.rms_norm(h, params["ln_f"])
+        h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
         return logits, {
             "ssm": keep_state(torch.stack(new_ssm), cache["ssm"], active),
@@ -399,7 +450,7 @@ class Mamba2LM(BaseModel):
 
 def _mamba_cache_specs(cfg: ArchConfig, batch_size: int, dtype):
     n, p, nh = cfg.ssm_state, cfg.ssm_head_dim, cfg.n_ssm_heads
-    conv_dim = cfg.d_inner + 2 * n
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * n
     return {
         "ssm": ParamSpec((cfg.n_layers, batch_size, nh, n, p),
                          ("layers", "batch", "ssm_heads", None, None),
@@ -411,13 +462,39 @@ def _mamba_cache_specs(cfg: ArchConfig, batch_size: int, dtype):
 
 
 # ---------------------------------------------------------------------------
-# Zamba2: mamba2 backbone + one shared attention block every attn_every layers
+# Zamba2: a Mamba2 backbone with weight-shared attention blocks
 # ---------------------------------------------------------------------------
 
 class Zamba2LM(BaseModel):
-    """38 mamba2 layers; a single *weight-shared* full-attention block (MHA +
-    SwiGLU) applied after every ``attn_every``-th mamba layer (Zamba2's
-    shared-block design; per-use LoRA adapters omitted — noted in config)."""
+    """Mamba2 layers and weight-shared attention blocks (MHA + a gated MLP),
+    in one of two forms.
+
+    Without ``cfg.hybrid_layers`` (zamba2-1.2b, as the reference has it): one
+    shared block (SwiGLU, B4's scale) after every ``attn_every``-th Mamba
+    layer, on the residual stream (``h + attn``, then ``h + mlp``); per-use
+    LoRA adapters omitted.
+
+    With them, the published block (``modeling_zamba2.py``, Zamba2-7B):
+    before Mamba layer ``i`` of ``hybrid_layers`` (its hybrid layer) shared
+    block ``u % n_shared_blocks`` (use ``u`` in order: A, B, A, ...) reads
+    ``concat(h, e)``, ``e`` the embedding's output, through an RMS norm; q,
+    k and v of width ``2 d_model`` over ``n_heads`` of ``head_dim``, rotary
+    positions, causal attention at the scale ``(head_dim / 2) ** -0.5``
+    (``Zamba2Attention.scaling``); ``o_proj`` back to ``d_model``; an RMS
+    norm (``pre_ff_layernorm``); the GeGLU MLP (the erf GELU), whose gate
+    and up take use ``u``'s rank-``adapter_rank`` LoRA (``lora_a``,
+    ``lora_b``, the first ``d_ff`` of its outputs the gate's); and use
+    ``u``'s ``linear``. No residual inside the block: its output joins
+    Mamba layer ``i``'s input before that layer's norm and not the residual
+    (:func:`mamba2_block`'s ``h_add``). The head is the embedding's
+    transpose (``Zamba2ForCausalLM`` ties them). The shared blocks are
+    stacked on a leading dim (``shared``), and so are the uses' adapters and
+    linears (``uses``). Each use runs in the span ``hybrid.shared`` (block,
+    use).
+
+    ``cfg.remat`` recomputes each Mamba layer in backward; the shared
+    blocks are not rematerialized, as in the reference. Decode and the
+    DTensor path take the first form only."""
 
     def _layout(self):
         cfg = self.cfg
@@ -425,57 +502,143 @@ class Zamba2LM(BaseModel):
         rem = cfg.n_layers - g * cfg.attn_every
         return g, rem
 
+    @property
+    def published(self) -> bool:
+        cfg = self.cfg
+        if not cfg.hybrid_layers:
+            if cfg.n_shared_blocks != 1 or cfg.adapter_rank:
+                raise ValueError(f"{cfg.name}: shared blocks in turn and adapters "
+                                 "belong to the published block (hybrid_layers)")
+            return False
+        ids = list(cfg.hybrid_layers)
+        if ids != sorted(set(ids)) or ids[0] < 0 or ids[-1] >= cfg.n_layers \
+                or cfg.n_shared_blocks < 1:
+            raise ValueError(f"{cfg.name}: hybrid_layers {ids} must rise within "
+                             f"the {cfg.n_layers} layers, over n_shared_blocks >= 1")
+        return True
+
     def param_specs(self):
         cfg = self.cfg
-        shared = {
-            "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
-            "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
-            **_attn_specs(cfg, 0, prefix_axes=()),
-            **_mlp_specs(cfg, 0, prefix_axes=()),
-        }
-        return {
+        out = {
             "embed": ParamSpec((cfg.padded_vocab, cfg.d_model),
                                ("vocab", "embed"), init="embed", scale=0.02),
             "mamba": mamba2_specs(cfg, cfg.n_layers),
-            "shared_attn": shared,
+        }
+        if self.published:
+            return {**out, **self._shared_specs()}
+        return {
+            **out,
+            "shared_attn": {
+                "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+                "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+                **_attn_specs(cfg, 0, prefix_axes=()),
+                **_mlp_specs(cfg, 0, prefix_axes=()),
+            },
             "ln_f": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
             "lm_head": ParamSpec((cfg.d_model, cfg.padded_vocab), ("embed", "vocab")),
         }
 
+    def _shared_specs(self):
+        """The published form's ``shared`` blocks, per-use ``uses`` and
+        final norm (its head is the embedding)."""
+        cfg = self.cfg
+        nb, nu = (cfg.n_shared_blocks,), (len(cfg.hybrid_layers),)
+        d, a, f, r = cfg.d_model, cfg.attn_width, cfg.d_ff, cfg.adapter_rank
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        ax = ("layers",)
+        uses = {"linear": ParamSpec(nu + (d, d), ax + ("embed", None))}
+        if r:
+            uses["lora_a"] = ParamSpec(nu + (d, r), ax + ("embed", None))
+            uses["lora_b"] = ParamSpec(nu + (r, 2 * f), ax + (None, "mlp"))
+        return {
+            "shared": {
+                "ln1": ParamSpec(nb + (a,), ax + ("embed",), init="ones"),
+                "wq": ParamSpec(nb + (a, h, hd), ax + ("embed", "heads", "head_dim")),
+                "wk": ParamSpec(nb + (a, kv, hd), ax + ("embed", "kv_heads", "head_dim")),
+                "wv": ParamSpec(nb + (a, kv, hd), ax + ("embed", "kv_heads", "head_dim")),
+                "wo": ParamSpec(nb + (h, hd, d), ax + ("heads", "head_dim", "embed")),
+                "ln2": ParamSpec(nb + (d,), ax + ("embed",), init="ones"),
+                "w_gate": ParamSpec(nb + (d, f), ax + ("embed", "mlp")),
+                "w_up": ParamSpec(nb + (d, f), ax + ("embed", "mlp")),
+                "w_down": ParamSpec(nb + (f, d), ax + ("mlp", "embed")),
+            },
+            "uses": uses,
+            "ln_f": ParamSpec((d,), ("embed",), init="ones"),
+        }
+
     def _shared_attn_train(self, sp, h, positions):
         cfg = self.cfg
-        x = L.rms_norm(h, sp["ln1"])
+        x = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
         q, k, v = (L.project_heads(x, sp[w]) for w in ("wq", "wk", "wv"))
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         q = constrain(q, ("batch", "seq", "act_heads", None))
         o = L.attention(q, k, v, causal=True)
         h = constrain(h + L.merge_heads(o, sp["wo"]), ACT)
-        x = L.rms_norm(h, sp["ln2"])
+        x = L.rms_norm(h, sp["ln2"], cfg.norm_eps)
         return constrain(h + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"]),
                          ACT)
 
+    def _shared_use(self, bp, up, h, emb, positions, block: int, use: int):
+        """The published block ``block`` at use ``use``: from the
+        concatenation to the use's ``linear``, in the span
+        ``hybrid.shared``."""
+        cfg = self.cfg
+        with span("hybrid.shared", block, use):
+            x = L.rms_norm(torch.cat([h, emb], dim=-1), bp["ln1"], cfg.norm_eps)
+            q, k, v = (L.project_heads(x, bp[w]) for w in ("wq", "wk", "wv"))
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+            o = L.attention(q, k, v, causal=True, scale=(cfg.head_dim / 2) ** -0.5)
+            x = L.rms_norm(L.merge_heads(o, bp["wo"]), bp["ln2"], cfg.norm_eps)
+            gate, up_ = L.project(x, bp["w_gate"]), L.project(x, bp["w_up"])
+            if cfg.adapter_rank:
+                lora = L.project(L.project(x, up["lora_a"]), up["lora_b"])
+                gate = gate + lora[..., :cfg.d_ff]
+                up_ = up_ + lora[..., cfg.d_ff:]
+            y = L.project(F.gelu(gate) * up_, bp["w_down"])
+            return L.project(y, up["linear"])
+
     def _mamba_span(self, layers, h, lo, hi):
-        return _mamba_layers(self.cfg, layers[lo:hi], h)
+        return _mamba_layers(self.cfg, layers[lo:hi], h, lo)
 
     def forward(self, params, batch):
         cfg = self.cfg
-        g, rem = self._layout()
         h = constrain(L.embed(params["embed"], batch["tokens"]), ACT)
         positions = torch.arange(h.shape[1], device=h.device)
         layers = unstack(params["mamba"])
-        for gi in range(g):
-            h = self._mamba_span(layers, h, gi * cfg.attn_every,
-                                 (gi + 1) * cfg.attn_every)
-            h = self._shared_attn_train(params["shared_attn"], h, positions)
-        if rem:
-            h = self._mamba_span(layers, h, g * cfg.attn_every, cfg.n_layers)
-        h = L.rms_norm(h, params["ln_f"])
-        logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
+        if self.published:
+            emb = h
+            blocks, uses = unstack(params["shared"]), unstack(params["uses"])
+            use_at = {i: u for u, i in enumerate(cfg.hybrid_layers)}
+            for i, lp in enumerate(layers):
+                add = None
+                if i in use_at:
+                    u = use_at[i]
+                    b = u % cfg.n_shared_blocks
+                    add = self._shared_use(blocks[b], uses[u], h, emb, positions, b, u)
+                h = _mamba_step(cfg, lp, h, i, add)
+        else:
+            g, rem = self._layout()
+            for gi in range(g):
+                h = self._mamba_span(layers, h, gi * cfg.attn_every,
+                                     (gi + 1) * cfg.attn_every)
+                h = self._shared_attn_train(params["shared_attn"], h, positions)
+            if rem:
+                h = self._mamba_span(layers, h, g * cfg.attn_every, cfg.n_layers)
+        h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
+        head = params["embed"].t() if self.published else params["lm_head"]
+        logits = masked_lm_head(h, head, cfg.vocab)
         return constrain(logits, LOGITS), {}
+
+    def _first_form(self, what: str) -> None:
+        if self.published:
+            raise NotImplementedError(f"{what} of the published Zamba2 block "
+                                      f"({self.cfg.name})")
 
     def cache_specs(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16):
+        self._first_form("decode")
         cfg = self.cfg
         g, _ = self._layout()
         shape = (g, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -488,6 +651,7 @@ class Zamba2LM(BaseModel):
         """One token a lane: the Mamba2 layers from their states, and the
         shared attention block with this application's KV slot (written in
         place at the lane's position)."""
+        self._first_form("decode")
         cfg = self.cfg
         g, _ = self._layout()
         h = L.embed(params["embed"], tokens)
@@ -509,7 +673,7 @@ class Zamba2LM(BaseModel):
         for gi in range(g):
             for li in range(gi * cfg.attn_every, (gi + 1) * cfg.attn_every):
                 h = mamba(h, li)
-            x = L.rms_norm(h, sp["ln1"])
+            x = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
             q, k, v = (L.project_heads(x, sp[w]) for w in ("wq", "wk", "wv"))
             q, k = L.rotate(q, cos, sin), L.rotate(k, cos, sin)
             k_cache, v_cache = cache["k"][gi], cache["v"][gi]
@@ -517,11 +681,11 @@ class Zamba2LM(BaseModel):
             write_kv(v_cache, slots, v, active)
             o = L.decode_attention(q, k_cache, v_cache, cur)
             h = h + L.merge_heads(o, sp["wo"])
-            x = L.rms_norm(h, sp["ln2"])
+            x = L.rms_norm(h, sp["ln2"], cfg.norm_eps)
             h = h + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
         for li in range(g * cfg.attn_every, cfg.n_layers):
             h = mamba(h, li)
-        h = L.rms_norm(h, params["ln_f"])
+        h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
         logits = masked_lm_head(h, params["lm_head"], cfg.vocab)
         return logits, {
             "ssm": keep_state(torch.stack(new_ssm), cache["ssm"], active),

@@ -16,6 +16,14 @@ The spans, outermost first (each nests in the one above it):
 * ``step.batch`` (``run_slot``): the global batch and its shards;
 * ``step.grads`` (``train_step.rank_grads``): one rank's loss and
   gradients;
+
+  * ``hybrid.shared`` (``models/ssm.py`` ``Zamba2LM._shared_use``): one use
+    of a published Zamba2 shared block, from the concatenation to the use's
+    ``linear``; ``block`` and ``use``, its indices;
+  * ``mamba.layer`` (``models/ssm.py`` ``_mamba_layer``): one Mamba2 layer;
+    ``layer``, its index. A remat recompute in backward enters it again, on
+    the autograd engine's thread;
+
 * ``step.reduce`` (``train_step.reduce_grads``, ``ef_reduce_grads``): the
   ring's reduction of every rank's gradients;
 * ``ring.hop`` (``LocalRing.permute``): one ppermute; ``bytes``, what it

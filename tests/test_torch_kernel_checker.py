@@ -49,19 +49,25 @@ def test_kernel_checker_rejects_rows_quant_ring_rejects():
 
 
 def test_kernel_checker_rejects_shared_memory_overflow():
-    # F3 at head dim 256 would need two kv tiles of 49,984 floats
+    # above head dim 128 F3 holds one kv tile a block: at 256 its 49,984
+    # floats fit (two tiles would need 399,872 B); at 352, 68,416 do not
     result = akern.check_spec(akern.FlashSpec(2, 1024, 16, 256, kv_heads=8))
+    f3 = [launch for launch in result.launches
+          if launch.function == "bwd_dkdv_kernel"]
+    assert f3[0].smem == 199_936 and f3[0].grid == (16 * 8 * 2, 1, 1)
+    assert akern.source_formulas("flash_attention")["dkdv_smem"](256) == 399_872
+    result = akern.check_spec(akern.FlashSpec(2, 1024, 16, 352, kv_heads=8))
     assert not result.ok
     f3 = [launch for launch in result.launches
           if launch.function == "bwd_dkdv_kernel"]
-    assert f3[0].smem == 399_872
-    assert any("399872 B of dynamic shared memory" in e
+    assert f3[0].smem == 273_664
+    assert any("273664 B of dynamic shared memory" in e
                for e in result.errors)
     # head dim 96 fits the shared memory but has no instantiation
     result = akern.check_spec(akern.FlashSpec(2, 1024, 16, 96, kv_heads=8))
     assert not result.ok
     assert result.errors == ("head_dim 96 is not one DISPATCH instantiates "
-                             "(32, 64, 80, 128)",)
+                             "(32, 64, 80, 128, 224)",)
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +128,7 @@ def test_constants_and_launch_bounds_read_from_sources():
             r"__launch_bounds__\([^)]*\)\s*(\w+)\s*\(", text)))
         assert text.count("__global__") == text.count("__launch_bounds__")
         assert all(b % 32 == 0 and b <= 1024 for b in bounds.values())
-    assert akern.flash_head_dims() == (32, 64, 80, 128)
+    assert akern.flash_head_dims() == (32, 64, 80, 128, 224)
     assert akern.wkv_head_dims() == (32, 64)
     assert akern.ssd_shapes() == ((16, 32), (64, 64))
 
@@ -131,7 +137,7 @@ def test_every_launch_is_a_queried_instantiation():
     """The launches each spec makes are among the instantiations the card
     query reports, with the dynamic bytes the checker expects there."""
     inst = {name: (fn, smem) for name, _, fn, _, smem in akern._instantiations()}
-    assert len(inst) == 89
+    assert len(inst) == 97
     specs = [akern.KernelSpec(4, 128, kernel=k) for k in
              ("quantize_pack", "dequant_fp8", "cast_pack_bf16", "bf16_upcast")]
     for bf16 in (False, True):

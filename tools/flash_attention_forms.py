@@ -69,7 +69,7 @@ FORMS = {
         ("mma_nt<D, 2, kExact, 2>(dst,", "mma_nt<D, 2, kExact, 1>(dst,")],
     "unpaired": [
         ("constexpr int kDkdvGroups = 2;", "constexpr int kDkdvGroups = 1;"),
-        ("flat_grid((tiles(d.skv) + 1) / 2,", "flat_grid(tiles(d.skv),")],
+        ("D > kDkdvPairMaxDim ? tiles(d.skv) : (tiles(d.skv) + 1) / 2;", "tiles(d.skv);")],
     "one_term": [
         ("  if (!kExactA) mma(c, a[0].lo,", "  if (false) mma(c, a[0].lo,"),
         ("  if (!kExactB) mma(c, a[0].hi,", "  if (false) mma(c, a[0].hi,")],

@@ -9,6 +9,7 @@ port's flags, and loads each library with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import shutil
 import subprocess
 from pathlib import Path
 
@@ -22,6 +23,8 @@ def build_forms(source: Path, out: Path, forms: dict, signatures: dict) -> dict:
     to its argument types, the stream's pointer left out."""
     text = source.read_text()
     out.mkdir(parents=True, exist_ok=True)
+    for header in source.parent.glob("*.cuh"):   # what the source includes
+        shutil.copy(header, out)
     procs = {}
     for name, subs in forms.items():
         form = text

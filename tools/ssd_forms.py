@@ -68,10 +68,13 @@ FORMS = {
         ("          mma3<kExactA, kExactB>(part[n], af, bf);",
          "          mma3<kExactA, kExactB>(c[n], af, bf);")],
     "cb_per_head": [
-        ("  if (blockIdx.z == gridDim.z - 1) {",
-         "  if (blockIdx.z >= gridDim.z - d.heads) {"),
+        ("  const int head_blocks = gridDim.z - d.ngroups;\n"
+         "  const int gi = blockIdx.z >= head_blocks ? blockIdx.z - head_blocks",
+         "  const int head_blocks = gridDim.z - d.heads;\n"
+         "  const int gi = blockIdx.z >= head_blocks\n"
+         "      ? (blockIdx.z - head_blocks) / (d.heads / d.ngroups)"),
         *((f"chunk_sum_kernel<N, P, T, {bwd}>,\n"
-           "                   dim3(d.nc, d.batch, d.heads / dsum.group + 1)",
+           "                   dim3(d.nc, d.batch, d.heads / dsum.group + d.ngroups)",
            f"chunk_sum_kernel<N, P, T, {bwd}>,\n"
            "                   dim3(d.nc, d.batch, d.heads / dsum.group + d.heads)")
           for bwd in ("false", "true"))],
@@ -116,7 +119,9 @@ class Inputs:
         # from a zero state, the final state not formed (null pointers)
         ptrs = ([t.data_ptr() for t in self.ins[:5] + (self.y, self.states)] + [None, None]
                 + [self.cb.data_ptr(), self.el.data_ptr()])
-        err = lib.ssd_fwd(*ptrs, *self.args, torch.cuda.current_stream().cuda_stream)
+        # one B/C group
+        err = lib.ssd_fwd(*ptrs, *self.args[:-1], 1, self.args[-1],
+                          torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
 
     def bwd(self, lib, heads):
@@ -125,7 +130,7 @@ class Inputs:
                 + [t.data_ptr() for t in self.grads] + [None]
                 + [t.data_ptr() for t in (self.cb, self.el, self.ds, self.da)
                    + self.parts[heads]])
-        err = lib.ssd_bwd(*ptrs, *self.args[:-1], heads, self.args[-1],
+        err = lib.ssd_bwd(*ptrs, *self.args[:-1], 1, heads, self.args[-1],
                           torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
 
