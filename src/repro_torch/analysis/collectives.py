@@ -166,8 +166,8 @@ class RecordingRing(LocalRing):
         super().__init__(devices)
         self.sites: List[CollectiveSite] = []
 
-    def permute(self, sends, perm):
-        recvs = super().permute(sends, perm)
+    def permute(self, sends, perm, into=None):
+        recvs = super().permute(sends, perm, into)
         self.sites.append(CollectiveSite(
             "ppermute", tuple((int(s), int(d)) for s, d in perm),
             *_message(sends)))

@@ -26,6 +26,11 @@ The spans, outermost first (each nests in the one above it):
 
 * ``step.reduce`` (``train_step.reduce_grads``, ``ef_reduce_grads``): the
   ring's reduction of every rank's gradients;
+* ``ring.layout`` (``dist/collectives.py`` ``_ring_chunks``): the f32
+  ring's taking of one call's chunks, before its hops and beside them, not
+  around them (once a leaf in mode ``ring``); ``viewed`` and ``copied``, the
+  bytes taken as views of the ranks' own tensors and the bytes put in
+  padded copies, each summed over the ranks;
 * ``ring.hop`` (``LocalRing.permute``): one ppermute; ``bytes``, what it
   adds to ``LocalRing.bytes`` summed over the ranks;
 * ``step.update`` (``make_ring_train_step``): the optimizer on each

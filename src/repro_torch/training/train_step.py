@@ -29,6 +29,7 @@ is per rank: a list with one flat ``{path: residual}`` dict per rank.
 
 from __future__ import annotations
 
+from collections import Counter
 from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -56,9 +57,10 @@ from repro_torch.training.optimizer import Optimizer
 Replicas = Dict[torch.device, dict]
 Grads = List[Dict[str, torch.Tensor]]     # one flat {path: tensor} per rank
 
-# the f32 collectives of the ring modes, by mode
+# the f32 collectives of the ring modes, by mode: "ring" takes the form that
+# consumes its inputs, since reduce_grads owns the leaves it pops
 RING_MODES = {
-    "ring": collectives.ring_all_reduce,
+    "ring": collectives.ring_all_reduce_,
     "bidir": collectives.bidirectional_ring_all_reduce,
     "psum": collectives.psum_all_reduce,
 }
@@ -114,12 +116,25 @@ def rank_grads(model, params: Replicas, shards, devices
     return losses, grads
 
 
+def _unshared_leaves(grads: Grads) -> set:
+    """The paths whose leaf, on every rank, shares its storage with no
+    other leaf of that rank (autograd may hand two parameters one tensor)."""
+    alone = set(grads[0])
+    for g in grads:
+        storages = Counter(v.untyped_storage().data_ptr() for v in g.values())
+        alone -= {p for p, v in g.items()
+                  if storages[v.untyped_storage().data_ptr()] > 1}
+    return alone
+
+
 def reduce_grads(grads: Grads, ring: LocalRing, mode: str, *,
                  n_buckets: Optional[int] = None) -> Grads:
     """Reduce every rank's gradients with the mode's collective, divided by
     w: leaf by leaf (each rank's input leaf dropped once reduced), or for
     the overlap mode bucket by bucket over ``n_buckets`` (the registry's
-    count by default)."""
+    count by default). In mode ``ring`` the leaves are consumed: a leaf
+    whose storage no other leaf of its rank shares is reduced where it
+    lies, any other by the copying ring."""
     check_mode(mode)
     w = ring.size
     with span("step.reduce"):
@@ -129,9 +144,11 @@ def reduce_grads(grads: Grads, ring: LocalRing, mode: str, *,
                                           variant="int8-fused", n_buckets=n)
             return [{p: s[p] / w for p in g} for g, s in zip(grads, summed)]
         collective = LEAF_COLLECTIVES[mode]
+        alone = _unshared_leaves(grads) if mode == "ring" else set(grads[0])
         out: Grads = [{} for _ in range(w)]
         for path in list(grads[0]):
-            reduced = collective([g.pop(path) for g in grads], ring)
+            reduce = collective if path in alone else collectives.ring_all_reduce
+            reduced = reduce([g.pop(path) for g in grads], ring)
             for r in range(w):
                 out[r][path] = reduced[r] / w
         return out

@@ -31,7 +31,13 @@ import pytest
 import torch
 
 from repro.core.rar_model import wire_formula
-from repro_torch.dist.collectives import LocalRing, ring_all_reduce, ring_wire_elements
+from repro_torch.dist.collectives import (
+    LocalRing,
+    ring_all_reduce,
+    ring_all_reduce_,
+    ring_wire_elements,
+)
+from repro_torch.training.train_step import reduce_grads
 from repro_torch.dist.compression import (
     _fused_chunk_layout,
     compressed_ring_all_reduce,
@@ -122,6 +128,120 @@ def test_fused_ring_matches_reference(jax_out, w, d):
     assert ring.bytes == [nbytes] * w and nbytes == f.bytes_per_worker(d, w)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("d", SIZES)
+@pytest.mark.parametrize("w", WS)
+def test_in_place_ring_bit_identical_to_copying_ring_and_reference(
+        jax_out, w, d, reverse):
+    """The consuming form runs the same hops and adds: the same bits as the
+    copying form and the reference, the same messages and bytes. A size w
+    divides is reduced in its inputs' own storage, any other through a
+    padded copy; the copying form leaves its inputs as they were."""
+    x = _inputs()[_key(w, d)]
+    copying, consuming = LocalRing(["cpu"] * w), LocalRing(["cpu"] * w)
+    ins = _ranks(x)
+    want = ring_all_reduce(ins, copying, reverse=reverse)
+    for r in range(w):
+        np.testing.assert_array_equal(ins[r].numpy(), x[r])
+    ptrs = [t.data_ptr() for t in ins]
+    got = ring_all_reduce_(ins, consuming, reverse=reverse)
+    ref = jax_out[("ring_rev_" if reverse else "ring_") + _key(w, d)]
+    for r in range(w):
+        assert torch.equal(got[r], want[r])
+        np.testing.assert_array_equal(got[r].numpy(), ref[r])
+        assert (got[r].data_ptr() == ptrs[r]) == (d % w == 0)
+    assert consuming.messages == copying.messages
+    assert consuming.bytes == copying.bytes
+    assert consuming.directions == copying.directions
+
+
+def _aliased(w, gen):
+    base = torch.randn(w, 48, generator=gen)
+    return list(base)                     # rows of one storage
+
+
+def _one_tensor(w, gen):
+    x = torch.randn(48, generator=gen)
+    return [x] * w
+
+
+def _expanded(w, gen):
+    return [torch.randn(1, 6, generator=gen).expand(8, 6) for _ in range(w)]
+
+
+def _transposed(w, gen):
+    return [torch.randn(6, 8, generator=gen).t() for _ in range(w)]
+
+
+UNOWNABLE = {"aliased ranks": _aliased, "one tensor": _one_tensor,
+             "expanded": _expanded, "non-contiguous": _transposed}
+
+
+@pytest.mark.parametrize("case", list(UNOWNABLE))
+def test_in_place_ring_copies_what_it_cannot_own(case):
+    """Inputs that share a storage, an expanded (stride-0) input and a
+    non-contiguous one take the padded copy: the same bits as the copying
+    form, and the inputs left as they were."""
+    w = 4
+    xs = UNOWNABLE[case](w, torch.Generator().manual_seed(5))
+    before = [x.clone() for x in xs]
+    want = ring_all_reduce([x.clone() for x in xs], LocalRing(["cpu"] * w))
+    got = ring_all_reduce_(xs, LocalRing(["cpu"] * w))
+    for r in range(w):
+        assert got[r].shape == xs[r].shape
+        assert torch.equal(got[r], want[r])
+        assert torch.equal(xs[r], before[r])
+        assert got[r].untyped_storage().data_ptr() != xs[r].untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_permute_into_writes_the_given_tensors(reverse):
+    """``permute(..., into=...)`` copies each message into the receiver's
+    given tensor and returns it, counting what a plain permute counts."""
+    w = 3
+    gen = torch.Generator().manual_seed(2)
+    sends = [torch.randn(5, generator=gen) for _ in range(w)]
+    perm = [(0, 2), (2, 1), (1, 0)]
+    plain, given = LocalRing(["cpu"] * w), LocalRing(["cpu"] * w)
+    want = plain.permute(sends, perm)
+    into = [torch.zeros(5) for _ in range(w)]
+    got = given.permute(sends, perm, into=into)
+    for r in range(w):
+        assert got[r] is into[r] and torch.equal(into[r], want[r])
+    hops = plain.hop(sends, reverse=reverse)
+    got = given.hop(sends, reverse=reverse, into=into)
+    assert all(g is t and torch.equal(t, h) for g, t, h in zip(got, into, hops))
+    assert (given.messages, given.bytes, given.directions) == (
+        plain.messages, plain.bytes, plain.directions)
+    with pytest.raises(ValueError, match="one destination per rank"):
+        given.permute(sends, perm, into=into[:2])
+
+
+def test_ring_mode_reduces_unshared_leaves_in_place():
+    """``reduce_grads`` in mode ``ring`` reduces a leaf in its own storage
+    only where no other leaf of its rank shares that storage; a pair of
+    leaves that are one tensor, or views of one buffer, goes through the
+    copying ring. Every leaf is the copying ring's sum over w."""
+    w, gen = 2, torch.Generator().manual_seed(7)
+    grads = []
+    for _ in range(w):
+        one, buf = torch.randn(12, generator=gen), torch.randn(20, generator=gen)
+        grads.append({"alone": torch.randn(3, 4, generator=gen), "b": one, "c": one,
+                      "d": buf[:8], "e": buf[8:]})
+    want = {p: ring_all_reduce([g[p].clone() for g in grads], LocalRing(["cpu"] * w))
+            for p in grads[0]}
+    ins = [dict(g) for g in grads]
+    before = {p: [g[p].clone() for g in grads] for p in grads[0]}
+    out = reduce_grads(grads, LocalRing(["cpu"] * w), "ring")
+    for p in want:
+        for r in range(w):
+            assert torch.equal(out[r][p], want[p][r] / w), p
+    for r in range(w):
+        assert torch.equal(ins[r]["alone"], want["alone"][r])     # consumed
+        for p in "bcde":
+            assert torch.equal(ins[r][p], before[p][r]), p
+
+
 def test_one_rank_rings_pass_through():
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(77)
                          .astype(np.float32))
@@ -146,7 +266,7 @@ def _jax_reference(inp, out):
     from repro.dist.collectives import ring_all_reduce as jax_ring
     from repro.dist.compression import compressed_ring_all_reduce as jax_fused
 
-    fns = {"ring": jax_ring,
+    fns = {"ring": jax_ring, "ring_rev": partial(jax_ring, reverse=True),
            "fused": partial(jax_fused, fused=True, block=BLOCK, interpret=True)}
     res = {}
     with np.load(inp) as data:

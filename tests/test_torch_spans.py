@@ -74,11 +74,13 @@ def test_slot_spans_nest_and_count(mode, w):
     counts = Counter(_short(e) for e in events)
     hops = [e for e in events if _short(e) == "ring.hop"]
     leaves = len(list(_flatten(tr.model.param_specs())))
-    # beside the spans, AdamW's operator, once a leaf a step
+    # beside the spans, AdamW's operator, once a leaf a step; the f32 ring
+    # takes each leaf's chunks once, the fused int8 ring has no such span
+    layout = {"ring.layout": STEPS * leaves} if mode == "ring" else {}
     assert counts == {"slot.form": 1, "step": STEPS, "step.batch": STEPS,
                       "step.grads": STEPS * w, "step.reduce": STEPS,
                       "step.update": STEPS, "ring.hop": len(hops),
-                      "adamw_leaf": STEPS * leaves}
+                      "adamw_leaf": STEPS * leaves, **layout}
     assert hops
     parents = defaultdict(set)
     for e in events:
@@ -91,6 +93,14 @@ def test_slot_spans_nest_and_count(mode, w):
     inputs = defaultdict(list)
     for e in events:
         inputs[_short(e)].append(list(e.concrete_inputs))
+    if mode == "ring":
+        # each leaf's bytes on every rank, taken as a view or copied
+        assert parents["ring.layout"] == {"step.reduce"}
+        params = next(iter(tr.params.values()))
+        leaf_bytes = [v.numel() * v.element_size() for _, v in _flatten(params)]
+        assert all(len(i) == 2 for i in inputs["ring.layout"])
+        assert sorted(sum(i) for i in inputs["ring.layout"]) == sorted(
+            w * n for n in leaf_bytes * STEPS)
     for name in ("slot.form", "step") + INSIDE_STEP:
         assert all(i == [] for i in inputs[name]), name
     assert all(len(i) == 1 for i in inputs["ring.hop"])
