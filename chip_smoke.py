@@ -76,8 +76,7 @@ non-zero and prints no result. Phases, each raising on failure:
      update) timed apart at w=4 and w=2, with the peak memory of the run.
      B4's launches are held to the model's schedule over each run (per
      step at ring size w, with remat: the forward 2*L*w times, each
-     backward kernel L*w), and its share of one rank's forward and
-     backward is timed with CUDA events;
+     backward kernel L*w);
   5. the modes without ring kernels, ``ring``, ``bidir``, ``psum`` and
      ``compressed``, two steps each at w=4 on the model cut to 4 layers,
      with no ring kernel launched, B4 launched on the same schedule, and
@@ -88,8 +87,8 @@ non-zero and prints no result. Phases, each raising on failure:
      model's schedule (with remat W1 2*L*w times a step, W2 L*w times), and
      AdamW's to one a leaf a step (as in phases 7 and 10),
      every step's loss and a held-out loss against the same slot with the
-     time-mix through the plain recurrence on the card, warm steps, peak
-     memory, and B8's share of one rank's forward and backward;
+     time-mix through the plain recurrence on the card, warm steps and peak
+     memory;
   7. the Zamba2 path: ``ElasticTrainer`` on zamba2-1.2b at full width and
      full depth (38 Mamba2 layers, d_model 2048, 64 SSD heads of 64, state
      64; the shared attention block, 32 heads of 64, d_ff 8192, applied 6
@@ -99,10 +98,10 @@ non-zero and prints no result. Phases, each raising on failure:
      6*w times each kernel), every S1 and S2 call of one rank's forward
      and backward against the plain versions on the path's own inputs (and
      S1 against the SSD in f64, no further than the model's plain
-     ``ssd_chunked`` is), warm steps, peak memory, B9's and B4's shares of
-     one rank's forward and backward (the slot is not held against one
-     through the plain SSD: the model at random init amplifies any
-     reordering of its sums; ``tools/zamba2_ssd_forms.py`` measures that);
+     ``ssd_chunked`` is), warm steps and peak memory (the slot is not
+     held against one through the plain SSD: the model at random init
+     amplifies any reordering of its sums; ``tools/zamba2_ssd_forms.py``
+     measures that);
  7b. the state-carrying path (``state_carry_path``): a sequence of 1024
      tokens in two halves, the second from the states the first returns,
      against the whole, at full width and 2 rows: each of zamba2-1.2b's 38
@@ -203,7 +202,6 @@ non-zero and prints no result. Phases, each raising on failure:
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import dataclasses
 import gc
 import json
@@ -1572,9 +1570,7 @@ def check_zamba2_7b_kernels() -> dict:
                          (FA_BWD[1], lambda: fa.bwd_dkdv(q, k, v, do, lse, delta, **opts)),
                          (FA_BWD[2], lambda: fa.bwd_dq(q, k, v, do, lse, delta, **opts))):
         tc_ms, tc_by = fa_bound(name, dims, causal, window, dtype, tensor_cores=True)
-        res = (ctypes.c_int * 7)()
-        which = list(fa._SIGNATURES).index(name)
-        fa._lib().flash_attention_launch_config(which, d, 0, ctypes.addressof(res))
+        res = fa.LIB.launch_config(list(fa._SIGNATURES).index(name), d, 0)
         row = out["b4"][name]
         row.update(timed_shape=list(dims), ms_224=cuda_ms(kernel), bound_tc_ms_224=tc_ms,
                    bound_tc_by_224=tc_by, registers_224=res[0], local_bytes_224=res[2],
@@ -2132,35 +2128,6 @@ def check_reduction(model, trainer, data, mode: str) -> dict:
     return {"worst": worst, "parts": parts, "fa_launches": fa_launches}
 
 
-def kernel_share(model, trainer, data, module, what: str) -> dict:
-    """The CUDA-event time of ``module``'s kernels (through its ``TIMED``
-    list) over one rank's forward and backward (CUDA events around it), on
-    rank 0's shard of a w=4 step, warm."""
-    batch = {k: torch.as_tensor(v) for k, v in data.batch(trainer.step).items()}
-    devices = trainer.group.devices[:4]
-    shard, dev = shard_batch(batch, devices)[:1], devices[:1]
-    for _ in range(2):
-        rank_grads(model, trainer.params, shard, dev)
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    module.TIMED = []
-    try:
-        start.record()
-        rank_grads(model, trainer.params, shard, dev)
-        end.record()
-        end.synchronize()
-        by_kernel = dict.fromkeys(module.LAUNCHES, 0.0)
-        for name, s, e in module.TIMED:
-            by_kernel[name] += s.elapsed_time(e)
-    finally:
-        module.TIMED = None
-    total = start.elapsed_time(end)
-    out = {"rank_ms": total, "kernel_ms": by_kernel,
-           "share": sum(by_kernel.values()) / total}
-    log(f"{what}'s share of one rank's forward and backward: {out}")
-    return out
-
-
 # -- phase 5: the modes without kernels ---------------------------------------
 
 def plain_mode(mode: str, model, data) -> dict:
@@ -2247,11 +2214,10 @@ def rwkv_path(cfg) -> dict:
     its launches against the model's schedule, its loss on the slot's first
     batch falling; the same slot from the same weights with the time-mix
     through the plain recurrence on the card (``models.rwkv.wkv6_chunked``,
-    autograd's backward), every step's loss compared; then B8's share of
-    one rank's forward and backward. The held-out loss is recorded, not
-    required to fall: at this width the first AdamW steps fit each batch's
-    tokens and lower every other token's logit, in the reference as in the
-    port (``tests/test_torch_rwkv.py --width-witness``, PERF.md)."""
+    autograd's backward), every step's loss compared. The held-out loss is
+    recorded, not required to fall: at this width the first AdamW steps fit
+    each batch's tokens and lower every other token's logit, in the
+    reference as in the port (``tests/test_torch_rwkv.py --width-witness``, PERF.md)."""
     from repro_torch.models import rwkv as rwkv_model
 
     model = build_model(cfg)
@@ -2279,7 +2245,6 @@ def rwkv_path(cfg) -> dict:
     if trainer.re_ring_events != 1 or len(losses) != PLAN.steps:
         raise AssertionError(f"rwkv: re_ring_events {trainer.re_ring_events}, "
                              f"{len(losses)} steps")
-    share = kernel_share(model, trainer, data, W, "B8")
     del trainer
     free_cuda()
 
@@ -2308,8 +2273,7 @@ def rwkv_path(cfg) -> dict:
         "heldout": list(heldout), "first_batch": list(first), "slot_s": seconds,
         "plain_slot_s": plain_s, "loss_gap_to_plain": max(gaps),
         "warm_step_s": {str(w): t for w, t in res["timings"].items()},
-        "peak_gib": peak / 2**30, "b8_launches": launches,
-        "b8_share_of_rank_grads": share}}
+        "peak_gib": peak / 2**30, "b8_launches": launches}}
 
 
 # -- phase 7: the Zamba2 path -------------------------------------------------
@@ -2379,8 +2343,7 @@ def zamba_path(cfg) -> dict:
     launches against the model's schedule and no other kernel's, its loss
     on the slot's first batch falling; every S1 and S2 call of one rank's
     forward and backward against the plain versions on the path's own
-    inputs; B9's and B4's shares of one rank's forward and backward. The
-    held-out loss is recorded, not required to fall (as on the RWKV6 path).
+    inputs. The held-out loss is recorded, not required to fall (as on the RWKV6 path).
     The slot is not held against the same slot through the plain SSD: the
     model at random init turns the reordered sums of any exact SSD into
     loss gaps of 1e-2 and more (``tools/zamba2_ssd_forms.py``, PERF.md)."""
@@ -2407,8 +2370,6 @@ def zamba_path(cfg) -> dict:
     if trainer.re_ring_events != 1 or len(losses) != PLAN.steps:
         raise AssertionError(f"zamba2: re_ring_events {trainer.re_ring_events}, "
                              f"{len(losses)} steps")
-    shares = {"b9": kernel_share(model, trainer, data, SSD, "B9"),
-              "b4": kernel_share(model, trainer, data, fa, "B4")}
     calls = ssd_calls_against_plain(model, trainer, data)
     del trainer
     free_cuda()
@@ -2418,9 +2379,7 @@ def zamba_path(cfg) -> dict:
         "heldout": list(heldout), "first_batch": list(first), "slot_s": seconds,
         "ssd_calls": calls,
         "warm_step_s": {str(w): t for w, t in res["timings"].items()},
-        "peak_gib": peak / 2**30, "launches": launches,
-        "b9_share_of_rank_grads": shares["b9"],
-        "b4_share_of_rank_grads": shares["b4"]}}
+        "peak_gib": peak / 2**30, "launches": launches}}
 
 
 # -- phase 7b: the state-carrying path ----------------------------------------
@@ -3783,7 +3742,6 @@ def moe_path() -> dict:
     reduction["ring_share_w4"] = reduction["ring_s_w4"] / res["timings"][4]
     log(f"moe: one step's reduced gradients, ranks bit-identical; against the "
         f"f32 ring, and the ring's seconds at w=4: {reduction}")
-    share = kernel_share(model, trainer, data, fa, "B4")
     del trainer, params
     free_cuda()
     small = moe_reduced_against_cpu()
@@ -3796,7 +3754,7 @@ def moe_path() -> dict:
         "peak_gib": peak / 2**30, "launches": got, "largest_leaf": largest[0],
         "largest_leaf_elements": largest[1].numel(),
         "largest_leaf_chunk_w4": [nb, c_pad // nb], **reduction,
-        "b4_share_of_rank_grads": share, "reduced_against_cpu": small}}
+        "reduced_against_cpu": small}}
 
 
 # -- phase 11: the encoder-decoder and VLM paths ----------------------------------
@@ -3807,8 +3765,8 @@ class _PlainAttention(torch.autograd.Function):
     the kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, block_k, q_offset):
-        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset)
+    def forward(ctx, q, k, v, causal, window, block_k, q_offset, scale):
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
         o, lse = fa.flash_attention_plain(q, k, v, block_k=block_k, **ctx.opts)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
@@ -3817,7 +3775,7 @@ class _PlainAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         return (*fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **ctx.opts),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def stub_batch(cfg, seq: int, batch: int) -> dict:
@@ -3853,12 +3811,14 @@ def one_rank(model, params, batch, device, plain_block=None, dtype=None):
 
     kernels = model_layers.flash_attention
 
-    def attention(q, k, v, *, causal, window, q_offset):
+    def attention(q, k, v, *, causal, window, q_offset, scale=None):
         q2, k2, v2 = (t.to(dtype or q.dtype) for t in (q, k, v))
         if plain_block:
-            o = _PlainAttention.apply(q2, k2, v2, causal, window, plain_block, q_offset)
+            o = _PlainAttention.apply(q2, k2, v2, causal, window, plain_block,
+                                      q_offset, scale)
         else:
-            o = kernels(q2, k2, v2, causal=causal, window=window, q_offset=q_offset)
+            o = kernels(q2, k2, v2, causal=causal, window=window,
+                        q_offset=q_offset, scale=scale)
         return o.to(q.dtype)
 
     model_layers.flash_attention = attention
@@ -3904,19 +3864,17 @@ def b4_calls_against_plain(model, params, batch) -> dict:
         row[f"{part}_of_limit"] = max(row[f"{part}_of_limit"], *(
             e / (p + tol) for e, p in zip(kernel_errs, plain_errs)))
 
-    def fwd(q, k, v, *, causal=True, window=None, q_offset=0):
-        out = kernel_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
-        plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                         q_offset=q_offset)
-        exact = fa.flash_attention_plain(q.double(), k.double(), v.double(),
-                                         causal=causal, window=window,
-                                         q_offset=q_offset)
+    def fwd(q, k, v, *, causal=True, window=None, q_offset=0, scale=None):
+        opts = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+        out = kernel_fwd(q, k, v, **opts)
+        plain = fa.flash_attention_plain(q, k, v, **opts)
+        exact = fa.flash_attention_plain(q.double(), k.double(), v.double(), **opts)
         record(kind(q, k, causal), "fwd", [rel_max(a, x) for a, x in zip(out, exact)],
                [rel_max(a, x) for a, x in zip(plain, exact)], FA_FWD_TOL)
         return out
 
-    def bwd(q, k, v, o, lse, do, *, causal=True, window=None, q_offset=0):
-        opts = dict(causal=causal, window=window, q_offset=q_offset)
+    def bwd(q, k, v, o, lse, do, *, causal=True, window=None, q_offset=0, scale=None):
+        opts = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
         grads = kernel_bwd(q, k, v, o, lse, do, **opts)
         plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **opts)
         exact = fa.flash_attention_bwd_plain(
@@ -4832,7 +4790,6 @@ def main() -> int:
                 rows[name]["launches"] += n
                 rows[name]["launches_by_mode"][mode] = n
         red = check_reduction(model, trainer, data, mode)
-        share = kernel_share(model, trainer, data, fa, "B4")
         summary["modes"][mode] = {
             "losses": trainer.losses, "slot_s": run["slot_s"],
             "warm_step_s": {str(w): s for w, s in step_s.items()},
@@ -4845,7 +4802,6 @@ def main() -> int:
             "worst_leaf": red["worst"]["leaf_path"],
             "b4_launches": {k: run["launches"][k] for k in FA_PAIR_OPS},
             "b4_launches_check_reduction": red["fa_launches"],
-            "b4_share_of_rank_grads": share,
         }
         log(f"summary {mode} " + json.dumps(summary["modes"][mode]))
         del trainer, run

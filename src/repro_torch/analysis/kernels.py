@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import argparse
 import ast
-import ctypes
 import dataclasses
 import functools
 import operator
@@ -746,19 +745,14 @@ def _instantiations() -> List[Tuple[str, str, str, Tuple[int, ...], int]]:
 
 
 def _query(source: str, args: Tuple[int, ...]) -> List[int]:
-    """The seven ints of ``<source>_launch_config(*args, out)``; raises on
-    a cudaError."""
-    from repro_torch.kernels import build
+    """The seven ints of ``<source>_launch_config(*args, out)``, through
+    its wrapper's library; raises on a cudaError."""
+    from repro_torch.kernels import (adamw, flash_attention, quant_ring,
+                                     rwkv6_wkv, ssd_scan)
 
-    fn = getattr(build.load(source), f"{source}_launch_config")
-    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 7)()
-    err = fn(*args, ctypes.addressof(out))
-    if err != 0:
-        raise RuntimeError(f"{source}_launch_config{args} failed: "
-                           f"cudaError {err}")
-    return list(out)
+    libs = {m.LIB.name: m.LIB
+            for m in (adamw, flash_attention, quant_ring, rwkv6_wkv, ssd_scan)}
+    return libs[source].launch_config(*args)
 
 
 def card_launch_configs() -> List[Dict]:

@@ -26,7 +26,6 @@ fake tensor takes its shapes alone; a DTensor leaf goes shard by shard
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Tuple
 
 import torch
@@ -37,12 +36,14 @@ from repro_torch.kernels import build
 # what the kernel takes for p and g (m and v are f32)
 DTYPES = (torch.float32, torch.bfloat16)
 
+# p, g, m, v, bc1, bc2, p', m', v'; n; p bf16, g bf16; lr, b1, 1 - b1, b2,
+# 1 - b2, eps, weight decay
+_SIGNATURES = {"adamw_leaf": [ctypes.c_void_p] * 9 + [ctypes.c_int64]
+               + [ctypes.c_int] * 2 + [ctypes.c_float] * 7}
+LIB = build.Library("adamw", _SIGNATURES)
 # launches of the CUDA kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"adamw_leaf": 0}
-
-
-def reset_launches() -> None:
-    LAUNCHES["adamw_leaf"] = 0
+LAUNCHES: Dict[str, int] = LIB.launches
+reset_launches = LIB.reset
 
 
 def adamw_leaf_plain(p, g, m, v, bc1, bc2, *, lr: float, b1: float,
@@ -79,16 +80,6 @@ def _check(p, g, m, v, bc1, bc2) -> None:
         raise ValueError("p, g, m and v must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("adamw")
-    lib.adamw_leaf.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64]
-                               + [ctypes.c_int] * 2 + [ctypes.c_float] * 7
-                               + [ctypes.c_void_p])
-    lib.adamw_leaf.restype = ctypes.c_int
-    return lib
-
-
 def _kernel(p, g, m, v, bc1, bc2, *, lr, b1, b2, eps, weight_decay):
     """``(p', m', v')`` through ``csrc/adamw.cu``, on p's current stream. The
     scalars pass as f32, rounded as torch rounds a Python scalar operand."""
@@ -96,15 +87,10 @@ def _kernel(p, g, m, v, bc1, bc2, *, lr, b1, b2, eps, weight_decay):
                  for t in (p, m, v))
     if p.numel() == 0:
         return outs
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = _lib().adamw_leaf(
-            *(t.data_ptr() for t in (p, g, m, v, bc1, bc2) + outs), p.numel(),
-            int(p.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16),
-            lr, b1, 1 - b1, b2, 1 - b2, eps, weight_decay, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel adamw_leaf failed to launch: cudaError {err}")
-    LAUNCHES["adamw_leaf"] += 1
+    LIB.launch("adamw_leaf", p.device,
+               *(t.data_ptr() for t in (p, g, m, v, bc1, bc2) + outs), p.numel(),
+               int(p.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16),
+               lr, b1, 1 - b1, b2, 1 - b2, eps, weight_decay)
     return outs
 
 
@@ -116,11 +102,9 @@ def _leaf_op(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     """One leaf's update as one operator: the plain version on the CPU, the
     kernel on a CUDA tensor."""
     hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
-    if p.device.type == "cpu":
-        return adamw_leaf_plain(p, g, m, v, bc1, bc2, **hyper)
-    if p.device.type == "cuda":
+    if build.route("AdamW", p):
         return _kernel(p, g, m, v, bc1, bc2, **hyper)
-    raise ValueError(f"no AdamW kernel for device {p.device}")
+    return adamw_leaf_plain(p, g, m, v, bc1, bc2, **hyper)
 
 
 @_leaf_op.register_fake

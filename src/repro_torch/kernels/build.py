@@ -5,9 +5,12 @@ compiled by ``nvcc`` for ``sm_90a`` (H100) and loaded with ``ctypes``. A
 library's file name carries a hash of its source, of the ``csrc/*.cuh``
 headers and of the flags, so an edited source or header is rebuilt and an
 unchanged one is loaded as it is. There is no fallback: a missing ``nvcc``
-or a failed compile raises. Beside the build, what the wrappers of the
-chunked scans share: their inputs on 16 bytes (:func:`on_16_bytes`) and
-their scratch in one allocation a call (:func:`scratch`).
+or a failed compile raises. Beside the build, what every wrapper shares:
+its library's loading, launches and launch counts (:class:`Library`) and
+its choice between the kernel and the plain version (:func:`route`); and
+what the wrappers of the chunked scans share: their inputs on 16 bytes
+(:func:`on_16_bytes`) and their scratch in one allocation a call
+(:func:`scratch`).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -114,3 +117,72 @@ def scratch(device, *sizes: int) -> Tuple[torch.Tensor, List[int]]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if need be."""
     return ctypes.CDLL(str(build(name)))
+
+
+def route(what: str, *tensors: torch.Tensor) -> bool:
+    """True for the CUDA kernels, False for the plain versions on the CPU;
+    raises on tensors on several devices and on any other device (``what``
+    names the kernel in the message)."""
+    device = tensors[0].device
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"tensors on several devices: "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if device.type == "cpu":
+        return False
+    if device.type == "cuda":
+        return True
+    raise ValueError(f"no {what} kernel for device {device}")
+
+
+class Library:
+    """The kernels of ``csrc/<name>.cu``, each entry point ``prefix +
+    kernel`` taking its ``signatures[kernel]`` and then the stream. Nothing
+    is built or loaded before the first launch or query. :attr:`launches`
+    counts each kernel's launches since the last :meth:`reset`."""
+
+    def __init__(self, name: str, signatures: Dict[str, Sequence], *,
+                 prefix: str = ""):
+        self.name, self.prefix, self.signatures = name, prefix, signatures
+        self.launches: Dict[str, int] = dict.fromkeys(signatures, 0)
+        self._fns = self._config = None
+
+    def reset(self) -> None:
+        for kernel in self.launches:
+            self.launches[kernel] = 0
+
+    def _load(self) -> Dict:
+        """Load the library and set each entry point's types, once."""
+        lib = load(self.name)
+        fns = {}
+        for kernel, argtypes in self.signatures.items():
+            fn = getattr(lib, self.prefix + kernel)
+            fn.argtypes = [*argtypes, ctypes.c_void_p]   # then the stream
+            fn.restype = ctypes.c_int
+            fns[kernel] = fn
+        self._config = getattr(lib, f"{self.name}_launch_config")
+        self._config.restype = ctypes.c_int
+        self._fns = fns
+        return fns
+
+    def launch(self, kernel: str, device: torch.device, *args) -> None:
+        """Launch ``kernel`` on ``device``'s current stream; raise on error."""
+        fn = (self._fns or self._load())[kernel]
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                               f"cudaError {err}")
+        self.launches[kernel] += 1
+
+    def launch_config(self, *args: int) -> List[int]:
+        """The seven ints of ``<name>_launch_config(*args, out)`` (int
+        arguments); raises on a cudaError."""
+        if self._config is None:
+            self._load()
+        out = (ctypes.c_int * 7)()
+        err = self._config(
+            *map(ctypes.c_int, args), ctypes.c_void_p(ctypes.addressof(out)))
+        if err != 0:
+            raise RuntimeError(f"{self.name}_launch_config{args} failed: "
+                               f"cudaError {err}")
+        return list(out)

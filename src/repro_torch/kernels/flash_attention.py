@@ -45,9 +45,8 @@ by default) changes the rounding only, not the function.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -259,28 +258,10 @@ _SIGNATURES = {
     "flash_attention_bwd_dq": [_PTR] * 7 + _DIMS,
 }
 
+LIB = build.Library("flash_attention", _SIGNATURES)
 # launches of each CUDA kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = dict.fromkeys(_SIGNATURES, 0)
-# set to a list to time every launch: (kernel, start, end) CUDA events are
-# appended to it; None (the default) records nothing
-TIMED: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes + [_PTR]   # then the stream
-        fn.restype = ctypes.c_int
-    lib.flash_attention_launch_config.argtypes = [_INT, _INT, _INT, _PTR]
-    lib.flash_attention_launch_config.restype = ctypes.c_int
-    return lib
+LAUNCHES: Dict[str, int] = LIB.launches
+reset_launches = LIB.reset
 
 
 def blocks_per_sm(kernel: str, head_dim: int, dtype: torch.dtype) -> int:
@@ -289,43 +270,7 @@ def blocks_per_sm(kernel: str, head_dim: int, dtype: torch.dtype) -> int:
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports: the last of
     the seven ints of the ``flash_attention_launch_config`` query."""
     which = list(_SIGNATURES).index(kernel)   # the query's F1-F4 order
-    out = (ctypes.c_int * 7)()
-    err = _lib().flash_attention_launch_config(
-        which, head_dim, int(dtype == torch.bfloat16), ctypes.addressof(out))
-    if err != 0:
-        raise RuntimeError(f"occupancy of {kernel} failed: cudaError {err}")
-    return out[6]
-
-
-def _route(*tensors: torch.Tensor) -> bool:
-    """True for the CUDA kernels, False for the plain versions on the CPU."""
-    device = tensors[0].device
-    if any(t.device != device for t in tensors):
-        raise ValueError(f"tensors on several devices: "
-                         f"{sorted({str(t.device) for t in tensors})}")
-    if device.type == "cpu":
-        return False
-    if device.type == "cuda":
-        return True
-    raise ValueError(f"no flash attention kernel for device {device}")
-
-
-def _launch(kernel: str, device: torch.device, *args) -> None:
-    """Launch ``kernel`` on ``device``'s current stream; raise on error."""
-    fn = getattr(_lib(), kernel)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
-        if TIMED is not None:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record(stream)
-        err = fn(*args, stream.cuda_stream)
-        if TIMED is not None:
-            end.record(stream)
-            TIMED.append((kernel, start, end))
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
-                           f"cudaError {err}")
-    LAUNCHES[kernel] += 1
+    return LIB.launch_config(which, head_dim, int(dtype == torch.bfloat16))[6]
 
 
 def _kernel_args(q, k, v, causal: bool, window: Optional[int], q_offset: int = 0,
@@ -366,7 +311,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(O, lse)`` through F1 on a CUDA tensor, the plain version on the CPU."""
     q_offset = query_offset(q_offset)
-    if not _route(q, k, v):
+    if not build.route("flash attention", q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale)
     args = _kernel_args(q, k, v, causal, window, q_offset, scale)
@@ -374,15 +319,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     o = torch.empty_like(q)
     b, sq, hq = q.shape[0], q.shape[1], q.shape[2]
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), lse.data_ptr(), *args, q_offset)
+    LIB.launch("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), o.data_ptr(), lse.data_ptr(), *args, q_offset)
     return o, lse
 
 
 def bwd_preprocess(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``delta = rowsum(dO * O)``, f32 ``(B, Hq, Sq)``, through F2 on a CUDA
     tensor, the plain version on the CPU."""
-    if not _route(o, do):
+    if not build.route("flash attention", o, do):
         return bwd_preprocess_plain(o, do)
     if o.dim() != 4 or do.shape != o.shape or do.dtype != o.dtype \
             or o.dtype not in DTYPES or o.shape[-1] not in HEAD_DIMS:
@@ -393,9 +338,9 @@ def bwd_preprocess(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     b, sq, hq, d = o.shape
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=o.device)
     if delta.numel():
-        _launch("flash_attention_bwd_preprocess", o.device, o.data_ptr(),
-                do.data_ptr(), delta.data_ptr(), b, sq, hq, d,
-                int(o.dtype == torch.bfloat16))
+        LIB.launch("flash_attention_bwd_preprocess", o.device, o.data_ptr(),
+                   do.data_ptr(), delta.data_ptr(), b, sq, hq, d,
+                   int(o.dtype == torch.bfloat16))
     return delta
 
 
@@ -420,14 +365,14 @@ def bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
     """``(dK, dV)`` through F3 on a CUDA tensor, the plain version on the
     CPU."""
     q_offset = query_offset(q_offset)
-    if not _route(q, k, v, do, lse, delta):
+    if not build.route("flash attention", q, k, v, do, lse, delta):
         return bwd_dkdv_plain(q, k, v, do, lse, delta, causal=causal,
                               window=window, q_offset=q_offset, scale=scale)
     args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset,
                             scale)
     dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
-    _launch("flash_attention_bwd_dkdv", q.device, *(t.data_ptr() for t in ins),
-            dk.data_ptr(), dv.data_ptr(), *args, q_offset)
+    LIB.launch("flash_attention_bwd_dkdv", q.device, *(t.data_ptr() for t in ins),
+               dk.data_ptr(), dv.data_ptr(), *args, q_offset)
     return dk, dv
 
 
@@ -436,14 +381,14 @@ def bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
            scale: Optional[float] = None) -> torch.Tensor:
     """``dQ`` through F4 on a CUDA tensor, the plain version on the CPU."""
     q_offset = query_offset(q_offset)
-    if not _route(q, k, v, do, lse, delta):
+    if not build.route("flash attention", q, k, v, do, lse, delta):
         return bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
                             window=window, q_offset=q_offset, scale=scale)
     args, ins = _bwd_inputs(q, k, v, do, lse, delta, causal, window, q_offset,
                             scale)
     dq = torch.empty_like(ins[0])
-    _launch("flash_attention_bwd_dq", q.device, *(t.data_ptr() for t in ins),
-            dq.data_ptr(), *args, q_offset)
+    LIB.launch("flash_attention_bwd_dq", q.device, *(t.data_ptr() for t in ins),
+               dq.data_ptr(), *args, q_offset)
     return dq
 
 
@@ -455,7 +400,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     versions on the CPU."""
     opts = dict(causal=causal, window=window, q_offset=query_offset(q_offset),
                 scale=scale)
-    if not _route(q, k, v, o, lse, do):
+    if not build.route("flash attention", q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, **opts)
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"O must be {tuple(q.shape)} {q.dtype}, got "
@@ -503,7 +448,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale=None):
-        _route(q, k, v)     # raises for a device without a route (meta too)
+        # raises for a device without a route (meta too)
+        build.route("flash attention", q, k, v)
         o, lse = _fwd_op(q, k, v, causal, window, q_offset, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = (causal, window, q_offset, scale)

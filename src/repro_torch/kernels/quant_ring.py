@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -171,23 +170,10 @@ _SIGNATURES.update({
     "bf16_upcast": [_PTR, _PTR, _I64],
 })
 
+LIB = build.Library("quant_ring", _SIGNATURES, prefix="quant_ring_")
 # launches of each CUDA kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = dict.fromkeys(_SIGNATURES, 0)
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("quant_ring")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, f"quant_ring_{name}")
-        fn.argtypes = argtypes + [_PTR]   # then the stream
-        fn.restype = ctypes.c_int
-    return lib
+LAUNCHES: Dict[str, int] = LIB.launches
+reset_launches = LIB.reset
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape: Tuple[int, ...],
@@ -205,27 +191,6 @@ def _check(t: torch.Tensor, name: str, dtype, shape: Tuple[int, ...],
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def _route(device: torch.device) -> bool:
-    """True for the CUDA kernel, False for the plain version on the CPU."""
-    if device.type == "cpu":
-        return False
-    if device.type == "cuda":
-        return True
-    raise ValueError(f"no quant-ring kernel for device {device}")
-
-
-def _launch(kernel: str, device: torch.device, *args) -> None:
-    """Launch ``kernel`` on ``device``'s current stream; raise on error."""
-    fn = getattr(_lib(), f"quant_ring_{kernel}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
-                           f"cudaError {err}")
-    LAUNCHES[kernel] += 1
 
 
 def _kernel_name(base: str, wire_dtype) -> str:
@@ -254,13 +219,13 @@ def quantize_pack(x: torch.Tensor, wire_dtype=torch.int8
     wire_qmax(wire_dtype)
     nb, block = _rows(x, "x")
     _check(x, "x", torch.float32, (nb, block), x.device)
-    if not _route(x.device):
+    if not build.route("quant-ring", x):
         return quantize_pack_plain(x, wire_dtype)
     q = torch.empty((nb, block), dtype=wire_dtype, device=x.device)
     scales = torch.empty((nb,), dtype=torch.float32, device=x.device)
     if x.numel():
-        _launch(_kernel_name("quantize_pack", wire_dtype), x.device,
-                x.data_ptr(), q.data_ptr(), scales.data_ptr(), nb, block)
+        LIB.launch(_kernel_name("quantize_pack", wire_dtype), x.device,
+                   x.data_ptr(), q.data_ptr(), scales.data_ptr(), nb, block)
     return q, scales
 
 
@@ -275,14 +240,14 @@ def dequant_add_quantize(q: torch.Tensor, scales: torch.Tensor,
     _check(q, "q", WIRE_DTYPES, (nb, block), q.device)
     _check(scales, "scales", torch.float32, (nb,), q.device)
     _check(acc, "acc", torch.float32, (nb, block), q.device)
-    if not _route(q.device):
+    if not build.route("quant-ring", q):
         return dequant_add_quantize_plain(q, scales, acc)
     q_out = torch.empty((nb, block), dtype=q.dtype, device=q.device)
     s_out = torch.empty((nb,), dtype=torch.float32, device=q.device)
     if q.numel():
-        _launch(_kernel_name("dequant_add_quantize", q.dtype), q.device,
-                q.data_ptr(), scales.data_ptr(), acc.data_ptr(),
-                q_out.data_ptr(), s_out.data_ptr(), nb, block)
+        LIB.launch(_kernel_name("dequant_add_quantize", q.dtype), q.device,
+                   q.data_ptr(), scales.data_ptr(), acc.data_ptr(),
+                   q_out.data_ptr(), s_out.data_ptr(), nb, block)
     return q_out, s_out
 
 
@@ -297,18 +262,18 @@ def dequant_accumulate(q: torch.Tensor, scales: torch.Tensor,
     _check(scales, "scales", torch.float32, (nb,), q.device)
     if acc is not None:
         _check(acc, "acc", torch.float32, (nb, block), q.device)
-    if not _route(q.device):
+    if not build.route("quant-ring", q):
         return dequant_accumulate_plain(q, scales, acc)
     out = torch.empty((nb, block), dtype=torch.float32, device=q.device)
     if not q.numel():
         return out
     if acc is None:
-        _launch(_kernel_name("dequant", q.dtype), q.device, q.data_ptr(),
-                scales.data_ptr(), out.data_ptr(), nb, block)
+        LIB.launch(_kernel_name("dequant", q.dtype), q.device, q.data_ptr(),
+                   scales.data_ptr(), out.data_ptr(), nb, block)
     else:
-        _launch(_kernel_name("dequant_accumulate", q.dtype), q.device,
-                q.data_ptr(), scales.data_ptr(), acc.data_ptr(),
-                out.data_ptr(), nb, block)
+        LIB.launch(_kernel_name("dequant_accumulate", q.dtype), q.device,
+                   q.data_ptr(), scales.data_ptr(), acc.data_ptr(),
+                   out.data_ptr(), nb, block)
     return out
 
 
@@ -317,12 +282,12 @@ def cast_pack_bf16(x: torch.Tensor) -> torch.Tensor:
     nearest even. Replaces ``cast_pack_bf16_pallas``."""
     nb, block = _rows(x, "x")
     _check(x, "x", torch.float32, (nb, block), x.device)
-    if not _route(x.device):
+    if not build.route("quant-ring", x):
         return cast_pack_bf16_plain(x)
     out = torch.empty((nb, block), dtype=torch.bfloat16, device=x.device)
     if x.numel():
-        _launch("cast_pack_bf16", x.device, x.data_ptr(), out.data_ptr(),
-                x.numel())
+        LIB.launch("cast_pack_bf16", x.device, x.data_ptr(), out.data_ptr(),
+                   x.numel())
     return out
 
 
@@ -333,12 +298,12 @@ def bf16_add_cast(recv: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     nb, block = _rows(recv, "recv")
     _check(recv, "recv", torch.bfloat16, (nb, block), recv.device)
     _check(acc, "acc", torch.float32, (nb, block), recv.device)
-    if not _route(recv.device):
+    if not build.route("quant-ring", recv):
         return bf16_add_cast_plain(recv, acc)
     out = torch.empty((nb, block), dtype=torch.bfloat16, device=recv.device)
     if recv.numel():
-        _launch("bf16_add_cast", recv.device, recv.data_ptr(), acc.data_ptr(),
-                out.data_ptr(), recv.numel())
+        LIB.launch("bf16_add_cast", recv.device, recv.data_ptr(), acc.data_ptr(),
+                   out.data_ptr(), recv.numel())
     return out
 
 
@@ -351,15 +316,15 @@ def bf16_accumulate(recv: torch.Tensor,
     _check(recv, "recv", torch.bfloat16, (nb, block), recv.device)
     if acc is not None:
         _check(acc, "acc", torch.float32, (nb, block), recv.device)
-    if not _route(recv.device):
+    if not build.route("quant-ring", recv):
         return bf16_accumulate_plain(recv, acc)
     out = torch.empty((nb, block), dtype=torch.float32, device=recv.device)
     if not recv.numel():
         return out
     if acc is None:
-        _launch("bf16_upcast", recv.device, recv.data_ptr(), out.data_ptr(),
-                recv.numel())
+        LIB.launch("bf16_upcast", recv.device, recv.data_ptr(), out.data_ptr(),
+                   recv.numel())
     else:
-        _launch("bf16_accumulate", recv.device, recv.data_ptr(),
-                acc.data_ptr(), out.data_ptr(), recv.numel())
+        LIB.launch("bf16_accumulate", recv.device, recv.data_ptr(),
+                   acc.data_ptr(), out.data_ptr(), recv.numel())
     return out

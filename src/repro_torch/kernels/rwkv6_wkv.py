@@ -57,8 +57,7 @@ one to its kernel's entry in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -223,57 +222,10 @@ _SIGNATURES = {
     "wkv6_bwd": [_PTR] * 17 + _DIMS,
 }
 
+LIB = build.Library("wkv6", _SIGNATURES)
 # launches of each CUDA kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = dict.fromkeys(_SIGNATURES, 0)
-# set to a list to time every launch: (kernel, start, end) CUDA events are
-# appended to it; None (the default) records nothing
-TIMED: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("wkv6")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes + [_PTR]   # then the stream
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _route(*tensors: torch.Tensor) -> bool:
-    """True for the CUDA kernels, False for the plain versions on the CPU."""
-    device = tensors[0].device
-    if any(t.device != device for t in tensors):
-        raise ValueError(f"tensors on several devices: "
-                         f"{sorted({str(t.device) for t in tensors})}")
-    if device.type == "cpu":
-        return False
-    if device.type == "cuda":
-        return True
-    raise ValueError(f"no WKV6 kernel for device {device}")
-
-
-def _launch(kernel: str, device: torch.device, *args) -> None:
-    """Launch ``kernel`` on ``device``'s current stream; raise on error."""
-    fn = getattr(_lib(), kernel)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
-        if TIMED is not None:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record(stream)
-        err = fn(*args, stream.cuda_stream)
-        if TIMED is not None:
-            end.record(stream)
-            TIMED.append((kernel, start, end))
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
-                           f"cudaError {err}")
-    LAUNCHES[kernel] += 1
+LAUNCHES: Dict[str, int] = LIB.launches
+reset_launches = LIB.reset
 
 
 def _kernel_inputs(r, k, v, logw, u):
@@ -321,7 +273,8 @@ def wkv6_fwd(r, k, v, logw, u, initial_state=None
     version on the CPU, from ``initial_state`` (zeros if None). y is in r's
     dtype, states f32 ``(B, H, chunks, P, P)``, the final state f32 ``(B, H,
     P, P)``."""
-    if not _route(r, k, v, logw, u, *(() if initial_state is None else (initial_state,))):
+    if not build.route("WKV6", r, k, v, logw, u,
+                       *(() if initial_state is None else (initial_state,))):
         return wkv6_plain(r, k, v, logw, u, initial_state)
     ins, uf, args = _kernel_inputs(r, k, v, logw, u)
     b, s, h, p, lc, _ = args
@@ -332,9 +285,9 @@ def wkv6_fwd(r, k, v, logw, u, initial_state=None
     final = torch.empty((b, h, p, p), dtype=torch.float32, device=dev)
     # exp(cum_L) of every chunk
     _, scratch = build.scratch(dev, b * h * nc * p)
-    _launch("wkv6_fwd", dev, *(t.data_ptr() for t in ins), uf.data_ptr(),
-            y.data_ptr(), states.data_ptr(), _ptr(init), final.data_ptr(),
-            *scratch, *args)
+    LIB.launch("wkv6_fwd", dev, *(t.data_ptr() for t in ins), uf.data_ptr(),
+               y.data_ptr(), states.data_ptr(), _ptr(init), final.data_ptr(),
+               *scratch, *args)
     return y.to(r.dtype), states, final
 
 
@@ -345,7 +298,7 @@ def wkv6_bwd(r, k, v, logw, u, states, dy, d_final=None, *,
     ``d_final`` (zeros if None); each gradient in its input's dtype,
     ``d_initial`` f32 ``(B, H, P, P)`` if ``with_initial``, else None."""
     more = () if d_final is None else (d_final,)
-    if not _route(r, k, v, logw, u, states, dy, *more):
+    if not build.route("WKV6", r, k, v, logw, u, states, dy, *more):
         return wkv6_bwd_plain(r, k, v, logw, u, states, dy, d_final,
                               with_initial=with_initial)
     ins, uf, args = _kernel_inputs(r, k, v, logw, u)
@@ -364,9 +317,9 @@ def wkv6_bwd(r, k, v, logw, u, states, dy, d_final=None, *,
         if with_initial else None
     # dS of every chunk, then exp(cum_L) and du's partials of every chunk
     _, scratch = build.scratch(dev, b * h * nc * p * p, b * h * nc * p, b * h * nc * p)
-    _launch("wkv6_bwd", dev, *(t.data_ptr() for t in ins), uf.data_ptr(),
-            states.data_ptr(), dy.data_ptr(), _ptr(d_fin),
-            *(g.data_ptr() for g in grads + [du]), _ptr(d_init), *scratch, *args)
+    LIB.launch("wkv6_bwd", dev, *(t.data_ptr() for t in ins), uf.data_ptr(),
+               states.data_ptr(), dy.data_ptr(), _ptr(d_fin),
+               *(g.data_ptr() for g in grads + [du]), _ptr(d_init), *scratch, *args)
     dr, dk, dv, dlw = (g.to(t.dtype) for g, t in zip(grads, (r, k, v, logw)))
     return dr, dk, dv, dlw, du.to(u.dtype), d_init
 
@@ -418,7 +371,7 @@ class _Wkv6(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, initial_state):
-        _route(r, k, v, logw, u)   # raises for a device without a route
+        build.route("WKV6", r, k, v, logw, u)   # raises for a device without a route
         y, states, final = _fwd_op(r, k, v, logw, u, initial_state)
         ctx.save_for_backward(r, k, v, logw, u, states)
         ctx.initial = None if initial_state is None else initial_state.dtype

@@ -69,8 +69,7 @@ one to its kernel's entry in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -293,57 +292,10 @@ _SIGNATURES = {
     "ssd_bwd": [_PTR] * 20 + [_INT] * 9,
 }
 
+LIB = build.Library("ssd_scan", _SIGNATURES)
 # launches of each CUDA kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = dict.fromkeys(_SIGNATURES, 0)
-# set to a list to time every launch: (kernel, start, end) CUDA events are
-# appended to it; None (the default) records nothing
-TIMED: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("ssd_scan")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes + [_PTR]   # then the stream
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _route(*tensors: torch.Tensor) -> bool:
-    """True for the CUDA kernels, False for the plain versions on the CPU."""
-    device = tensors[0].device
-    if any(t.device != device for t in tensors):
-        raise ValueError(f"tensors on several devices: "
-                         f"{sorted({str(t.device) for t in tensors})}")
-    if device.type == "cpu":
-        return False
-    if device.type == "cuda":
-        return True
-    raise ValueError(f"no SSD kernel for device {device}")
-
-
-def _launch(kernel: str, device: torch.device, *args) -> None:
-    """Launch ``kernel`` on ``device``'s current stream; raise on error."""
-    fn = getattr(_lib(), kernel)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
-        if TIMED is not None:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record(stream)
-        err = fn(*args, stream.cuda_stream)
-        if TIMED is not None:
-            end.record(stream)
-            TIMED.append((kernel, start, end))
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
-                           f"cudaError {err}")
-    LAUNCHES[kernel] += 1
+LAUNCHES: Dict[str, int] = LIB.launches
+reset_launches = LIB.reset
 
 
 def _kernel_inputs(x, dt, A, Bm, Cm):
@@ -404,7 +356,8 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm, initial_state=None
     version on the CPU, from ``initial_state`` (zeros if None). y is in x's
     dtype, states f32 ``(B, H, chunks, N, P)``, the final state f32 ``(B,
     H, N, P)``."""
-    if not _route(x, dt, A, Bm, Cm, *(() if initial_state is None else (initial_state,))):
+    if not build.route("SSD", x, dt, A, Bm, Cm,
+                       *(() if initial_state is None else (initial_state,))):
         return ssd_scan_plain(x, dt, A, Bm, Cm, initial_state)
     ins, args = _kernel_inputs(x, dt, A, Bm, Cm)
     b, s, h, p, n, lc, bf16 = args
@@ -415,8 +368,8 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm, initial_state=None
     states, final = _f32(b, h, nc, n, p, device=dev), _f32(b, h, n, p, device=dev)
     # C B^T of every chunk and group, exp(g_L) of every chunk and head
     _, scratch = build.scratch(dev, b * g * nc * SSD_CHUNK ** 2, b * h * nc)
-    _launch("ssd_fwd", dev, *(t.data_ptr() for t in ins + (y, states)), _ptr(init),
-            final.data_ptr(), *scratch, *args[:-1], g, bf16)
+    LIB.launch("ssd_fwd", dev, *(t.data_ptr() for t in ins + (y, states)), _ptr(init),
+               final.data_ptr(), *scratch, *args[:-1], g, bf16)
     return y.to(x.dtype), states, final
 
 
@@ -427,7 +380,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, d_final=None, *,
     (zeros if None); each gradient in its input's dtype, ``d_initial`` f32
     ``(B, H, N, P)`` if ``with_initial``, else None."""
     more = () if d_final is None else (d_final,)
-    if not _route(x, dt, A, Bm, Cm, states, dy, *more):
+    if not build.route("SSD", x, dt, A, Bm, Cm, states, dy, *more):
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, d_final,
                                   with_initial=with_initial)
     ins, args = _kernel_inputs(x, dt, A, Bm, Cm)
@@ -450,9 +403,9 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, d_final=None, *,
     _, (cb, ds, db_part, dc_part, el, da_part) = build.scratch(
         dev, b * g * nc * SSD_CHUNK ** 2, b * h * nc * n * p, b * (h // hb) * s * n,
         b * (h // hb) * s * n, b * h * nc, b * h * nc)
-    _launch("ssd_bwd", dev, *(t.data_ptr() for t in ins + (states, dy)), _ptr(d_fin),
-            *(t.data_ptr() for t in outs), _ptr(d_init),
-            cb, el, ds, da_part, db_part, dc_part, *args[:-1], g, hb, bf16)
+    LIB.launch("ssd_bwd", dev, *(t.data_ptr() for t in ins + (states, dy)), _ptr(d_fin),
+               *(t.data_ptr() for t in outs), _ptr(d_init),
+               cb, el, ds, da_part, db_part, dc_part, *args[:-1], g, hb, bf16)
     return tuple(g.to(t.dtype) for g, t in zip(outs, (x, dt, A, Bm, Cm))) + (d_init,)
 
 
@@ -506,7 +459,7 @@ class _SsdScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, initial_state):
-        _route(x, dt, A, Bm, Cm)   # raises for a device without a route
+        build.route("SSD", x, dt, A, Bm, Cm)   # raises for a device without a route
         y, states, final = _fwd_op(x, dt, A, Bm, Cm, initial_state)
         ctx.save_for_backward(x, dt, A, Bm, Cm, states)
         ctx.initial = None if initial_state is None else initial_state.dtype

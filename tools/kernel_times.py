@@ -10,14 +10,11 @@ Everything else is this checkout's ``chip_smoke``: its phase 3
 ``check_ssd``) holds every kernel against its plain version and times it
 (``ms``, ``device_ms``, ``host_us``, the library call's, the bound); then
 its phase-4 slot of full-width qwen3-0.6b in ``STEP_MODE``
-(``run_main_path``: warm steps at w=4 and w=2) and B4's share of one rank's
-forward and backward (``kernel_share``). With ``--zamba2``, then also
-the phase-7 slot of full-width zamba2-1.2b (``ring_slot``: warm steps at
-w=4 and w=2) and B9's and B4's shares of one of its ranks' forward and
-backward. With ``--rwkv``, then also the phase-6 slot of rwkv6-7b at
-full width cut to ``RWKV_LAYERS`` layers (``ring_slot``: warm steps at w=4
-and w=2) and B8's share of one of its ranks' forward and backward, with
-each B8 kernel's time in it. To compare two commits, unpack the
+(``run_main_path``: warm steps at w=4 and w=2). With ``--zamba2``, then
+also the phase-7 slot of full-width zamba2-1.2b (``ring_slot``: warm steps
+at w=4 and w=2). With ``--rwkv``, then also the phase-6 slot of rwkv6-7b
+at full width cut to ``RWKV_LAYERS`` layers (``ring_slot``: warm steps at
+w=4 and w=2). To compare two commits, unpack the
 other one into a directory that ``.gitignore`` lists and run, in one call
 and in turns, ``tools/kernel_times.py DIR``, ``tools/kernel_times.py``,
 ``tools/kernel_times.py``, ``tools/kernel_times.py DIR``.
@@ -44,7 +41,7 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parents[1]
-# the mode whose step B4's share is read in (PERF.md section 5)
+# the mode of the timed qwen3-0.6b step
 STEP_MODE = "compressed-fused"
 
 
@@ -143,38 +140,21 @@ def compare(paths) -> int:
     return 0 if same else 1
 
 
-def zamba2_times(C) -> dict:
-    """The smoke's phase-7 slot of full-width zamba2-1.2b in the f32 ring
-    mode: its warm steps, and B9's and B4's shares of one rank's forward
-    and backward."""
-    cfg = C.get_arch(C.ZAMBA_ARCH)
+def slot_times(C, cfg) -> dict:
+    """The warm steps of the smoke's slot of ``cfg`` in the f32 ring mode
+    (phase 7's zamba2-1.2b, phase 6's rwkv6-7b)."""
     model = C.build_model(cfg)
     data = C.SyntheticTokens(cfg.vocab, C.SEQ, C.GLOBAL_BATCH, seed=0)
-    trainer, res, _, _, _, _ = C.ring_slot(model, data)
-    return {"warm_step_s": res["timings"],
-            "b9_share": C.kernel_share(model, trainer, data, C.SSD, "B9"),
-            "b4_share": C.kernel_share(model, trainer, data, C.fa, "B4")}
-
-
-def rwkv_times(C) -> dict:
-    """The smoke's phase-6 slot of rwkv6-7b at full width, depth cut to
-    ``RWKV_LAYERS``, in the f32 ring mode: its warm steps, and B8's share
-    of one rank's forward and backward."""
-    cfg = dataclasses.replace(C.get_arch(C.RWKV_ARCH), n_layers=C.RWKV_LAYERS)
-    model = C.build_model(cfg)
-    data = C.SyntheticTokens(cfg.vocab, C.SEQ, C.GLOBAL_BATCH, seed=0)
-    trainer, res, _, _, _, _ = C.ring_slot(model, data)
-    return {"warm_step_s": res["timings"],
-            "b8_share": C.kernel_share(model, trainer, data, C.W, "B8")}
+    return {"warm_step_s": C.ring_slot(model, data)[1]["timings"]}
 
 
 def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("root", nargs="?", default=str(HERE), help="the checkout to time")
     args.add_argument("--zamba2", action="store_true",
-                      help="also zamba2-1.2b's slot and B9's and B4's shares of a rank")
+                      help="also zamba2-1.2b's slot")
     args.add_argument("--rwkv", action="store_true",
-                      help="also rwkv6-7b's slot (4 layers) and B8's share of a rank")
+                      help="also rwkv6-7b's slot (4 layers)")
     args.add_argument("--out", help="also write the result's JSON to this file")
     args.add_argument("--compare", nargs="+", metavar="JSON",
                       help="hold the bits of these runs' --out files equal; no card")
@@ -197,15 +177,15 @@ def main() -> int:
     run = C.run_main_path(model, data, STEP_MODE)
     out = {"card": card, "root": str(root), "bits": digests(C),
            "rows": {name: times(row) for name, row in rows.items()},
-           "step": {"mode": STEP_MODE, "warm_step_s": run["res"]["timings"],
-                    "b4_share": C.kernel_share(model, run["trainer"], data, C.fa, "B4")}}
+           "step": {"mode": STEP_MODE, "warm_step_s": run["res"]["timings"]}}
     del run, model
     C.free_cuda()
     if opts.zamba2:
-        out["zamba2"] = zamba2_times(C)
+        out["zamba2"] = slot_times(C, C.get_arch(C.ZAMBA_ARCH))
         C.free_cuda()
     if opts.rwkv:
-        out["rwkv"] = rwkv_times(C)
+        out["rwkv"] = slot_times(C, dataclasses.replace(
+            C.get_arch(C.RWKV_ARCH), n_layers=C.RWKV_LAYERS))
     for name, row in out["rows"].items():
         print(f"{name}: {json.dumps(row)}", flush=True)
     print(card, flush=True)
