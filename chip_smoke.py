@@ -11,12 +11,15 @@ non-zero and prints no result. Phases, each raising on failure:
      the four quantized kernels, and the four bf16 kernels) bit for bit
      against its plain PyTorch version at every shape the main paths give
      it (each leaf's chunk at w=4 and w=2, and each bucket's of the
-     overlap mode; the embed leaf's chunk at w=4 is 9,496 blocks of
-     4,096), at ragged shapes, all-zero rows, exact .5 ties, values at
-     +-448, e4m3 subnormals and bf16 ties, and the bf16 cast on inputs off
-     16 bytes; time kernel, plain version and the one PyTorch call
-     computing the same function where there is one, with CUDA events,
-     beside the kernel's bound; hold B4's four kernels
+     overlap mode; phi3.5-moe's leaves at w=3 too; the embed leaf's chunk
+     at w=4 is 9,496 blocks of 4,096), B1 and B2 writing into one wire
+     message and the dequantization as the Share-Only gather's (w messages
+     a message apart, written in chunk order, against stacking,
+     dequantizing and placing them), at ragged shapes, all-zero rows,
+     exact .5 ties, values at +-448, e4m3 subnormals and bf16 ties, and
+     the bf16 cast on inputs off 16 bytes; time kernel, plain version and
+     the one PyTorch call computing the same function where there is one,
+     with CUDA events, beside the kernel's bound; hold B4's four kernels
      (flash attention: forward, and the backward's delta, dK/dV and dQ)
      against their plain versions at the main paths' per-rank attention
      shapes, granite-3-2b's and h2o-danube-1.8b's (window 4096), ragged
@@ -230,9 +233,13 @@ from repro_torch.dist.collectives import LocalRing, ring_all_reduce  # noqa: E40
 from repro_torch.dist.compression import (  # noqa: E402
     DEFAULT_BLOCK,
     _fused_chunk_layout,
+    _message_parts,
+    _place_gathered,
+    _write_message,
     compressed_ring_ppermutes,
     compressed_wire_bytes,
     fused_wire_bytes,
+    pack_hop_message,
 )
 from repro_torch.dist.overlap import plan_bucket_sizes, plan_buckets, tree_leaves  # noqa: E402
 from repro_torch.dist.registry import STEP_MODES  # noqa: E402
@@ -791,16 +798,17 @@ def leaf_sizes(tree) -> list:
     return [int(math.prod(leaf.shape)) for _, leaf in tree_leaves(tree)]
 
 
-def main_path_shapes(model, overlap: bool = True) -> list:
+def main_path_shapes(model, overlap: bool = True, rings=MAIN_RINGS) -> list:
     """Every ``(w, n_blocks, block)`` the fused rings give the kernels on
     the main paths: each leaf's chunk layout, and (with ``overlap``) each
-    bucket's of the overlap mode's plan, at w=4 and w=2."""
+    bucket's of the overlap mode's plan, at each ring size of ``rings`` (w=4
+    and w=2)."""
     sizes = leaf_sizes(model.param_specs())
     buckets = plan_bucket_sizes(
         sizes, STEP_MODES["compressed-fused-overlap"].n_buckets,
         reverse=True) if overlap else []
     shapes = set()
-    for w in sorted(set(MAIN_RINGS)):
+    for w in sorted(set(rings)):
         for d in sizes + buckets:
             c_pad, nb, _ = _fused_chunk_layout(d, w, DEFAULT_BLOCK)
             shapes.add((w, nb, c_pad // nb))
@@ -892,12 +900,20 @@ def check_kernels(model, extra_shapes=()) -> dict:
                   lambda: qr.dequant_accumulate(q, s, acc),
                   lambda: qr.dequant_accumulate_plain(q, s, acc),
                   (lambda: torch.addcmul(acc, q, s[:, None])) if lib else None)
-            # Share-Only dequantizes all w gathered messages in one call
-            qw, sw = q.repeat(w, 1), s.repeat(w)
-            check(f"dequant{sfx}", shape, lambda: qr.dequant_accumulate(qw, sw),
-                  lambda: qr.dequant_accumulate_plain(qw, sw),
+            check_message_forms(shape, x, acc, wire)
+            # Share-Only dequantizes rank 0's w gathered messages where they
+            # landed, in one call, into chunk order; the plain side stacks,
+            # dequantizes and places them
+            gather = gather_of(q, s, w)
+            gq, gs = _message_parts(gather, nb, block, wire)
+            qw = gather[:, :nb * block].reshape(w * nb, block).view(wire)
+            sw = gs.reshape(-1)
+            check(f"dequant{sfx}", shape,
+                  lambda: qr.dequant_gather(gq, gs, 1 % w).view(w * nb, block),
+                  lambda: _place_gathered(qr.dequant_accumulate_plain(qw, sw).view(
+                      w, nb, block), 0, w).view(w * nb, block),
                   (lambda: torch.mul(qw, sw[:, None])) if lib else None)
-            del q, s, qw, sw
+            del q, s, gather, gq, gs, qw, sw
         h = qr.cast_pack_bf16(x)
         out = torch.empty_like(h)
         check("cast_pack_bf16", shape, lambda: qr.cast_pack_bf16(x),
@@ -916,6 +932,37 @@ def check_kernels(model, extra_shapes=()) -> dict:
     log(f"all {len(KERNELS)} kernels bit-exact against their plain versions "
         f"at {len(shapes)} shapes")
     return rows
+
+
+def check_message_forms(shape, x: torch.Tensor, acc: torch.Tensor, wire) -> None:
+    """B1 and B2 writing one wire message through the ring's
+    ``_write_message`` (the payload, then the scales in its trailer where
+    that lies on 4 bytes), bit for bit against the plain versions packed."""
+    nb, block = x.shape
+    size = nb * (block + qr.SCALE_BYTES)
+    msg = _write_message(torch.empty(size, dtype=torch.int8, device=x.device),
+                         lambda out: qr.quantize_pack(x, wire, out=out), nb, block,
+                         wire)
+    q, s = _message_parts(msg, nb, block, wire)
+    hop = _write_message(torch.empty(size, dtype=torch.int8, device=x.device),
+                         lambda out: qr.dequant_add_quantize(q, s, acc, out=out),
+                         nb, block, wire)
+    for name, got, want in (
+            ("quantize_pack", msg, pack_hop_message(*qr.quantize_pack_plain(x, wire))),
+            ("dequant_add_quantize", hop, pack_hop_message(
+                *qr.dequant_add_quantize_plain(q, s, acc)))):
+        if not same_bits(got, want):
+            raise AssertionError(f"{name}{shape} ({wire}) into a message buffer "
+                                 "differs from its plain version packed")
+
+
+def gather_of(q: torch.Tensor, s: torch.Tensor, w: int) -> torch.Tensor:
+    """A Share-Only gather buffer of w distinct messages, one a row: message
+    r is ``(q, s)`` with its payload rolled r rows and r elements and its
+    scales r rows."""
+    qb = q.view(torch.int8)
+    return torch.stack([pack_hop_message(qb.roll((r, r), (0, 1)), s.roll(r))
+                        for r in range(w)])
 
 
 def check_cast_off_16_bytes(gen: torch.Generator) -> None:
@@ -4760,7 +4807,8 @@ def main() -> int:
     model = build_model(cfg)
     moe_model = build_model(dataclasses.replace(get_arch(MOE_ARCH),
                                                 n_layers=MOE_LAYERS))
-    rows = check_kernels(model, main_path_shapes(moe_model, overlap=False))
+    rows = check_kernels(model, main_path_shapes(moe_model, overlap=False)
+                         + main_path_shapes(moe_model, overlap=False, rings=(3,)))
     rows.update(check_flash_attention())
     rows.update(check_wkv6())
     rows.update(check_ssd())

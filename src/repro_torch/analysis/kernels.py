@@ -15,7 +15,9 @@ makes for a given shape, checked without a device:
   * **dispatch** — B4's head dim one that ``flash_attention.cu``'s
     ``DISPATCH`` instantiates (32, 64, 80, 128, 224), B8's one of ``wkv6.cu``'s,
     B9's ``(state, head_dim)`` one of ``ssd_scan.cu``'s; a quantized
-    kernel's row count one that ``quant_ring._rows`` accepts;
+    kernel's row count one that ``quant_ring._rows`` accepts, and the
+    Share-Only gather's ``dequant`` one sub-block a block over all its
+    messages;
   * **scale-trailer consistency** — the int8/fp8 hop message (payload ++
     bitcast f32 trailer, ``SCALE_BYTES`` per sub-block) must agree with
     ``compressed_wire_bytes``, ``fused_wire_bytes``, the scheduler's
@@ -272,12 +274,16 @@ class KernelSpec:
     by the trailer check — the must-reject suite pins this with the same
     :data:`repro_torch.analysis.fixtures.TRAILER_MISMATCH_SCALE_BYTES`
     layout the collective verifier's broken-trailer ring uses.
+
+    ``rows`` is the messages one launch reads: the Share-Only gather's w
+    for ``dequant`` (``quant_ring.dequant_gather``), 1 for every kernel.
     """
 
     n_blocks: int
     block: int
     kernel: str = "quantize_pack"
     scale_bytes: Optional[int] = None
+    rows: int = 1
 
     @property
     def bf16(self) -> bool:
@@ -290,8 +296,9 @@ class KernelSpec:
     def __str__(self) -> str:
         sb = "" if self.scale_bytes is None else \
             f", scale_bytes={self.scale_bytes}"
+        rows = "" if self.rows == 1 else f", rows={self.rows}"
         return f"{self.kernel}(n_blocks={self.n_blocks}, " \
-               f"block={self.block}{sb})"
+               f"block={self.block}{sb}{rows})"
 
     def launches(self) -> Tuple[List[Launch], List[str]]:
         from repro_torch.kernels import quant_ring
@@ -300,12 +307,15 @@ class KernelSpec:
         if self.kernel not in _QUANT_FUNCTIONS:
             return [], [f"unknown kernel {self.kernel!r} (known: "
                         f"{sorted(_QUANT_FUNCTIONS)})"]
-        if self.n_blocks < 1 or self.block < 1:
-            return [], ["n_blocks and block must be >= 1"]
+        if self.n_blocks < 1 or self.block < 1 or self.rows < 1:
+            return [], ["n_blocks, block and rows must be >= 1"]
+        if self.rows > 1 and self.kernel.removesuffix("_fp8") != "dequant":
+            return [], [f"rows={self.rows}: only dequant reads a gather"]
         import torch
 
-        try:  # the wrappers' own row check, on a tensor that holds no data
-            quant_ring._rows(torch.empty((self.n_blocks, self.block),
+        try:  # the wrappers' own row check (over all of a gather's
+            # messages), on a tensor that holds no data
+            quant_ring._rows(torch.empty((self.rows * self.n_blocks, self.block),
                                          device="meta"), "x")
         except ValueError as exc:
             errors.append(f"quant_ring._rows rejects it: {exc}")
@@ -318,8 +328,8 @@ class KernelSpec:
         elif self.bf16:   # one block a kFlatThreads elements, at most 16 an SM
             grid = min(_ceil(self.elements, k["kFlatThreads"]), 132 * 16)
             threads = k["kFlatThreads"]
-        else:             # one block a row
-            grid, threads = self.n_blocks, k["kRowThreads"]
+        else:             # one block a row of every message
+            grid, threads = self.rows * self.n_blocks, k["kRowThreads"]
         errors.extend(_check_trailer_consistency(self))
         return [Launch(self.kernel, "quant_ring", fn, (grid, 1, 1), threads,
                        0)], errors
@@ -611,7 +621,7 @@ def execute_spec(spec: KernelSpec, device: str = "cuda") -> Optional[str]:
     None on success."""
     import torch
 
-    from repro_torch.dist.compression import pack_hop_message
+    from repro_torch.dist.compression import _message_parts, pack_hop_message
     from repro_torch.kernels import quant_ring as qr
 
     rng = np.random.default_rng(0)
@@ -635,6 +645,14 @@ def execute_spec(spec: KernelSpec, device: str = "cuda") -> Optional[str]:
         q, scales = qr.quantize_pack(x, wire)
         if base == "dequant_add_quantize":
             q, scales = qr.dequant_add_quantize(q, scales, x)
+        elif base == "dequant" and spec.rows > 1:
+            # the gather: the message repeated a row apart, in chunk order
+            gather = pack_hop_message(q, scales).repeat(spec.rows, 1)
+            out = qr.dequant_gather(*_message_parts(
+                gather, spec.n_blocks, spec.block, wire), spec.rows - 1)
+            want = (spec.rows, *x.shape)
+            return None if out.shape == want else \
+                f"gather output shape {tuple(out.shape)} != {want}"
         elif base in ("dequant_accumulate", "dequant"):
             out = qr.dequant_accumulate(
                 q, scales, x if base == "dequant_accumulate" else None)
@@ -812,8 +830,9 @@ def default_suite() -> List[Tuple[Spec, bool]]:
 
     Accepted: the reference suite's three small quantized configurations,
     an fp8 and a bf16 one, the main paths' largest ring chunks, and B4, B8
-    and B9 at the main paths' per-rank shapes. Rejected: a quantized
-    kernel at 2^31 rows, B4 at head dim 96 (no instantiation) and at 256
+    and B9 at the main paths' per-rank shapes, and the Share-Only gather
+    of the largest at w=4. Rejected: a quantized kernel at 2^31 rows, a
+    gather of as many, B4 at head dim 96 (no instantiation) and at 256
     (F3 would need 399,872 B of shared memory), and the shared 2-byte
     trailer fixture the collective verifier's broken-trailer ring also
     seeds — one defect, caught by both analyses.
@@ -828,10 +847,12 @@ def default_suite() -> List[Tuple[Spec, bool]]:
         (KernelSpec(64, 4096, kernel="bf16_add_cast"), True),
         (KernelSpec(*EMBED_CHUNK_W4), True),
         (KernelSpec(*WE_GATE_CHUNK_W4, kernel="dequant_add_quantize"), True),
+        (KernelSpec(*WE_GATE_CHUNK_W4, kernel="dequant", rows=4), True),
         (FlashSpec(2, 1024, 16, 128, kv_heads=8), True),
         (WkvSpec(2, 1024, 64, 64), True),
         (SsdSpec(2, 1024, 64, 64, state=64), True),
         (KernelSpec(2 ** 31, 4096), False),
+        (KernelSpec(2 ** 29, 4096, kernel="dequant", rows=4), False),
         (FlashSpec(2, 1024, 16, 96, kv_heads=8), False),
         (FlashSpec(2, 1024, 16, 256, kv_heads=8), False),
         (trailer_mismatch_kernel_spec(), False),

@@ -24,8 +24,15 @@ all-reduce. The schedule is the reference's ``_fused_ring_all_reduce``:
     chunk (i + 1) mod w;
   * Share-Only: rank i quantizes its reduced chunk once and every hop
     forwards the received message verbatim; at the end each rank
-    dequantizes all w messages in one ``dequant_accumulate(acc=None)``,
-    so every rank ends with bit-identical values.
+    dequantizes all w messages in one ``dequant_gather``, so every rank
+    ends with bit-identical values.
+
+Each message is written once, by the kernel that makes it, into the buffer
+that crosses the wire, and read where it landed: the quantizing kernels
+write the payload and the scales into the message (the scales as an f32
+view of the trailer where it starts on 4 bytes, else beside it, copied in);
+a rank's Share-Only messages land in the rows of one gather buffer, which
+``dequant_gather`` reads in place and writes in chunk order.
 
 The fused payload is int8 or fp8 e4m3 (bitcast to int8 bytes on the wire,
 the same message size); :func:`fused_wire_all_reduce` also runs the bf16
@@ -38,7 +45,8 @@ forwards that payload verbatim. The kernels are
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from functools import partial
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,9 +64,11 @@ from repro_torch.kernels.quant_ring import (
     cast_pack_bf16,
     dequant_accumulate,
     dequant_add_quantize,
+    dequant_gather,
     hop_message_layout,
     quantize_pack,
 )
+from repro_torch.spans import span
 
 QMAX = 127.0  # symmetric int8 range
 
@@ -113,6 +123,35 @@ def unpack_hop_message(msg: torch.Tensor, n_blocks: int, block: int,
     q = msg[:n].view(n_blocks, block).view(wire_dtype)
     scales = msg[n:].clone().view(torch.float32)
     return q, scales
+
+
+def _message_parts(msgs: torch.Tensor, n_blocks: int, block: int,
+                   wire_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(payload, scales) of wire messages, each along the last dim, where
+    they lie: the payload ``(..., n_blocks, block)`` a view, the scales
+    ``(..., n_blocks)`` a view of the trailer where it starts on 4 bytes,
+    else a copy."""
+    n = n_blocks * block
+    q = msgs[..., :n].unflatten(-1, (n_blocks, block)).view(wire_dtype)
+    trailer = msgs[..., n:]
+    if n % SCALE_BYTES:
+        trailer = trailer.clone(memory_format=torch.contiguous_format)
+    return q, trailer.view(torch.float32)
+
+
+def _write_message(msg: torch.Tensor, make: Callable, n_blocks: int,
+                   block: int, wire_dtype) -> torch.Tensor:
+    """``msg`` filled by ``make(out=(payload, scales))``, the kernel that
+    makes the message: the payload written where it lies, the scales too
+    where the trailer starts on 4 bytes, else beside it and copied in."""
+    n = n_blocks * block
+    q = msg[:n].view(n_blocks, block).view(wire_dtype)
+    if n % SCALE_BYTES == 0:
+        make(out=(q, msg[n:].view(torch.float32)))
+    else:
+        _, scales = make(out=(q, msg.new_empty(n_blocks, dtype=torch.float32)))
+        msg[n:].copy_(scales.view(torch.int8))
+    return msg
 
 
 def _fused_chunk_layout(n: int, w: int, block: int) -> Tuple[int, int, int]:
@@ -209,63 +248,75 @@ def _fused_ring_all_reduce(xs: Sequence[torch.Tensor], ring: LocalRing, *,
                            block: int, wire_dtype=torch.int8,
                            first_hop: Optional[Sequence[torch.Tensor]] = None,
                            ) -> List[torch.Tensor]:
-    """The fused ring: one packed message per hop.
+    """The fused ring: one packed message per hop, each written by the
+    kernel that makes it into the buffer that crosses the wire.
 
     ``wire_dtype`` is the payload (int8 or float8_e4m3fn, both one byte per
     element and the same message layout). ``first_hop[r]`` is an optional
     pre-packed message for rank r's first Share-Reduce send (error
-    feedback's already-quantized chunk).
+    feedback's already-quantized chunk). Under a profiler the taking of the
+    chunks and the gather buffers is the span ``fused.layout``, with the
+    bytes of the call's messages that their kernels wrote where they cross
+    the wire and the bytes that went through a copy (error feedback's
+    packed first hops, and the scales where a trailer is off 4 bytes), each
+    summed over the ranks.
     """
     w = ring.size
     n = xs[0].numel()
     c_pad, nb, pad = _fused_chunk_layout(n, w, block)
     b = c_pad // nb
-    chunks = [_padded_blocks(x, pad, w * nb).view(w, nb, b) for x in xs]
+    msg_bytes = nb * (b + SCALE_BYTES)
+    made = w * w if first_hop is None else w * (w - 1)
+    trailer_copied = nb * SCALE_BYTES if (nb * b) % SCALE_BYTES else 0
+    with span("fused.layout", made * (msg_bytes - trailer_copied),
+              made * trailer_copied + (w * w - made) * msg_bytes):
+        chunks = [_padded_blocks(x, pad, w * nb).view(w, nb, b) for x in xs]
+        # rank i's Share-Only messages: row 0 its own, row s+1 hop s's
+        gathers = [torch.empty((w, msg_bytes), dtype=torch.int8, device=x.device)
+                   for x in xs]
 
-    def quant_pack(blocks2d: torch.Tensor) -> torch.Tensor:
-        return pack_hop_message(*quantize_pack(blocks2d, wire_dtype))
+    def message(i: int, make: Callable) -> torch.Tensor:
+        msg = torch.empty(msg_bytes, dtype=torch.int8, device=xs[i].device)
+        return _write_message(msg, make, nb, b, wire_dtype)
 
     # Share-Reduce: chunk (i-s-1) is read exactly once, at its own hop; the
     # last hop's accumulate produces rank i's reduced chunk (i+1) % w
     if first_hop is not None:
         sends = list(first_hop)
     else:
-        sends = [quant_pack(chunks[i][i]) for i in range(w)]
+        sends = [message(i, partial(quantize_pack, chunks[i][i], wire_dtype))
+                 for i in range(w)]
     reduced_own: List[torch.Tensor] = [None] * w
     for s in range(w - 1):
         recvs = ring.hop(sends)
         sends = []
         for i in range(w):
             local = chunks[i][(i - s - 1) % w]
-            q, scales = unpack_hop_message(recvs[i], nb, b, wire_dtype)
+            q, scales = _message_parts(recvs[i], nb, b, wire_dtype)
             if s < w - 2:
-                sends.append(pack_hop_message(*dequant_add_quantize(q, scales, local)))
+                sends.append(message(i, partial(dequant_add_quantize, q, scales,
+                                                local)))
             else:
                 reduced_own[i] = dequant_accumulate(q, scales, local)
 
-    # Share-Only: quantize the owned chunk once and forward received
-    # messages verbatim; the owner reads back its own quantized payload
-    msgs = [[quant_pack(reduced_own[i])] for i in range(w)]
-    sends = [m[0] for m in msgs]
+    # Share-Only: quantize the owned chunk once into row 0 and forward each
+    # received row verbatim into the next rank's next row
+    for g, own in zip(gathers, reduced_own):
+        _write_message(g[0], partial(quantize_pack, own, wire_dtype), nb, b,
+                       wire_dtype)
     for s in range(w - 1):
-        sends = ring.hop(sends)
-        for i in range(w):
-            msgs[i].append(sends[i])
+        ring.hop([g[s] for g in gathers], into=[g[s + 1] for g in gathers])
 
-    outs = []
-    for i, x in enumerate(xs):
-        q_all = torch.stack([m[: nb * b] for m in msgs[i]]).view(
-            w * nb, b).view(wire_dtype)
-        scales_all = torch.stack([m[nb * b:] for m in msgs[i]]).view(
-            torch.float32).view(-1)
-        deq = dequant_accumulate(q_all, scales_all, None).view(w, nb, b)
-        outs.append(_unpad(_place_gathered(deq, i, w), x))
-    return outs
+    # row r of rank i's gather holds chunk (i + 1 - r) % w
+    return [_unpad(dequant_gather(*_message_parts(g, nb, b, wire_dtype),
+                                  (i + 1) % w), x)
+            for i, (g, x) in enumerate(zip(gathers, xs))]
 
 
 def _place_gathered(gathered: torch.Tensor, i: int, w: int) -> torch.Tensor:
-    """Rank i's gathered Share-Only messages, in arrival order (its own
-    chunk (i+1) % w, then chunk (i-s) % w at hop s), put in chunk order."""
+    """Rank i's gathered bf16 Share-Only messages, upcast, in arrival order
+    (its own chunk (i+1) % w, then chunk (i-s) % w at hop s), put in chunk
+    order."""
     out = torch.empty_like(gathered)
     out[(i + 1) % w] = gathered[0]
     for s in range(w - 1):

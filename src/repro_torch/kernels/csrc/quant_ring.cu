@@ -28,7 +28,11 @@
 // the row's amax is a block reduction, and the second pass reads the row
 // again from L1/L2 rather than holding it in registers, which puts no limit
 // on the row length. The dequantizers take one row per thread block as
-// well, so each thread reads its row's scale once. The bf16 kernels have no
+// well, so each thread reads its row's scale once. The quantizing kernels
+// write payload and scales through two pointers, so the ring points them
+// into one wire message (the payload, then its trailer); dequant reads the
+// Share-Only gather's messages where they landed, a message apart, and
+// writes each to its chunk's place in the sum. The bf16 kernels have no
 // rows (no scales): a flat grid-stride loop over all elements.
 //   cast_pack_bf16 moves 16 bytes a load: a block of kCastThreads casts
 // kCastVecs * kCastThreads consecutive float4s, each thread kCastVecs of
@@ -168,14 +172,24 @@ dequant_accumulate_kernel(const typename W::T* __restrict__ q,
     out[base + i] = dequant_add<W>(q[base + i], s, acc[base + i]);
 }
 
+// `rows` messages of n_blocks sub-blocks each, message r's payload q_row
+// elements and its scales s_row floats past message r-1's (the rows of one
+// gather buffer: each message's scales are its own trailer); message r is
+// written to chunk (first - r) mod rows of out. One sub-block a thread block.
 template <class W>
 __global__ void __launch_bounds__(kRowThreads)
-dequant_kernel(const typename W::T* __restrict__ q, const float* __restrict__ scales,
-               float* __restrict__ out, int64_t block) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
-  const float s = scales[blockIdx.x];
+dequant_kernel(const typename W::T* __restrict__ q, int64_t q_row,
+               const float* __restrict__ scales, int64_t s_row,
+               float* __restrict__ out, int64_t n_blocks, int64_t block,
+               int64_t rows, int64_t first) {
+  const int64_t r = blockIdx.x / n_blocks;
+  const int64_t j = blockIdx.x - r * n_blocks;
+  const int64_t chunk = (first - r + rows) % rows;
+  const typename W::T* __restrict__ src = q + r * q_row + j * block;
+  float* __restrict__ dst = out + (chunk * n_blocks + j) * block;
+  const float s = scales[r * s_row + j];
   for (int64_t i = threadIdx.x; i < block; i += kRowThreads)
-    out[base + i] = __fmul_rn(W::decode(q[base + i]), s);
+    dst[i] = __fmul_rn(W::decode(src[i]), s);
 }
 
 // Four f32 values as four bf16 in one 8-byte word, the first in the low half.
@@ -290,12 +304,13 @@ int launch_dequant_accumulate(const void* q, const void* scales, const void* acc
 }
 
 template <class W>
-int launch_dequant(const void* q, const void* scales, void* out, int64_t n_blocks,
-                   int64_t block, void* stream) {
-  dequant_kernel<W><<<static_cast<unsigned int>(n_blocks), kRowThreads, 0,
+int launch_dequant(const void* q, int64_t q_row, const void* scales, int64_t s_row,
+                   void* out, int64_t rows, int64_t n_blocks, int64_t block,
+                   int64_t first, void* stream) {
+  dequant_kernel<W><<<static_cast<unsigned int>(rows * n_blocks), kRowThreads, 0,
                       as_stream(stream)>>>(
-      static_cast<const typename W::T*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(out), block);
+      static_cast<const typename W::T*>(q), q_row, static_cast<const float*>(scales),
+      s_row, static_cast<float*>(out), n_blocks, block, rows, first);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -346,14 +361,21 @@ int quant_ring_dequant_accumulate_fp8(const void* q, const void* scales,
                                             stream);
 }
 
-int quant_ring_dequant(const void* q, const void* scales, void* out,
-                       int64_t n_blocks, int64_t block, void* stream) {
-  return launch_dequant<Int8Wire>(q, scales, out, n_blocks, block, stream);
+// rows messages, each n_blocks sub-blocks, message r to chunk (first - r)
+// mod rows (0 <= first < rows); rows = 1, first = 0 is one (n_blocks, block)
+// payload dequantized in place order.
+int quant_ring_dequant(const void* q, int64_t q_row, const void* scales,
+                       int64_t s_row, void* out, int64_t rows, int64_t n_blocks,
+                       int64_t block, int64_t first, void* stream) {
+  return launch_dequant<Int8Wire>(q, q_row, scales, s_row, out, rows, n_blocks,
+                                  block, first, stream);
 }
 
-int quant_ring_dequant_fp8(const void* q, const void* scales, void* out,
-                           int64_t n_blocks, int64_t block, void* stream) {
-  return launch_dequant<Fp8Wire>(q, scales, out, n_blocks, block, stream);
+int quant_ring_dequant_fp8(const void* q, int64_t q_row, const void* scales,
+                           int64_t s_row, void* out, int64_t rows, int64_t n_blocks,
+                           int64_t block, int64_t first, void* stream) {
+  return launch_dequant<Fp8Wire>(q, q_row, scales, s_row, out, rows, n_blocks,
+                                 block, first, stream);
 }
 
 // Whole float4s where x is on 16 bytes and out on 8, else every element one by one.

@@ -11,7 +11,12 @@ functions on ``(n_blocks, block)`` arrays, one f32 scale per sub-block row:
   * :func:`dequant_add_quantize` — the steady Share-Reduce hop
     ``Q(acc + q * scale)`` in one pass, in the wire dtype of ``q``;
   * :func:`dequant_accumulate` — the receive side ``acc + q * scale`` in
-    f32, or the plain ``q * scale`` with ``acc=None``.
+    f32, or the plain ``q * scale`` with ``acc=None``;
+  * :func:`dequant_gather` — the Share-Only gather's ``q * scale`` over w
+    messages where they lie, each written to its chunk's place.
+
+The two quantizing functions take ``out=(payload, scales)``, the tensors to
+write, so that the ring hands them the two parts of one wire message.
 
 The bf16 wire carries no scales (bf16 keeps f32's exponent):
 
@@ -135,6 +140,12 @@ def dequant_accumulate_plain(q: torch.Tensor, scales: torch.Tensor,
     return out if acc is None else acc + out
 
 
+def dequant_gather_plain(q: torch.Tensor, scales: torch.Tensor,
+                         first: int) -> torch.Tensor:
+    w = q.shape[0]
+    return (q.float() * scales[:, :, None])[[(first - c) % w for c in range(w)]]
+
+
 def cast_pack_bf16_plain(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16)
 
@@ -160,7 +171,7 @@ _SIGNATURES = {
     "quantize_pack": [_PTR, _PTR, _PTR, _I64, _I64],
     "dequant_add_quantize": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64],
     "dequant_accumulate": [_PTR, _PTR, _PTR, _PTR, _I64, _I64],
-    "dequant": [_PTR, _PTR, _PTR, _I64, _I64],
+    "dequant": [_PTR, _I64, _PTR, _I64, _PTR, _I64, _I64, _I64, _I64],
 }
 _SIGNATURES.update({f"{name}_fp8": args for name, args in _SIGNATURES.items()})
 _SIGNATURES.update({
@@ -207,22 +218,45 @@ def _rows(x: torch.Tensor, name: str) -> Tuple[int, int]:
     return nb, block
 
 
-def quantize_pack(x: torch.Tensor, wire_dtype=torch.int8
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+Parts = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _outputs(out: Optional[Parts], nb: int, block: int, wire_dtype,
+             device: torch.device) -> Parts:
+    """The ``(payload, scales)`` a quantizing kernel writes: ``out``, checked,
+    or two new tensors."""
+    if out is None:
+        return (torch.empty((nb, block), dtype=wire_dtype, device=device),
+                torch.empty((nb,), dtype=torch.float32, device=device))
+    q, scales = out
+    _check(q, "out payload", wire_dtype, (nb, block), device)
+    _check(scales, "out scales", torch.float32, (nb,), device)
+    return q, scales
+
+
+def _filled(out: Parts, got: Parts) -> Parts:
+    """A plain version's result, written into ``out``."""
+    for o, g in zip(out, got):
+        o.copy_(g)
+    return out
+
+
+def quantize_pack(x: torch.Tensor, wire_dtype=torch.int8, *,
+                  out: Optional[Parts] = None) -> Parts:
     """Blockwise quantization of a ``(n_blocks, block)`` f32 tensor.
 
     Returns ``(q, scales)``: ``q`` of ``x``'s shape in ``wire_dtype`` (int8
     or float8_e4m3fn) and f32 ``scales`` of shape ``(n_blocks,)``,
-    ``scales[i] = max|x[i]| / qmax`` (1.0 for an all-zero row). Replaces
-    ``quantize_pack_pallas``.
+    ``scales[i] = max|x[i]| / qmax`` (1.0 for an all-zero row), written into
+    ``out`` where it is given (contiguous tensors of those dtypes and
+    shapes). Replaces ``quantize_pack_pallas``.
     """
     wire_qmax(wire_dtype)
     nb, block = _rows(x, "x")
     _check(x, "x", torch.float32, (nb, block), x.device)
+    q, scales = _outputs(out, nb, block, wire_dtype, x.device)
     if not build.route("quant-ring", x):
-        return quantize_pack_plain(x, wire_dtype)
-    q = torch.empty((nb, block), dtype=wire_dtype, device=x.device)
-    scales = torch.empty((nb,), dtype=torch.float32, device=x.device)
+        return _filled((q, scales), quantize_pack_plain(x, wire_dtype))
     if x.numel():
         LIB.launch(_kernel_name("quantize_pack", wire_dtype), x.device,
                    x.data_ptr(), q.data_ptr(), scales.data_ptr(), nb, block)
@@ -230,20 +264,20 @@ def quantize_pack(x: torch.Tensor, wire_dtype=torch.int8
 
 
 def dequant_add_quantize(q: torch.Tensor, scales: torch.Tensor,
-                         acc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                         acc: torch.Tensor, *,
+                         out: Optional[Parts] = None) -> Parts:
     """The Share-Reduce hop ``Q(acc + q * scales)`` in one pass: ``q``
     (int8 or float8_e4m3fn; the output keeps its dtype) and f32 ``acc`` of
     shape ``(n_blocks, block)``, f32 ``scales`` of shape ``(n_blocks,)``.
-    Returns ``(q', scales')`` for the next hop. Replaces
-    ``dequant_add_quantize_pallas``."""
+    Returns ``(q', scales')`` for the next hop, written into ``out`` where
+    it is given. Replaces ``dequant_add_quantize_pallas``."""
     nb, block = _rows(q, "q")
     _check(q, "q", WIRE_DTYPES, (nb, block), q.device)
     _check(scales, "scales", torch.float32, (nb,), q.device)
     _check(acc, "acc", torch.float32, (nb, block), q.device)
+    q_out, s_out = _outputs(out, nb, block, q.dtype, q.device)
     if not build.route("quant-ring", q):
-        return dequant_add_quantize_plain(q, scales, acc)
-    q_out = torch.empty((nb, block), dtype=q.dtype, device=q.device)
-    s_out = torch.empty((nb,), dtype=torch.float32, device=q.device)
+        return _filled((q_out, s_out), dequant_add_quantize_plain(q, scales, acc))
     if q.numel():
         LIB.launch(_kernel_name("dequant_add_quantize", q.dtype), q.device,
                    q.data_ptr(), scales.data_ptr(), acc.data_ptr(),
@@ -269,11 +303,49 @@ def dequant_accumulate(q: torch.Tensor, scales: torch.Tensor,
         return out
     if acc is None:
         LIB.launch(_kernel_name("dequant", q.dtype), q.device, q.data_ptr(),
-                   scales.data_ptr(), out.data_ptr(), nb, block)
+                   nb * block, scales.data_ptr(), nb, out.data_ptr(), 1, nb,
+                   block, 0)
     else:
         LIB.launch(_kernel_name("dequant_accumulate", q.dtype), q.device,
                    q.data_ptr(), scales.data_ptr(), acc.data_ptr(),
                    out.data_ptr(), nb, block)
+    return out
+
+
+def dequant_gather(q: torch.Tensor, scales: torch.Tensor,
+                   first: int) -> torch.Tensor:
+    """The Share-Only gather's dequantization, one launch for all its
+    messages where they landed: ``q`` a ``(w, n_blocks, block)`` int8 or
+    float8_e4m3fn payload and ``scales`` its ``(w, n_blocks)`` f32 scales,
+    each contiguous within a message and any number of elements from one
+    message to the next (the rows of one gather buffer, each message's
+    scales its own trailer). Message r holds chunk ``(first - r) mod w``;
+    returns the f32 ``(w, n_blocks, block)`` sum in chunk order, ``out[(first
+    - r) % w] = q[r] * scales[r]``. The kernel is ``dequant_accumulate``'s
+    with ``acc=None``, which is w = 1."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be 3-D (w, n_blocks, block), got {tuple(q.shape)}")
+    w, nb, block = q.shape
+    if w * nb >= 2 ** 31:
+        raise ValueError(f"q has {w * nb} sub-blocks; the kernel takes < 2**31")
+    if not 0 <= first < w:
+        raise ValueError(f"first must lie in [0, {w}), got {first}")
+    if q.dtype not in WIRE_DTYPES:
+        raise TypeError(f"q must be int8 or {FP8_DTYPE}, got {q.dtype}")
+    if scales.dtype != torch.float32 or tuple(scales.shape) != (w, nb):
+        raise ValueError(f"scales must be f32 of shape {(w, nb)}, got "
+                         f"{scales.dtype} {tuple(scales.shape)}")
+    if scales.device != q.device:
+        raise ValueError(f"scales is on {scales.device}, expected {q.device}")
+    if w and not (q[0].is_contiguous() and scales[0].is_contiguous()):
+        raise ValueError("each message of q and scales must be contiguous")
+    if not build.route("quant-ring", q):
+        return dequant_gather_plain(q, scales, first)
+    out = torch.empty((w, nb, block), dtype=torch.float32, device=q.device)
+    if q.numel():
+        LIB.launch(_kernel_name("dequant", q.dtype), q.device, q.data_ptr(),
+                   q.stride(0), scales.data_ptr(), scales.stride(0),
+                   out.data_ptr(), w, nb, block, first)
     return out
 
 

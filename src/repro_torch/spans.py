@@ -31,6 +31,13 @@ The spans, outermost first (each nests in the one above it):
   around them (once a leaf in mode ``ring``); ``viewed`` and ``copied``, the
   bytes taken as views of the ranks' own tensors and the bytes put in
   padded copies, each summed over the ranks;
+* ``fused.layout`` (``dist/compression.py`` ``_fused_ring_all_reduce``):
+  the fused int8/fp8 ring's taking of one call's chunks and gather
+  buffers, before its hops (once a leaf in the fused quantized modes);
+  ``in_place`` and ``copied``, the bytes of the call's wire messages that
+  the kernel making each wrote where it crosses the wire and the reader
+  read where it landed, and the bytes that went through a copy, each
+  summed over the ranks;
 * ``ring.hop`` (``LocalRing.permute``): one ppermute; ``bytes``, what it
   adds to ``LocalRing.bytes`` summed over the ranks;
 * ``step.update`` (``make_ring_train_step``): the optimizer on each

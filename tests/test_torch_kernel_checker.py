@@ -231,6 +231,11 @@ def test_kernel_checker_executes_small_configs_on_the_cpu(capsys):
                    "bf16_accumulate", "dequant"):
         assert akern.execute_spec(akern.KernelSpec(3, 40, kernel=kernel),
                                   "cpu") is None
+    # the Share-Only gather, its trailers on 4 bytes and off them
+    for kernel, block in (("dequant", 40), ("dequant_fp8", 33)):
+        assert akern.execute_spec(akern.KernelSpec(3, block, kernel=kernel, rows=4),
+                                  "cpu") is None
+    assert not akern.check_spec(akern.KernelSpec(3, 40, rows=4)).ok
 
 
 def test_launch_configs_need_a_card():

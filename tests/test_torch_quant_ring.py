@@ -11,7 +11,13 @@ may lower ``amax / 127`` as a multiply by the reciprocal (one ulp on a few
 scales) and contracts ``acc + q * scale`` into an FMA, which the port never
 does; so the f32 dequantization is held at rtol/atol 1e-6, as the
 reference's own dequant test holds it.
+
+The fused ring's in-place forms (B1 and B2 writing into one message buffer,
+``dequant_gather`` reading the Share-Only messages where they landed and
+writing chunk order) are held bit for bit to the copying forms they replace.
 """
+
+from functools import partial
 
 import jax.numpy as jnp
 import numpy as np
@@ -157,3 +163,102 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         # no kernel and no plain fallback for a device that is neither
         qr.quantize_pack(torch.zeros((2, 8), device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# the in-place forms against the copying forms they replace
+# ---------------------------------------------------------------------------
+
+WIRES = [torch.int8, torch.float8_e4m3fn]
+# (7, 33) and (2, 37): 231 and 74 payload bytes, trailers off 4 bytes
+GATHER_SHAPES = [(1, 1), (2, 37), (3, 128), (7, 33)]
+
+
+def same_bits(*pairs) -> bool:
+    """Every pair of tensors of one dtype and shape, byte for byte (torch
+    has no fp8 comparison on the CPU)."""
+    return all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        for a, b in pairs)
+
+
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("nb,block", SHAPES)
+def test_messages_written_in_place_equal_packed_ones(wire, nb, block):
+    """B1 and B2 writing into a message buffer (``_write_message``) leave
+    the bytes ``pack_hop_message`` packs; ``_message_parts`` reads the
+    payload where it lies, and the scales too where the trailer is on 4
+    bytes."""
+    x, acc = (torch.from_numpy(make_rows(nb, block, seed=s)) for s in (9, 10))
+    size = nb * (block + qr.SCALE_BYTES)
+    msg = comp._write_message(torch.full((size,), 7, dtype=torch.int8),
+                              partial(qr.quantize_pack, x, wire), nb, block, wire)
+    assert torch.equal(msg, comp.pack_hop_message(*qr.quantize_pack(x, wire)))
+    q, scales = comp._message_parts(msg, nb, block, wire)
+    assert q.dtype == wire and q.data_ptr() == msg.data_ptr()
+    assert (scales.data_ptr() == msg.data_ptr() + nb * block) == (
+        nb * block % 4 == 0)
+    assert same_bits(*zip((q, scales), comp.unpack_hop_message(msg, nb, block, wire)))
+    hop = comp._write_message(torch.full((size,), 7, dtype=torch.int8),
+                              partial(qr.dequant_add_quantize, q, scales, acc),
+                              nb, block, wire)
+    assert torch.equal(hop, comp.pack_hop_message(
+        *qr.dequant_add_quantize(q, scales, acc)))
+
+
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("nb,block", GATHER_SHAPES)
+@pytest.mark.parametrize("w", (2, 3, 4, 5))
+def test_dequant_gather_equals_stack_dequant_and_placement(wire, w, nb, block):
+    """One ``dequant_gather`` over a rank's gather buffer, its messages a
+    row apart, equals the stack of the w messages, one ``dequant_accumulate``
+    and ``_place_gathered``, for every rank's chunk map."""
+    x = torch.from_numpy(make_rows(w * nb, block, seed=w * nb + block))
+    q, scales = qr.quantize_pack(x, wire)
+    gather = torch.stack([comp.pack_hop_message(q[r * nb:(r + 1) * nb],
+                                                scales[r * nb:(r + 1) * nb])
+                          for r in range(w)])
+    deq = qr.dequant_accumulate(q, scales).view(w, nb, block)
+    for i in range(w):
+        got = qr.dequant_gather(*comp._message_parts(gather, nb, block, wire),
+                                (i + 1) % w)
+        assert got.shape == (w, nb, block)
+        assert torch.equal(got, comp._place_gathered(deq, i, w))
+    # one message in place order is dequant_accumulate's plain form
+    one = qr.dequant_gather(q[None, :nb], scales[None, :nb], 0)
+    assert torch.equal(one[0], qr.dequant_accumulate(q[:nb], scales[:nb]))
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_quantizing_wrappers_write_the_given_tensors(wire):
+    x = torch.from_numpy(make_rows(3, 64, seed=11))
+    out = (torch.empty((3, 64), dtype=wire), torch.empty(3))
+    got = qr.quantize_pack(x, wire, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    assert same_bits(*zip(got, qr.quantize_pack_plain(x, wire)))
+    out2 = (torch.empty((3, 64), dtype=wire), torch.empty(3))
+    got = qr.dequant_add_quantize(out[0], out[1], x, out=out2)
+    assert got[0] is out2[0] and got[1] is out2[1]
+    assert same_bits(*zip(got, qr.dequant_add_quantize_plain(out[0], out[1], x)))
+    with pytest.raises(TypeError):
+        qr.quantize_pack(x, wire, out=(torch.empty((3, 64)), out[1]))
+    with pytest.raises(ValueError):
+        qr.quantize_pack(x, wire, out=(out[0], torch.empty(4)))
+    with pytest.raises(ValueError):
+        qr.dequant_add_quantize(out[0], out[1], x,
+                                out=(torch.empty((64, 3), dtype=wire).t(), out[1]))
+
+
+def test_dequant_gather_rejects_what_the_kernel_does_not_take():
+    q, s = qr.quantize_pack(torch.from_numpy(make_rows(6, 8, seed=12)))
+    q3, s2 = q.view(3, 2, 8), s.view(3, 2)
+    with pytest.raises(ValueError, match="first"):
+        qr.dequant_gather(q3, s2, 3)
+    with pytest.raises(ValueError, match="3-D"):
+        qr.dequant_gather(q, s2, 0)
+    with pytest.raises(ValueError, match="scales"):
+        qr.dequant_gather(q3, s, 0)
+    with pytest.raises(TypeError):
+        qr.dequant_gather(q3.float(), s2, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        qr.dequant_gather(q.view(3, 8, 2).transpose(1, 2), s2, 0)

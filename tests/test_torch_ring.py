@@ -1,6 +1,11 @@
 """The port's rings (``repro_torch.dist``) held against the JAX package's
 ``ring_all_reduce`` and ``compressed_ring_all_reduce(fused=True)``.
 
+The fused ring writes each message where it crosses the wire and reads it
+where it lands; its copying form (each message packed by a copy, the
+Share-Only messages stacked, dequantized and put in chunk order by copies)
+is kept below as the oracle the in-place form is held to bit for bit.
+
 The JAX references run under ``jax.shard_map(..., check_vma=False)`` on w
 host devices, all in one subprocess (this file run as a script) that
 writes ``.npz``; ``check_vma=False`` is what the reference's own trainer
@@ -21,6 +26,7 @@ Tolerances:
     case, and besides that two elements one full step apart at w=3, d=513.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -31,6 +37,8 @@ import pytest
 import torch
 
 from repro.core.rar_model import wire_formula
+from repro_torch import spans
+from repro_torch.dist import compression as comp
 from repro_torch.dist.collectives import (
     LocalRing,
     ring_all_reduce,
@@ -43,7 +51,15 @@ from repro_torch.dist.compression import (
     compressed_ring_all_reduce,
     compressed_ring_ppermutes,
     compressed_wire_bytes,
+    ef_compressed_all_reduce,
+    fused_wire_all_reduce,
 )
+from repro_torch.dist.overlap import (
+    bucketed_ring_reduce,
+    plan_bucket_sizes,
+    tree_leaves,
+)
+from repro_torch.kernels import quant_ring as qr
 
 BLOCK = 128
 WS = (2, 3, 4)
@@ -256,6 +272,194 @@ def test_one_rank_rings_pass_through():
     assert torch.equal(out[0], out[1])
     assert ring2.messages == [compressed_ring_ppermutes(2)] * 2 == [4, 4]
     assert ring2.bytes == [compressed_wire_bytes(77, 2)] * 2
+
+
+# ---------------------------------------------------------------------------
+# the fused ring in place, held to its copying form
+# ---------------------------------------------------------------------------
+
+FUSED_WS = (2, 3, 4, 5)
+# one element; a chunk under a sub-block whose trailer is off 4 bytes at
+# w = 2, 3, 4 (on them at 5); padded chunks of whole sub-blocks
+FUSED_SIZES = (1, 37, 4 * 4096 + 5, 70_001)
+FUSED_WIRES = {"int8": torch.int8, "fp8": qr.FP8_DTYPE}
+
+
+def copying_fused_ring(xs, ring, *, block, wire_dtype=torch.int8,
+                       first_hop=None):
+    """The fused ring in its copying form: every message packed by
+    ``pack_hop_message`` and its scales cloned out on receipt, the w
+    Share-Only messages stacked, dequantized in arrival order and put in
+    chunk order by ``_place_gathered``."""
+    w = ring.size
+    c_pad, nb, pad = _fused_chunk_layout(xs[0].numel(), w, block)
+    b = c_pad // nb
+    chunks = [comp._padded_blocks(x, pad, w * nb).view(w, nb, b) for x in xs]
+
+    def quant_pack(blocks2d):
+        return comp.pack_hop_message(*qr.quantize_pack(blocks2d, wire_dtype))
+
+    sends = list(first_hop) if first_hop is not None else [
+        quant_pack(chunks[i][i]) for i in range(w)]
+    reduced_own = [None] * w
+    for s in range(w - 1):
+        recvs = ring.hop(sends)
+        sends = []
+        for i in range(w):
+            local = chunks[i][(i - s - 1) % w]
+            q, scales = comp.unpack_hop_message(recvs[i], nb, b, wire_dtype)
+            if s < w - 2:
+                sends.append(comp.pack_hop_message(
+                    *qr.dequant_add_quantize(q, scales, local)))
+            else:
+                reduced_own[i] = qr.dequant_accumulate(q, scales, local)
+    msgs = [[quant_pack(reduced_own[i])] for i in range(w)]
+    sends = [m[0] for m in msgs]
+    for s in range(w - 1):
+        sends = ring.hop(sends)
+        for i in range(w):
+            msgs[i].append(sends[i])
+    outs = []
+    for i, x in enumerate(xs):
+        q_all = torch.stack([m[:nb * b] for m in msgs[i]]).view(
+            w * nb, b).view(wire_dtype)
+        scales_all = torch.stack([m[nb * b:] for m in msgs[i]]).view(
+            torch.float32).view(-1)
+        deq = qr.dequant_accumulate(q_all, scales_all, None).view(w, nb, b)
+        outs.append(comp._unpad(comp._place_gathered(deq, i, w), x))
+    return outs
+
+
+class RecordingRing(LocalRing):
+    """A ring that keeps a copy of every message it carries, in order."""
+
+    def __init__(self, devices):
+        super().__init__(devices)
+        self.sent = []
+
+    def permute(self, sends, perm, into=None):
+        self.sent.append([m.clone() for m in sends])
+        return super().permute(sends, perm, into)
+
+
+def _traced(fn):
+    """``fn()``'s result, and the inputs of its ``ring.hop`` and
+    ``fused.layout`` spans in order."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                record_shapes=True) as prof:
+        out = fn()
+    events = sorted((e for e in prof.events() if e.name.startswith(spans.PREFIX)),
+                    key=lambda e: e.time_range.start)
+    return out, {name: [list(e.concrete_inputs) for e in events
+                        if e.name == spans.PREFIX + name]
+                 for name in ("ring.hop", "fused.layout")}
+
+
+def _both_forms(run, w, monkeypatch):
+    """``run(ring)`` through the in-place ring and through its copying
+    form: each side's result, ring and spans."""
+    sides = []
+    for form in ("in place", "copying"):
+        if form == "copying":
+            monkeypatch.setattr(comp, "_fused_ring_all_reduce", copying_fused_ring)
+        ring = RecordingRing(["cpu"] * w)
+        out, traced = _traced(lambda: run(ring))
+        sides.append((out, ring, traced))
+    monkeypatch.undo()
+    return sides
+
+
+def _assert_same_wire(got, want):
+    """The same hops with the same messages, byte for byte, and counts."""
+    (_, ring, traced), (_, ring0, traced0) = got, want
+    assert len(ring.sent) == len(ring0.sent)
+    for hop, hop0 in zip(ring.sent, ring0.sent):
+        assert all(torch.equal(m, m0) for m, m0 in zip(hop, hop0))
+    assert (ring.messages, ring.bytes, ring.directions) == (
+        ring0.messages, ring0.bytes, ring0.directions)
+    assert traced["ring.hop"] == traced0["ring.hop"]
+    assert sum(i[0] for i in traced["ring.hop"]) == sum(ring.bytes)
+
+
+def _layout_counts(n, w, *, first_hop=False):
+    """``fused.layout``'s (in_place, copied) for one all-reduce of n
+    elements: w messages a rank, the scales copied where the trailer is off
+    4 bytes, error feedback's w packed first hops copied."""
+    c_pad, nb, _ = _fused_chunk_layout(n, w, 4096)
+    msg = c_pad + 4 * nb
+    trailer = 4 * nb if c_pad % 4 else 0
+    made = w * (w - 1) if first_hop else w * w
+    return [made * (msg - trailer), made * trailer + (w * w - made) * msg]
+
+
+def _rank_inputs(w, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(n, generator=gen) * (r + 1) for r in range(w)]
+
+
+@pytest.mark.parametrize("n", FUSED_SIZES)
+@pytest.mark.parametrize("w", FUSED_WS)
+@pytest.mark.parametrize("wire", list(FUSED_WIRES))
+def test_fused_ring_in_place_bit_identical_to_its_copying_form(
+        wire, w, n, monkeypatch):
+    """Every rank's sum, every message and every count equal the copying
+    form's; ``fused.layout`` counts w messages a rank in place, and copies
+    only the scales of a trailer that is off 4 bytes."""
+    xs = _rank_inputs(w, n, 31 * w + n)
+    if wire == "int8":
+        def run(ring):
+            return compressed_ring_all_reduce(xs, ring, fused=True)
+    else:
+        def run(ring):
+            return fused_wire_all_reduce(xs, ring, wire=wire)
+    got, want = _both_forms(run, w, monkeypatch)
+    for a, b in zip(got[0], want[0]):
+        assert a.shape == b.shape and torch.equal(a, b)
+    _assert_same_wire(got, want)
+    counts = _layout_counts(n, w)
+    assert got[2]["fused.layout"] == [counts]
+    c_pad, _, _ = _fused_chunk_layout(n, w, 4096)
+    assert (counts[1] == 0) == (c_pad % 4 == 0)
+
+
+@pytest.mark.parametrize("n", FUSED_SIZES)
+@pytest.mark.parametrize("w", FUSED_WS)
+def test_ef_fused_ring_in_place_bit_identical_to_its_copying_form(
+        w, n, monkeypatch):
+    """Error feedback's fused ring, whose first hop forwards each rank's
+    packed payload: the same sums, residuals, messages and counts as
+    through the copying form; the w packed first hops count as copied."""
+    gs = _rank_inputs(w, n, 7 * w + n)
+    res = [g * 1e-3 for g in _rank_inputs(w, n, 5 * w + n)]
+    got, want = _both_forms(
+        lambda ring: ef_compressed_all_reduce(gs, res, ring, fused=True),
+        w, monkeypatch)
+    for part, part0 in zip(got[0], want[0]):
+        assert all(torch.equal(a, b) for a, b in zip(part, part0))
+    _assert_same_wire(got, want)
+    assert got[2]["fused.layout"] == [_layout_counts(n, w, first_hop=True)]
+
+
+@pytest.mark.parametrize("w", FUSED_WS)
+def test_overlap_mode_in_place_bit_identical_to_its_copying_form(
+        w, monkeypatch):
+    """The overlap mode's buckets through the int8 fused ring: the same
+    sums, messages and counts as through the copying form."""
+    sizes = {"a": (3, 5), "b": (4096 + 3,), "c": (2, 37), "d": (70_001,),
+             "e": (1,)}
+    gen = torch.Generator().manual_seed(w)
+    grads = [{k: torch.randn(shape, generator=gen) for k, shape in sizes.items()}
+             for _ in range(w)]
+    got, want = _both_forms(
+        lambda ring: bucketed_ring_reduce(grads, ring, variant="int8-fused",
+                                          n_buckets=3), w, monkeypatch)
+    for tree, tree0 in zip(got[0], want[0]):
+        assert tree.keys() == tree0.keys()
+        assert all(torch.equal(tree[k], tree0[k]) for k in tree)
+    _assert_same_wire(got, want)
+    leaves = [math.prod(shape) for _, shape in tree_leaves(sizes)]
+    assert got[2]["fused.layout"] == [
+        _layout_counts(n, w) for n in plan_bucket_sizes(leaves, 3, reverse=True)]
 
 
 def _jax_reference(inp, out):

@@ -21,6 +21,7 @@ from repro_torch import spans
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.dist.collectives import LocalRing
+from repro_torch.dist.compression import DEFAULT_BLOCK, _fused_chunk_layout
 from repro_torch.models.model import build_model
 from repro_torch.models.module import _flatten
 from repro_torch.training.elastic import ElasticTrainer, SlotPlan
@@ -74,9 +75,9 @@ def test_slot_spans_nest_and_count(mode, w):
     counts = Counter(_short(e) for e in events)
     hops = [e for e in events if _short(e) == "ring.hop"]
     leaves = len(list(_flatten(tr.model.param_specs())))
-    # beside the spans, AdamW's operator, once a leaf a step; the f32 ring
-    # takes each leaf's chunks once, the fused int8 ring has no such span
-    layout = {"ring.layout": STEPS * leaves} if mode == "ring" else {}
+    # beside the spans, AdamW's operator, once a leaf a step; each ring
+    # takes each leaf's chunks once, the fused int8 ring with its gathers
+    layout = {"ring.layout" if mode == "ring" else "fused.layout": STEPS * leaves}
     assert counts == {"slot.form": 1, "step": STEPS, "step.batch": STEPS,
                       "step.grads": STEPS * w, "step.reduce": STEPS,
                       "step.update": STEPS, "ring.hop": len(hops),
@@ -101,6 +102,17 @@ def test_slot_spans_nest_and_count(mode, w):
         assert all(len(i) == 2 for i in inputs["ring.layout"])
         assert sorted(sum(i) for i in inputs["ring.layout"]) == sorted(
             w * n for n in leaf_bytes * STEPS)
+    else:
+        # every rank's w messages a leaf, written in place but for the
+        # scales of a trailer off 4 bytes (tiny chunks), which are copied
+        assert parents["fused.layout"] == {"step.reduce"}
+        params = next(iter(tr.params.values()))
+        want = []
+        for _, v in _flatten(params):
+            c_pad, nb, _ = _fused_chunk_layout(v.numel(), w, DEFAULT_BLOCK)
+            copied = 4 * nb if c_pad % 4 else 0
+            want.append([w * w * (c_pad + 4 * nb - copied), w * w * copied])
+        assert sorted(inputs["fused.layout"]) == sorted(want * STEPS)
     for name in ("slot.form", "step") + INSIDE_STEP:
         assert all(i == [] for i in inputs[name]), name
     assert all(len(i) == 1 for i in inputs["ring.hop"])

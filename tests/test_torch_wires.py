@@ -236,7 +236,9 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
     q, s = qr.quantize_pack(x, FP8)
     q2, s2 = qr.dequant_add_quantize(q, s, x)
     h = qr.cast_pack_bf16(x)
+    gq, gs = q.view(3, 1, 64), s.view(3, 1)
     pairs = [((q, s), qr.quantize_pack_plain(x, FP8)),
+             ((qr.dequant_gather(gq, gs, 1),), (qr.dequant_gather_plain(gq, gs, 1),)),
              ((q2, s2), qr.dequant_add_quantize_plain(q, s, x)),
              ((qr.dequant_accumulate(q2, s2, x),),
               (qr.dequant_accumulate_plain(q2, s2, x),)),
